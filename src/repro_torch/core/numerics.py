@@ -1,0 +1,81 @@
+"""Integer-only arithmetic primitives (port of ``repro.core.numerics``).
+
+Every operation is closed over the integers.  ``⌊·⌋`` is floor division
+(rounds toward −∞), never C truncation.  The carrying dtype is int32 and
+int32 products wrap mod 2³², as XLA's integer dot does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INT_DTYPE = torch.int32
+# Operational range of NITRO-ReLU / int8 activations (paper §3.2).
+ACT_MIN = -127
+ACT_MAX = 127
+
+
+def to_int(x) -> torch.Tensor:
+    """Cast to the carrying integer dtype (int32)."""
+    return torch.as_tensor(x, dtype=INT_DTYPE)
+
+
+def floor_div(x: torch.Tensor, d) -> torch.Tensor:
+    """Integer floor division ⌊x/d⌋ — rounds toward −∞ like the paper."""
+    return torch.div(x, d, rounding_mode="floor")
+
+
+def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 → int32 keeping the low 32 bits (two's complement wrap)."""
+    return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
+
+
+def _matmul_f64_exact(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int32 product mod 2³² from float64 GEMMs over 16-bit limbs.
+
+    PyTorch has no integer GEMM on CUDA.  Each operand is split as
+    v = hi·2¹⁶ + lo (lo ∈ [0, 2¹⁶)); every limb product is < 2³² in
+    magnitude, so each float64 GEMM is exact for K < 2²¹, and the hi·hi
+    term vanishes mod 2³².
+    """
+    if a.shape[-1] >= 1 << 21:
+        raise ValueError(f"contraction {a.shape[-1]} too long for exact f64 limbs")
+    a64, w64 = a.to(torch.int64), w.to(torch.int64)
+    a_lo, a_hi = (a64 & 0xFFFF).double(), (a64 >> 16).double()
+    w_lo, w_hi = (w64 & 0xFFFF).double(), (w64 >> 16).double()
+    lo = (a_lo @ w_lo).to(torch.int64)
+    mid = (a_hi @ w_lo + a_lo @ w_hi).to(torch.int64)
+    return _wrap_int32(lo + ((mid & 0xFFFF) << 16))
+
+
+def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Integer matrix product with int32 accumulation (wraps mod 2³²).
+
+    Both operands are lifted to int32 first: on the CPU ``int8 @ int8``
+    returns int8 and wraps, which would break exactness.
+    """
+    a, w = a.to(INT_DTYPE), w.to(INT_DTYPE)
+    if a.device.type == "cpu":
+        return a @ w
+    return _matmul_f64_exact(a, w)
+
+
+def isqrt(n) -> torch.Tensor:
+    """Integer square root ⌊√n⌋ via a fixed 25 Newton steps, pure integer."""
+    n = to_int(n)
+    x = n.clamp(1, 46341)  # isqrt of any int32 is ≤ 46340: no overflow
+    for _ in range(25):
+        x_safe = x.clamp(min=1)
+        nxt = floor_div(x_safe + floor_div(n, x_safe), 2)
+        x = torch.where(n > 0, torch.minimum(x, nxt), torch.zeros_like(x))
+    return torch.where(n > 0, x, torch.zeros_like(x))
+
+
+def bitwidth_bound(x_bits: int, w_bits: int, fan_in: int) -> int:
+    """Paper §3.2 upper bound: b_z = x_bits + w_bits - 1 + ceil(log2(fan_in))."""
+    return x_bits + w_bits - 1 + max(int(fan_in - 1).bit_length(), 0)
+
+
+def assert_int(x: torch.Tensor, name: str = "tensor") -> None:
+    if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool:
+        raise TypeError(f"{name} must be integer, got {x.dtype}")

@@ -1,0 +1,180 @@
+"""Build, load and launch-count the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under ``_build/``
+(git-ignored, next to this module) at first use, then loaded with
+``ctypes``.  The library name carries a hash of the source, the shared
+headers and the flags, so an edited kernel is rebuilt and a stale one is
+never loaded.  ``build_all`` starts one ``nvcc`` per missing library and
+waits for all of them, so a cold start pays for the slowest build only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE / "_build"
+COMMON_HEADERS = (_HERE / "csrc_common" / "nitro_epilogue.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-I", str(_HERE / "csrc_common"),
+)
+
+#: kernel name → its CUDA source
+SOURCES = {
+    "nitro_matmul": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul.cu",
+    "stream_conv": _HERE / "nitro_conv" / "csrc" / "stream_conv.cu",
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """Thread-safe count of kernel launches (the wrapper adds one per launch)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        with self._lock:
+            return self._n
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else in PyTorch's CUDA home."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = Path(CUDA_HOME or "") / "bin" / "nvcc"
+    if CUDA_HOME and cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (not on PATH, nor under $CUDA_HOME/bin); the CUDA "
+        "kernels are compiled at first use and need the CUDA toolkit"
+    )
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in (SOURCES[name], *COMMON_HEADERS):
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path]:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _lib_path(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def build_all(names=None) -> dict[str, str]:
+    """Compile every missing library in parallel; returns name → nvcc log.
+
+    Raises ``RuntimeError`` with the compiler output if any build fails.
+    """
+    names = list(SOURCES if names is None else names)
+    with _lock:
+        jobs = {n: _start_build(n) for n in names if not _lib_path(n).exists()}
+        logs, failed = {}, []
+        for n, (proc, tmp, out) in jobs.items():
+            logs[n], _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(n)
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)  # atomic: a reader never sees half a .so
+            (BUILD_DIR / f"{n}.log").write_text(logs[n])
+    if failed:
+        detail = "\n".join(f"--- {n} ---\n{logs[n]}" for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{detail}")
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel library ``name``, built on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+    path = _lib_path(name)
+    if not path.exists():
+        build_all([name])
+    with _lock:
+        if name not in _loaded:
+            lib = ctypes.CDLL(str(path))
+            lib.nitro_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.nitro_cuda_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return _loaded[name]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a non-zero ``cudaError_t``."""
+    if err != 0:
+        msg = lib.nitro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+def check_inputs(name: str, x: torch.Tensor, w: torch.Tensor, *,
+                 operand_dtype: str, out_dtype: torch.dtype, apply_relu: bool,
+                 alpha_inv: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Shared wrapper checks: one CUDA device, integer operands, output dtype.
+
+    Returns the operands as the kernel takes them — int8 as they are for
+    ``operand_dtype='int8'``, lifted to int32 for ``'int32'`` — and the
+    α_inv to pass (1 when the ReLU is off and α_inv is unused).
+    """
+    if x.device.type != "cuda" or w.device != x.device:
+        raise ValueError(
+            f"{name} kernel needs x and w on one CUDA device, got "
+            f"{x.device}/{w.device} (CPU tensors go to the plain version)"
+        )
+    if out_dtype not in (torch.int8, torch.int32):
+        raise ValueError(f"out_dtype must be int8 or int32, got {out_dtype}")
+    if operand_dtype == "int8":
+        if not (x.dtype == torch.int8 and w.dtype == torch.int8):
+            raise ValueError(
+                f"operand_dtype='int8' requires int8 operands, got "
+                f"{x.dtype}/{w.dtype} (the dispatcher narrows eligible inputs)"
+            )
+    elif operand_dtype == "int32":
+        for t in (x, w):
+            if t.dtype not in (torch.int8, torch.int16, torch.int32):
+                raise ValueError(f"integer operands expected, got {t.dtype}")
+        x, w = x.to(torch.int32), w.to(torch.int32)
+    else:
+        raise ValueError(
+            f"operand_dtype must be 'int8' or 'int32', got {operand_dtype!r}")
+    if not apply_relu:
+        alpha_inv = 1  # unused without the ReLU
+    elif alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    return x.contiguous(), w.contiguous(), alpha_inv

@@ -1,0 +1,117 @@
+"""Python wrapper of the hand-written ``stream_conv`` CUDA kernel.
+
+Replaces the Pallas TPU kernel ``repro.kernels.nitro_conv.stream_conv``
+(``_stream_conv_kernel``): a K×K stride-1 'same' NHWC conv by implicit
+im2col with the NITRO scale / ReLU epilogue and an optional fused 2×2
+max-pool.  Source: ``csrc/stream_conv.cu``, which also notes the
+kernel's bound and design.
+
+The wrapper takes CUDA tensors only; the dispatcher (``ops.fused_conv``)
+sends CPU tensors to the plain version in ``ref.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.activations import mu_int8
+from repro_torch.core.scaling import pow2_split
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH, conv_geometry
+
+#: Shared-memory budget of the row ring (bytes).  Two blocks fit on an SM;
+#: channels are staged in chunks that fit it.
+RING_BYTES = 96 * 1024
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    fn = lib.stream_conv_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.stream_conv_units_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.stream_conv_units_per_block.restype = ctypes.c_int
+    return lib
+
+
+def ring_channels(bh: int, k: int, w_sp: int, c: int, itemsize: int) -> int:
+    """Channels per staged chunk so the (bh+K−1)×(W+K−1) ring fits; a
+    multiple of 4 for int8 with 4 | C, so every chunk takes the __dp4a path."""
+    per_channel = (bh + k - 1) * (w_sp + k - 1) * itemsize
+    cc = min(c, RING_BYTES // per_channel)
+    if itemsize == 1 and c % 4 == 0 and cc >= 4:
+        cc -= cc % 4
+    if cc < 1:
+        raise ValueError(
+            f"stream_conv: one channel of the (bh+K-1)x(W+K-1) = "
+            f"{bh + k - 1}x{w_sp + k - 1} row ring needs {per_channel} B, "
+            f"over the {RING_BYTES} B budget; use a smaller bh or "
+            f"conv_mode='materialise'"
+        )
+    return cc
+
+
+def stream_conv(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    pool: bool = False,
+    out_dtype: torch.dtype = torch.int32,
+    bh: int = DEFAULT_BH,
+    operand_dtype: str = "int32",
+) -> torch.Tensor:
+    """Streaming fused 'same' conv on the card: ``relu(⌊conv(x, w)/sf⌋)``
+    (+2×2 pool).  x (N,H,W,C), w (K,K,C,F), K odd → (N,H,W,F), or
+    (N,H//2,W//2,F) with ``pool=True``.
+
+    ``operand_dtype='int8'`` stages int8 rows and weights as they are;
+    ``'int32'`` lifts int8/int16/int32 operands to int32.
+    """
+    if x.ndim != 4 or w.ndim != 4 or w.shape[0] != w.shape[1] or w.shape[2] != x.shape[3]:
+        raise ValueError(f"bad shapes x{tuple(x.shape)} * w{tuple(w.shape)}")
+    x, w, alpha_inv = cuda_lib.check_inputs(
+        "stream_conv", x, w, operand_dtype=operand_dtype, out_dtype=out_dtype,
+        apply_relu=apply_relu, alpha_inv=alpha_inv)
+    n, h, w_sp, c = x.shape
+    k, f = w.shape[0], w.shape[-1]
+    if pool and (h < 2 or w_sp < 2):
+        raise ValueError(f"2x2 pool epilogue needs H,W >= 2, got {h}x{w_sp}")
+    if n > 65535:
+        raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
+    bh_, h_pad, _ = conv_geometry(h, k, bh, pool=pool)
+    cc = ring_channels(bh_, k, w_sp, c, x.element_size())
+    out_shape = (n, h // 2, w_sp // 2, f) if pool else (n, h, w_sp, f)
+    out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = _bind(cuda_lib.load("stream_conv"))
+    units = (bh_ // 2) * (w_sp // 2) if pool else bh_ * w_sp
+    per_block = lib.stream_conv_units_per_block(int(pool), units)
+    n_ptiles = -(-units // per_block)
+    n_bands = h_pad // bh_
+    if n_bands * n_ptiles > 65535:
+        raise ValueError(f"{n_bands} bands x {n_ptiles} tiles exceed the grid")
+    w_flat = w.reshape(k * k * c, f)
+    shift, residual = pow2_split(sf)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.stream_conv_launch(
+            x.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
+            n, h, w_sp, c, f, k, bh_, n_bands, n_ptiles, cc,
+            shift, residual, alpha_inv,
+            mu_int8(alpha_inv) if apply_relu else 0, int(apply_relu),
+            int(pool), int(operand_dtype == "int8"),
+            int(out_dtype == torch.int8), stream,
+        )
+    cuda_lib.check(lib, err, "stream_conv")
+    stream_conv.launches.add()
+    return out
+
+
+#: launches of the CUDA kernel (the wrapper adds one per launch)
+stream_conv.launches = cuda_lib.LaunchCounter()

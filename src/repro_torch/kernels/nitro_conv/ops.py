@@ -1,0 +1,80 @@
+"""Dispatch for the streaming conv (port of
+``repro.kernels.nitro_conv.ops``, inference entry point).
+
+``conv_mode``
+  * ``'stream'``      — implicit im2col: the CUDA kernel stages row bands
+                        in shared memory, the plain version loops over
+                        band-local patch blocks; the ``(N·H·W, K²·C)``
+                        patch matrix never exists;
+  * ``'materialise'`` — explicit im2col + the fused matmul (+ a separate
+                        pool), kept as the bit-exact escape hatch.
+
+``backend`` has ``nitro_matmul.ops``' vocabulary: ``auto | cuda |
+reference``.  Every (mode, backend) combination gives the same bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.layers import conv_im2col_operands, window_view_2x2
+from repro_torch.kernels.nitro_conv import ref as conv_ref
+from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv
+from repro_torch.kernels.nitro_matmul.ops import (
+    _guard_int8,
+    check_alpha_inv,
+    fused_matmul,
+    resolve_backend,
+    resolve_operand_dtype,
+)
+
+CONV_MODES = ("stream", "materialise")
+
+
+def resolve_conv_mode(conv_mode: str) -> str:
+    if conv_mode not in CONV_MODES:
+        raise ValueError(
+            f"unknown conv_mode {conv_mode!r}; one of {CONV_MODES}"
+        )
+    return conv_mode
+
+
+def fused_conv(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    pool: bool = False,
+    out_dtype: torch.dtype = torch.int32,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+    operand_dtype: str = "auto",
+) -> torch.Tensor:
+    """One fused conv+scale(+relu)(+2×2 pool) — the inference plan step.
+
+    (N,H,W,C) int × (K,K,C,F) int → (N,H,W,F), or (N,H//2,W//2,F) when
+    ``pool=True``.
+    """
+    alpha_inv = check_alpha_inv(alpha_inv, apply_relu)
+    backend = resolve_backend(backend, x.device)
+    conv_mode = resolve_conv_mode(conv_mode)
+    od = resolve_operand_dtype(operand_dtype, x, w)
+    if od == "int8":
+        x = _guard_int8(x, "x")
+        w = _guard_int8(w, "w")
+    if conv_mode == "materialise":
+        n, h, w_sp, _ = x.shape
+        patches, w_flat = conv_im2col_operands(w, x)
+        out = fused_matmul(
+            patches, w_flat, sf=sf, alpha_inv=alpha_inv,
+            apply_relu=apply_relu, out_dtype=out_dtype, backend=backend,
+            operand_dtype=od,
+        ).reshape(n, h, w_sp, w.shape[-1])
+        return window_view_2x2(out).amax(dim=3) if pool else out
+    fn = conv_ref.stream_conv_ref if backend == "reference" else stream_conv
+    return fn(
+        x, w, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu, pool=pool,
+        out_dtype=out_dtype, operand_dtype=od,
+    )

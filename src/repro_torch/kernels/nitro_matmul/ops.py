@@ -1,0 +1,110 @@
+"""Dispatch for the fused NITRO matmul (port of
+``repro.kernels.nitro_matmul.ops``, inference entry point).
+
+Backends:
+
+  * ``'cuda'``      — the hand-written kernel (``nitro_matmul.py``);
+  * ``'reference'`` — the plain PyTorch version (``ref.py``), on any device;
+  * ``'auto'``      — ``cuda`` for CUDA tensors, ``reference`` for CPU ones.
+
+``'cuda'`` on a CPU tensor raises; nothing falls back to another backend.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul
+from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_ref
+
+BACKENDS = ("auto", "cuda", "reference")
+
+#: Operand-dtype policy for the inference matmuls:
+#:   * ``'auto'``  — int8 operands stay int8 whenever both already are;
+#:                   anything else lifts to int32.  Never changes results.
+#:   * ``'int8'``  — force the int8 path: wider operands are checked to lie
+#:                   in [-127, 127] and narrowed, else it raises.
+#:   * ``'int32'`` — always lift.
+OPERAND_DTYPES = ("auto", "int8", "int32")
+
+
+def _guard_int8(arr: torch.Tensor, name: str) -> torch.Tensor:
+    """Forced-int8 path: prove |v| ≤ 127 for every value, then narrow."""
+    if arr.dtype == torch.int8:
+        return arr
+    if arr.numel() and (int(arr.min()) < -127 or int(arr.max()) > 127):
+        raise ValueError(
+            f"operand_dtype='int8': operand {name!r} has values outside "
+            f"[-127, 127] — values do not fit int8; use the int32 escape hatch"
+        )
+    return arr.to(torch.int8)
+
+
+def resolve_operand_dtype(
+    operand_dtype: str, x: torch.Tensor, w: torch.Tensor
+) -> str:
+    """Resolve the ``'auto'`` policy to a concrete ``'int8'``/``'int32'``."""
+    if operand_dtype not in OPERAND_DTYPES:
+        raise ValueError(
+            f"unknown operand_dtype {operand_dtype!r}; one of {OPERAND_DTYPES}"
+        )
+    if operand_dtype == "auto":
+        both = x.dtype == torch.int8 and w.dtype == torch.int8
+        return "int8" if both else "int32"
+    return operand_dtype
+
+
+def resolve_backend(backend: str, device) -> str:
+    """Validate + resolve ``'auto'`` for tensors on ``device``."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    is_cuda = torch.device(device).type == "cuda"
+    if backend == "auto":
+        return "cuda" if is_cuda else "reference"
+    if backend == "cuda" and not is_cuda:
+        raise ValueError(
+            f"backend='cuda' needs CUDA tensors, got device {str(device)!r}"
+        )
+    return backend
+
+
+def check_alpha_inv(alpha_inv: int, apply_relu: bool) -> int:
+    """Validate the NITRO-ReLU leak divisor ``α_inv = ⌊1/α⌋``.
+
+    0 would divide by zero inside the kernel, so it raises.  Without the
+    ReLU the value is unused and normalised to 1 (frozen output layers are
+    exported with ``alpha_inv=0``).
+    """
+    if not apply_relu:
+        return 1
+    if int(alpha_inv) < 1:
+        raise ValueError(
+            f"alpha_inv must be a positive integer when apply_relu=True, "
+            f"got {alpha_inv!r}"
+        )
+    return int(alpha_inv)
+
+
+def fused_matmul(
+    x2: torch.Tensor,
+    w2: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    out_dtype: torch.dtype = torch.int32,
+    backend: str = "auto",
+    operand_dtype: str = "auto",
+) -> torch.Tensor:
+    """One fused matmul+scale(+relu) on 2-D operands — the inference step."""
+    backend = resolve_backend(backend, x2.device)
+    alpha_inv = check_alpha_inv(alpha_inv, apply_relu)
+    od = resolve_operand_dtype(operand_dtype, x2, w2)
+    if od == "int8":
+        x2 = _guard_int8(x2, "x")
+        w2 = _guard_int8(w2, "w")
+    fn = nitro_matmul_ref if backend == "reference" else nitro_matmul
+    return fn(
+        x2, w2, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu,
+        out_dtype=out_dtype, operand_dtype=od,
+    )

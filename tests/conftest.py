@@ -29,3 +29,7 @@ def pytest_configure(config):
         "slow: long-running integration test; excluded by tools/ci_check.sh "
         "quick runs via -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); skips without one",
+    )

@@ -1,0 +1,117 @@
+"""PyTorch port, hygiene: the port stands alone and never falls back.
+
+  * no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports
+    ``jax`` or anything of the JAX package ``repro``;
+  * importing the whole port leaves ``jax`` out of ``sys.modules``;
+  * entry points default to CUDA and raise on a host without it;
+  * ``chip_smoke.py`` fails, printing no result, without a card and
+    outside a checkout.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+
+
+def _forbidden(path: Path) -> list[str]:
+    """Module names under jax/jaxlib/repro that ``path`` imports."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    return bad
+
+
+def test_port_imports_no_jax_and_no_repro():
+    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    assert len(files) > 20
+    bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
+    assert not bad, bad
+
+
+def test_forbidden_import_scan_catches_offenders(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import repro_torch\nfrom repro.core import numerics\n"
+                 "import jax.numpy\nfrom . import repro\n")
+    assert _forbidden(f) == ["repro.core", "jax.numpy"]
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch, repro_torch.launch.serve_vision\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
+        "print('LOADED', bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card; the default device is usable")
+
+
+def test_default_device_entry_points_raise(no_cuda):
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import model as M
+    from repro_torch.infer import compile_plan, freeze
+    from repro_torch.launch import serve_vision
+
+    cfg = get_paper_config("mlp1", scale=0.1)
+    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    fm = freeze(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compile_plan(fm)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.init_params(torch.Generator().manual_seed(0), cfg)
+    tree = {"blocks": [{"fw": {"w": b["fw"]["w"].numpy()}, "lr": {"w": b["lr"]["w"].numpy()}}
+                       for b in params["blocks"]],
+            "output": {"w": params["output"]["w"].numpy()}}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        M.params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_vision.main(["--arch", "mlp1", "--scale", "0.1", "--requests", "1"])
+    assert compile_plan(fm, device="cpu").logits(np.zeros((1, 784), np.int32)).shape == (1, 10)
+
+
+def _run_smoke(cwd: Path):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+                          text=True, timeout=120)
+
+
+def test_chip_smoke_refuses_without_cuda(no_cuda):
+    out = _run_smoke(ROOT)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "CUDA is not available" in out.stderr
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
+    assert "run it from the root of a checkout" in out.stderr
