@@ -5,34 +5,44 @@
 
 Phases, each fatal on failure:
   1. device and toolchain (nvidia-smi name/power limit, nvcc, torch, triton);
-  2. build both CUDA kernels from the checkout's sources, in parallel, timed;
+  2. build every CUDA kernel library from the checkout's sources, one nvcc
+     each, in parallel, timed;
   3. hold each kernel against its plain PyTorch version on the card,
-     bitwise (tolerance 0: every value is an integer), at every VGG8B step
-     shape at batch 32 and at ragged / int32-operand shapes;
-  4. the main path: ``repro_torch.launch.serve_vision.main`` serves
-     full-width VGG8B (seeded random init → freeze → compile_plan →
-     VisionEngine) with the launch counts reset just before and read just
-     after; every request's logits must equal the ``backend='reference'``
-     plan's, and each batch must launch stream_conv 6× and nitro_matmul 2×;
-  5. time each kernel per step shape with CUDA events beside its bound,
-     its plain version and the end-to-end batch latency.
+     bitwise (tolerance 0: every value is an integer): the serving kernels
+     at every VGG8B step shape at batch 32, the training kernels at every
+     VGG8B training shape at batch 64, and all at ragged shapes;
+  4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
+     full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
+     with the launch counts reset just before and read just after; every
+     request's logits must equal the ``backend='reference'`` plan's, and
+     each batch must launch stream_conv 6× and nitro_matmul 2×;
+  5. the training path: ``repro_torch.launch.train.main`` takes 4 steps of
+     full-width VGG8B at batch 64, counts reset just before and read just
+     after; each step must launch stream_conv_fwd 6×, nitro_matmul_fwd 1×,
+     stream_conv_grad_w 6× and nitro_matmul_grad_w 1×, and the final
+     TrainState and every step's metrics must equal, bitwise, those of the
+     same run with ``--backend reference`` on the card;
+  6. time each kernel per step shape with CUDA events beside its bound and
+     its plain version, the serving batch latency and the training step.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
-``bound_ms`` are one batch's launches of the kernel summed over its step
-shapes and ``launches`` is the main path's count; then, last,
-``{"ok": true, "device": {...}}``.  Exits non-zero, without that line,
-when CUDA is absent or the script is not inside a checkout.
+``bound_ms`` are one serving batch's (or one training step's) launches of
+the kernel summed over its step shapes and ``launches`` is its path's
+count; then, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+without that line, when CUDA is absent or the script is not inside a
+checkout.
 
 Bound: the larger of ops / 1,979 TOP/s (the H100's dense int8 peak) and
 bytes / 3.35 TB/s (its memory rate), counting each input read once and
-each output written once.  No single PyTorch call computes the fused
-integer conv/matmul + NITRO scale + ReLU (+ pool), so ``library_ms`` is
-null.
+each output written once.  No single PyTorch call computes the integer
+conv/matmul with the NITRO scale, ReLU or ReLU derivative, so
+``library_ms`` is null.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -43,6 +53,8 @@ PEAK_OPS = 1979e12   # int8 dense ops/s, H100 SXM data sheet
 PEAK_BYTES = 3.35e12  # device memory bytes/s, H100 SXM data sheet
 BATCH = 32
 REQUESTS = 64
+TRAIN_BATCH = 64
+TRAIN_STEPS = 4
 
 KERNELS = {
     "nitro_matmul": {
@@ -53,7 +65,29 @@ KERNELS = {
         "source": "src/repro_torch/kernels/nitro_conv/csrc/stream_conv.cu",
         "replaces": "src/repro/kernels/nitro_conv/nitro_conv.py:324",
     },
+    "nitro_matmul_fwd": {
+        "source": "src/repro_torch/kernels/nitro_matmul/csrc/nitro_matmul.cu",
+        "replaces": "src/repro/kernels/nitro_matmul/nitro_matmul.py:294",
+    },
+    "nitro_matmul_grad_w": {
+        "source": "src/repro_torch/kernels/nitro_matmul/csrc/nitro_matmul_grad_w.cu",
+        "replaces": "src/repro/kernels/nitro_matmul/nitro_matmul.py:391",
+    },
+    "stream_conv_fwd": {
+        "source": "src/repro_torch/kernels/nitro_conv/csrc/stream_conv_fwd.cu",
+        "replaces": "src/repro/kernels/nitro_conv/nitro_conv.py:403",
+    },
+    "stream_conv_grad_w": {
+        "source": "src/repro_torch/kernels/nitro_conv/csrc/stream_conv_grad_w.cu",
+        "replaces": "src/repro/kernels/nitro_conv/nitro_conv.py:460",
+    },
 }
+TRAIN_KERNELS = ("stream_conv_fwd", "nitro_matmul_fwd", "stream_conv_grad_w",
+                 "nitro_matmul_grad_w")
+#: launches of each training kernel per VGG8B step (6 convs, 1 linear)
+PER_STEP = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
+            "stream_conv_grad_w": 6, "nitro_matmul_grad_w": 1}
+
 
 
 def die(msg: str) -> None:
@@ -92,10 +126,12 @@ def build() -> None:
     t0 = time.perf_counter()
     logs = cuda_lib.build_all()
     print(f"[build] {sorted(logs) or 'cached'} in {time.perf_counter() - t0:.1f}s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas] {name}: {line.strip()}")
+    for name, log in sorted(logs.items()):  # one line per library
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)]
+        if regs:
+            print(f"[ptxas] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                  f"registers, spill stores up to {max(spills, default=0)} B")
 
 
 def run_step(meta, a, w, backend: str):
@@ -246,6 +282,178 @@ def main_path():
     return res, launches
 
 
+def launch_counters() -> dict:
+    """Each kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.nitro_conv.nitro_conv import (
+        stream_conv, stream_conv_fwd, stream_conv_grad_w)
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+        nitro_matmul, nitro_matmul_fwd, nitro_matmul_grad_w)
+
+    fns = (nitro_matmul, stream_conv, nitro_matmul_fwd, nitro_matmul_grad_w,
+           stream_conv_fwd, stream_conv_grad_w)
+    return {f.__name__: f.launches for f in fns}
+
+
+def train_shapes(cfg, batch: int):
+    """(kind, x shape, w shape, sf, alpha_inv) of every forward layer of a
+    training step at ``batch``."""
+    from repro_torch.core.scaling import conv_scale_factor, linear_scale_factor
+
+    shapes, (h, w, c) = [], cfg.input_shape
+    for spec in cfg.blocks:
+        k, f = spec.kernel_size, spec.out_features
+        if spec.kind == "conv":
+            shapes.append(("conv", (batch, h, w, c), (k, k, c, f),
+                           conv_scale_factor(k, c), spec.alpha_inv))
+            c = f
+            if spec.pool:
+                h, w = h // 2, w // 2
+        else:
+            m = h * w * c
+            shapes.append(("linear", (batch, m), (m, f), linear_scale_factor(m),
+                           spec.alpha_inv))
+    return shapes
+
+
+def train_operands(xs, ws, g):
+    """Inputs of one training shape on the card: x in the activation range,
+    weights wide enough that z* spans every NITRO-ReLU segment, and a
+    gradient δ of both signs with a z* that hits every segment."""
+    import torch
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int64).to(
+            torch.int32).to("cuda")
+
+    out_shape = (*xs[:-1], ws[-1])
+    return (ints(xs, -127, 128), ints(ws, -(2 ** 15), 2 ** 15),
+            ints(out_shape, -(2 ** 20), 2 ** 20), ints(out_shape, -300, 301))
+
+
+def train_calls(kind, x, w, delta, z, sf, alpha_inv, backend):
+    """(fwd, grad_w, grad_w without z*) of one training shape through the
+    dispatchers with an explicit backend; no z*-free call for linear."""
+    from repro_torch.kernels.nitro_conv.ops import conv_grad_w, fused_conv_fwd
+    from repro_torch.kernels.nitro_matmul.ops import fused_matmul_fwd, grad_w_matmul
+
+    if kind == "conv":
+        k = w.shape[0]
+        return (
+            lambda: fused_conv_fwd(x, w, sf=sf, alpha_inv=alpha_inv, backend=backend),
+            lambda: conv_grad_w(x, delta, kernel_size=k, z_star=z,
+                                alpha_inv=alpha_inv, backend=backend),
+            lambda: conv_grad_w(x, delta, kernel_size=k, backend=backend),
+        )
+    return (
+        lambda: fused_matmul_fwd(x, w, sf=sf, alpha_inv=alpha_inv, backend=backend),
+        lambda: grad_w_matmul(x, delta, z, alpha_inv=alpha_inv, backend=backend),
+        None,
+    )
+
+
+def _pair(name, kernel_fn, plain_fn, errs):
+    import torch
+
+    got, want = kernel_fn(), plain_fn()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for i, (a, b) in enumerate(zip(got, want)):
+        compare(f"{name} out{i}", a, b, errs)
+
+
+def train_parity(shapes, errs: dict) -> None:
+    """Phase 3b: the training kernels vs their plain versions, bitwise, at
+    every VGG8B training shape (α_inv 10 and 1; conv grad_W with and
+    without z*) and at ragged shapes."""
+    import torch
+
+    names = {"conv": ("stream_conv_fwd", "stream_conv_grad_w"),
+             "linear": ("nitro_matmul_fwd", "nitro_matmul_grad_w")}
+    g = torch.Generator().manual_seed(2)
+    ragged = [  # (kind, x shape, w shape, sf, alpha_inv)
+        ("conv", (3, 7, 9, 5), (3, 3, 5, 40), 256 * 45, 10),
+        ("conv", (2, 9, 7, 6), (5, 5, 6, 33), 256 * 150, 2),
+        ("conv", (2, 11, 13, 3), (3, 3, 3, 16), 256 * 27, 1),
+        ("conv", (1, 12, 90, 150), (3, 3, 150, 36), 3 << 10, 10),
+        ("conv", (5, 33, 31, 3), (3, 3, 3, 70), 27, 10),
+        ("linear", (5, 7), (7, 3), 256 * 7, 10),
+        ("linear", (33, 300), (300, 70), 256 * 300, 2),
+        ("linear", (1000, 20), (20, 10), 3 << 4, 1),
+    ]
+    cases = [(f"step {i}", *sh) for i, sh in enumerate(shapes, 1)]
+    cases += [(f"step {i} alpha_inv=1", kind, xs, ws, sf, 1)
+              for i, (kind, xs, ws, sf, _) in enumerate(shapes, 1)]
+    cases += [("ragged", *sh) for sh in ragged]
+    for tag, kind, xs, ws, sf, ai in cases:
+        x, w, delta, z = train_operands(xs, ws, g)
+        cuda = train_calls(kind, x, w, delta, z, sf, ai, "cuda")
+        plain = train_calls(kind, x, w, delta, z, sf, ai, "reference")
+        fwd, gw = names[kind]
+        what = f"{tag} x{xs} w{ws} alpha_inv={ai}"
+        _pair(f"{fwd} {what}", cuda[0], plain[0], errs)
+        _pair(f"{gw} {what} z*", cuda[1], plain[1], errs)
+        if cuda[2] is not None:
+            _pair(f"{gw} {what} no z*", cuda[2], plain[2], errs)
+    wide = (-(2 ** 31), 2 ** 31)  # int32 wrap in the grad_W accumulators
+    x = torch.randint(*wide, (300, 40), generator=g).to(torch.int32).cuda()
+    d = torch.randint(*wide, (300, 30), generator=g).to(torch.int32).cuda()
+    z = torch.randint(-200, 200, (300, 30), generator=g).to(torch.int32).cuda()
+    from repro_torch.kernels.nitro_matmul.ops import grad_w_matmul
+    _pair("nitro_matmul_grad_w wide int32 (300,40)x(300,30)",
+          lambda: grad_w_matmul(x, d, z, backend="cuda"),
+          lambda: grad_w_matmul(x, d, z, backend="reference"), errs)
+
+
+def _trees(state, metrics):
+    """Every tensor of a TrainState and its step metrics, named."""
+    out = {"step": state.step}
+    for i, b in enumerate(state.params["blocks"]):
+        out[f"blocks.{i}.fw"] = b["fw"]["w"]
+        out[f"blocks.{i}.lr"] = b["lr"]["w"]
+    out["output"] = state.params["output"]["w"]
+    for grp in ("opt_lr", "opt_fw"):
+        for f, v in getattr(state, grp)._asdict().items():
+            out[f"{grp}.{f}"] = v
+    for i, m in enumerate(metrics):
+        for f, v in m._asdict().items():
+            out[f"step{i}.{f}"] = v
+    return out
+
+
+def train_path():
+    """Phase 5: the port's train CLI at full width, counted, held against
+    the same run on the plain versions."""
+    import torch
+    from repro_torch.launch import train
+
+    argv = ["--arch", "vgg8b", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seed", "0"]
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    res = train.main(argv)
+    launches = {k: c.value for k, c in counters.items()}
+    print(f"[train] {res['steps']} steps, launches {launches}")
+    want = {k: PER_STEP.get(k, 0) * res["steps"] for k in launches}
+    if res["steps"] != TRAIN_STEPS or launches != want:
+        die(f"expected {want} over {TRAIN_STEPS} steps, got {launches}")
+    ref = train.main(argv + ["--backend", "reference"])
+    got, exp = _trees(res["state"], res["step_metrics"]), _trees(ref["state"], ref["step_metrics"])
+    if got.keys() != exp.keys():
+        die(f"train state trees differ: {sorted(got)} vs {sorted(exp)}")
+    for name in got:
+        a, b = got[name], exp[name]
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            die(f"train {name}: cuda run != reference run")
+    if res["test_accuracy"] != ref["test_accuracy"]:
+        die(f"test accuracy {res['test_accuracy']} != reference {ref['test_accuracy']}")
+    print(f"[train] final state, {len(got)} tensors incl. every step's metrics, "
+          f"equals the reference backend's bitwise; test accuracy "
+          f"{res['test_accuracy']:.4f}, scaled loss {res['scaled_loss']:.4f}")
+    return res, ref, launches
+
+
 def time_cuda(fn, iters: int, warmup: int) -> float:
     """Mean milliseconds per call over ``iters`` calls, CUDA events."""
     import torch
@@ -303,6 +511,85 @@ def timing(steps, card: str) -> dict:
     return per_kernel
 
 
+def train_work(kind, kernel, xs, ws):
+    """(ops, bytes) of one training launch, int32 operands: 2 ops per MAC,
+    each operand read once, each output written once."""
+    if kind == "conv":
+        n, h, w, c = xs
+        k, f = ws[0], ws[-1]
+        macs, x_el, out_el, w_el = n * h * w * k * k * c * f, n * h * w * c, n * h * w * f, k * k * c * f
+    else:
+        (b, m), f = xs, ws[-1]
+        macs, x_el, out_el, w_el = b * m * f, b * m, b * f, m * f
+    if kernel.endswith("_fwd"):
+        nbytes = 4 * (x_el + w_el + 2 * out_el)   # x, w in; a, z* out
+    else:
+        nbytes = 4 * (x_el + 2 * out_el + w_el)   # x, δ, z* in; grad_W out
+    return 2 * macs, nbytes
+
+
+def train_timing(shapes, card: str, per_kernel: dict) -> None:
+    """Phase 6b: per-shape kernel / plain / bound times of the training
+    kernels (one step = one launch at each shape)."""
+    import torch
+
+    g = torch.Generator().manual_seed(3)
+    for i, (kind, xs, ws, sf, ai) in enumerate(shapes, 1):
+        x, w, delta, z = train_operands(xs, ws, g)
+        cuda = train_calls(kind, x, w, delta, z, sf, ai, "cuda")
+        plain = train_calls(kind, x, w, delta, z, sf, ai, "reference")
+        names = (("stream_conv_fwd", "stream_conv_grad_w") if kind == "conv"
+                 else ("nitro_matmul_fwd", "nitro_matmul_grad_w"))
+        for kernel, fn, pfn in zip(names, cuda[:2], plain[:2]):
+            ms = time_cuda(fn, iters=20, warmup=3)
+            plain_ms = time_cuda(pfn, iters=3, warmup=1)
+            ops, nbytes = train_work(kind, kernel, xs, ws)
+            ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            bound = max(ops_ms, bytes_ms)
+            by = "operations" if ops_ms >= bytes_ms else "bytes"
+            print(f"[time] {card} | train step {i} {kernel} x{xs} w{ws} int32 | "
+                  f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+                  f"{bound:.5f} ms ({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) "
+                  f"| {100 * bound / ms:.2f}% of bound | library none")
+            k = per_kernel.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                               "ops_ms": 0.0, "bytes_ms": 0.0})
+            k["ms"] += ms
+            k["plain_ms"] += plain_ms
+            k["bound_ms"] += bound
+            k["ops_ms"] += ops_ms
+            k["bytes_ms"] += bytes_ms
+        if cuda[2] is not None:  # #8 on a pre-masked δ (the fuse_bwd=False path)
+            ms = time_cuda(cuda[2], iters=20, warmup=3)
+            print(f"[time] {card} | train step {i} stream_conv_grad_w without z* "
+                  f"(no mask on load) | kernel {ms:.4f} ms")
+
+
+def train_end_to_end(res, ref, cfg, card: str) -> None:
+    """Host-to-host time of one training step on the final state."""
+    import numpy as np
+    import torch
+    from repro_torch.core import les, prng
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-127, 128, (TRAIN_BATCH, *cfg.input_shape))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, TRAIN_BATCH).astype(np.int32)).cuda()
+    key = prng.PRNGKey(TRAIN_STEPS)
+    state = res["state"]
+    ms = {}
+    for backend in ("cuda", "reference", "reference", "cuda"):  # in turns
+        t = time_cuda(lambda: les.train_step(state, cfg, x, y, key, backend=backend),
+                      iters=5, warmup=1)
+        ms[backend] = min(ms.get(backend, t), t)
+    print(f"[e2e-train] {card} | VGG8B full width, batch {TRAIN_BATCH}, host to "
+          f"host: {ms['cuda']:.3f} ms per training step "
+          f"({TRAIN_BATCH / ms['cuda'] * 1e3:.1f} img/s) on the kernels, "
+          f"{ms['reference']:.3f} ms ({TRAIN_BATCH / ms['reference'] * 1e3:.1f} img/s) "
+          f"on the plain versions (best of two turns of 5) | CLI step loop incl. "
+          f"first steps: cuda {res['train_s'] / res['steps'] * 1e3:.3f} ms/step, "
+          f"reference {ref['train_s'] / ref['steps'] * 1e3:.3f} ms/step")
+
+
 def end_to_end(res, card: str) -> None:
     """Batch latency of the plan alone (host → logits on the host)."""
     import numpy as np
@@ -333,21 +620,28 @@ def main() -> int:
 
     from repro_torch.configs import get_paper_config
     from repro_torch.core import model as M
+    from repro_torch.core import prng
     from repro_torch.infer import compile_plan, freeze
 
     import numpy as np
 
     cfg = get_paper_config("vgg8b", scale=1.0)
-    fm = freeze(M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg)
+    fm = freeze(M.init_params(prng.PRNGKey(0), cfg, device="cpu"), cfg)
     plan = compile_plan(fm, device="cuda")
     x = np.random.default_rng(0).integers(-127, 128, (BATCH, *cfg.input_shape)).astype(np.int32)
     steps = step_inputs(plan, x)
 
     errs: dict[str, int] = {}
     parity(steps, errs)
+    shapes = train_shapes(cfg, TRAIN_BATCH)
+    train_parity(shapes, errs)
     res, launches = main_path()
+    train_res, train_ref, train_launches = train_path()
+    launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     per_kernel = timing(steps, card)
+    train_timing(shapes, card, per_kernel)
     end_to_end(res, card)
+    train_end_to_end(train_res, train_ref, cfg, card)
 
     rows = []
     for name, meta in KERNELS.items():

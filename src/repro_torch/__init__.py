@@ -2,7 +2,7 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The package mirrors ``repro``'s module paths (``core``, ``kernels``,
-``infer``, ``serving``, ``launch``) so each function has an obvious
+``data``, ``infer``, ``serving``, ``launch``) so each function has an obvious
 counterpart, and keeps ``repro``'s layouts at every public function:
 NHWC activations, (K,K,C,F) conv weights, (fan_in, fan_out) linear
 weights.  It imports torch and numpy only.

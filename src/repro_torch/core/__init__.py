@@ -1,1 +1,1 @@
-"""Integer-only NITRO-D building blocks (the serving subset)."""
+"""Integer-only NITRO-D building blocks and the LES training step."""

@@ -1,4 +1,5 @@
-"""NITRO-ReLU activation (port of ``repro.core.activations``, forward).
+"""NITRO-ReLU activation and its integer derivative (port of
+``repro.core.activations``).
 
     x < -127      : ⌊-127/α_inv⌋ - μ_int8
     -127 ≤ x < 0  : ⌊x/α_inv⌋    - μ_int8
@@ -47,3 +48,20 @@ def nitro_relu(z_star: torch.Tensor, alpha_inv: int = DEFAULT_ALPHA_INV) -> torc
     neg = numerics.floor_div(z_star.clamp(min=ACT_MIN), alpha_inv)
     pos = z_star.clamp(max=ACT_MAX)
     return torch.where(z_star < 0, neg, pos) - mu_int8(alpha_inv)
+
+
+def nitro_relu_backward(
+    z_star: torch.Tensor, grad_out: torch.Tensor,
+    alpha_inv: int = DEFAULT_ALPHA_INV,
+) -> torch.Tensor:
+    """Integer derivative of NITRO-ReLU w.r.t. its input.
+
+    Segment derivatives: 0 (saturated) / 1/α_inv (leaky, a floor
+    division) / 1 (identity) / 0 (saturated).
+    """
+    numerics.assert_int(z_star, "nitro_relu_backward z")
+    numerics.assert_int(grad_out, "nitro_relu_backward grad")
+    leaky = numerics.floor_div(grad_out, alpha_inv)
+    grad_in = torch.where(z_star < 0, leaky, grad_out)
+    saturated = (z_star < ACT_MIN) | (z_star > ACT_MAX)
+    return torch.where(saturated, torch.zeros_like(grad_in), grad_in)

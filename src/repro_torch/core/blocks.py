@@ -1,20 +1,41 @@
-"""Integer local-loss blocks (port of ``repro.core.blocks``, forward).
+"""Integer local-loss blocks (port of ``repro.core.blocks``, §3.2).
 
-A block's forward layers are IntegerConv2D/IntegerLinear → NITRO
-Scaling → NITRO-ReLU → [MaxPool2D]; its learning layers (adaptive
-avg-pool → flatten → IntegerLinear(→ G)) are initialised so the
-parameter tree matches the JAX package's one-to-one, but only training
-runs them.  This slice ports the unfused inference forward — the oracle
-the fused plan is held against.
+Each block owns
+
+  *forward layers*  : IntegerConv2D/IntegerLinear → NITRO Scaling →
+                      NITRO-ReLU → [MaxPool2D] → [IntegerDropout]
+  *learning layers* : [adaptive int avg-pool to d_lr] → flatten →
+                      IntegerLinear(→ G) → NITRO Scaling   (produces ŷ_l)
+
+Gradients are confined to the block: the local RSS gradient flows through
+the learning layers and emerges as δ_l^fw at the block output, then
+through the forward layers.  Nothing crosses block boundaries.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
-from repro_torch.core import activations, layers, scaling
+from repro_torch.core import activations, layers, numerics, prng, scaling
+from repro_torch.core.losses import rss_grad
+
+
+def _nitro_ops():
+    """Lazy import of the matmul dispatcher (the kernel packages import
+    ``core`` leaf modules)."""
+    from repro_torch.kernels.nitro_matmul import ops
+
+    return ops
+
+
+def _conv_ops():
+    """Lazy import of the conv dispatcher (same reason)."""
+    from repro_torch.kernels.nitro_conv import ops
+
+    return ops
 
 
 @dataclass(frozen=True)
@@ -30,8 +51,13 @@ class BlockSpec:
     kernel_size: int = 3
 
 
+# ---------------------------------------------------------------------------
+# Parameter initialisation
+# ---------------------------------------------------------------------------
+
+
 def init_block(
-    generator: torch.Generator,
+    key: torch.Tensor,
     spec: BlockSpec,
     in_shape: tuple[int, ...],
     num_classes: int,
@@ -40,12 +66,14 @@ def init_block(
 ) -> tuple[dict, tuple[int, ...]]:
     """Init one block's params; returns (params, output shape w/o batch).
 
-    Forward weights are drawn before the learning-layer weights.
+    ``key`` splits into the forward-layer and learning-layer keys, as in
+    the JAX package.
     """
+    k_fw, k_lr = prng.split(key)
     if spec.kind == "conv":
         h, w, c = in_shape
-        fw = layers.conv_init(generator, c, spec.out_features,
-                              spec.kernel_size, device=device)
+        fw = layers.conv_init(k_fw, c, spec.out_features, spec.kernel_size,
+                              device=device)
         oh, ow = (h // 2, w // 2) if spec.pool else (h, w)
         out_shape = (oh, ow, spec.out_features)
         s, _ = layers.avgpool_grid(oh, ow, spec.out_features, spec.d_lr)
@@ -54,39 +82,165 @@ def init_block(
         m = 1
         for d in in_shape:  # linear blocks flatten whatever precedes them
             m *= d
-        fw = layers.linear_init(generator, m, spec.out_features, device=device)
+        fw = layers.linear_init(k_fw, m, spec.out_features, device=device)
         out_shape = (spec.out_features,)
         lr_in = spec.out_features
     else:
         raise ValueError(f"unknown block kind {spec.kind!r}")
-    lr = layers.linear_init(generator, lr_in, num_classes, device=device)
+    lr = layers.linear_init(k_lr, lr_in, num_classes, device=device)
     return {"fw": fw, "lr": lr}, out_shape
 
 
-def forward_layers(params: dict, spec: BlockSpec, x: torch.Tensor) -> torch.Tensor:
-    """A block's forward layers at inference (unfused, no dropout)."""
+# ---------------------------------------------------------------------------
+# Forward layers
+# ---------------------------------------------------------------------------
+
+
+def forward_layers(
+    params: dict,
+    spec: BlockSpec,
+    x: torch.Tensor,
+    *,
+    dropout_key: torch.Tensor | None = None,
+    train: bool = True,
+    fused: bool = True,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> tuple[torch.Tensor, dict]:
+    """Run a block's forward layers; cache everything backward needs.
+
+    ``fused=True`` runs matmul → scale → ReLU as one kernel that writes
+    both ``a`` and ``z_star`` (``stream_conv_fwd`` / ``nitro_matmul_fwd``
+    on CUDA tensors); ``fused=False`` is the unfused reference
+    composition.  The cache holds ``z_star``, the layer input (``conv`` or
+    ``linear``), ``pool``/``dropout`` when present, and ``act``.
+    """
+    cache: dict[str, Any] = {}
     if spec.kind == "conv":
         sf = scaling.conv_scale_factor(spec.kernel_size, x.shape[-1])
-        z = layers.conv_forward(params["fw"], x)
+        if fused:
+            numerics.assert_int(x, "conv input")
+            a, cache["z_star"] = _conv_ops().fused_conv_fwd(
+                x, params["fw"]["w"], sf=sf, alpha_inv=spec.alpha_inv,
+                backend=backend, conv_mode=conv_mode,
+            )
+            cache["conv"] = layers.ConvCache(x=x)
+        else:
+            z, cache["conv"] = layers.conv_forward(params["fw"], x)
     else:
         if x.ndim > 2:  # flatten conv activations entering a linear block
-            x = layers.flatten_forward(x)
+            x, _ = layers.flatten_forward(x)
         sf = scaling.linear_scale_factor(x.shape[-1])
-        z = layers.linear_forward(params["fw"], x)
-    a = activations.nitro_relu(scaling.scale_forward(z, sf), spec.alpha_inv)
+        if fused:
+            numerics.assert_int(x, "linear input")
+            a, cache["z_star"] = _nitro_ops().fused_matmul_fwd(
+                x, params["fw"]["w"], sf=sf, alpha_inv=spec.alpha_inv,
+                backend=backend,
+            )
+            cache["linear"] = x
+        else:
+            z, cache["linear"] = layers.linear_forward(params["fw"], x)
+    if not fused:
+        z_star = scaling.scale_forward(z, sf)
+        cache["z_star"] = z_star
+        a = activations.nitro_relu(z_star, spec.alpha_inv)
     if spec.pool:
-        a = layers.maxpool_forward(a)
-    return a
+        a, cache["pool"] = layers.maxpool_forward(a)
+    if train and spec.dropout > 0.0:
+        a, cache["dropout"] = layers.dropout_forward(dropout_key, a, spec.dropout)
+    cache["act"] = a
+    return a, cache
 
 
-def init_output(generator: torch.Generator, in_features: int,
-                num_classes: int, *, device="cpu") -> dict:
-    return layers.linear_init(generator, in_features, num_classes, device=device)
+def forward_layers_backward(
+    params: dict,
+    spec: BlockSpec,
+    cache: dict,
+    delta_fw: torch.Tensor,
+    *,
+    conv_mode: str = "stream",
+    backend: str = "auto",
+    fuse_bwd: bool = True,
+) -> dict:
+    """Backward through the forward layers from δ_l^fw; returns the weight
+    gradients.  Dropout and pool backwards are tensor ops; the NITRO-ReLU
+    derivative runs inside the grad_W kernel (``fuse_bwd=True``) or as a
+    materialised mask (``False``), bitwise the same."""
+    g = delta_fw
+    if "dropout" in cache:
+        g = layers.dropout_backward(cache["dropout"], g)
+    if "pool" in cache:
+        g = layers.maxpool_backward(cache["pool"], g)
+    if spec.kind == "conv":
+        _, grads = layers.conv_backward(
+            params["fw"], cache["conv"], g,
+            z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
+            fuse_bwd=fuse_bwd, conv_mode=conv_mode, backend=backend,
+        )
+    else:
+        _, grads = layers.linear_backward(
+            params["fw"], cache["linear"], g,
+            z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
+            fuse_bwd=fuse_bwd, backend=backend,
+        )
+    return grads
 
 
-def output_forward(params: dict, a: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# Learning layers
+# ---------------------------------------------------------------------------
+
+
+def learning_layers(
+    params: dict, spec: BlockSpec, a: torch.Tensor
+) -> tuple[torch.Tensor, dict]:
+    """ŷ_l = scale(pool·flatten(a_l) @ W^il); returns the local prediction."""
+    cache: dict[str, Any] = {}
+    if spec.kind == "conv":
+        a, cache["avgpool"] = layers.avgpool_to(a, spec.d_lr)
+        a, cache["flat_shape"] = layers.flatten_forward(a)
+    z, cache["linear"] = layers.linear_forward(params["lr"], a)
+    y_hat = scaling.scale_forward(z, scaling.linear_scale_factor(a.shape[-1]))
+    return y_hat, cache
+
+
+def learning_layers_backward(
+    params: dict, spec: BlockSpec, cache: dict, grad_loss: torch.Tensor
+) -> tuple[torch.Tensor, dict]:
+    """Backward from ∇L_l; returns (δ_l^fw at the block output, lr grads)."""
+    g = scaling.scale_backward(grad_loss)  # STE through the output scaling
+    g, grads = layers.linear_backward(params["lr"], cache["linear"], g)
+    if spec.kind == "conv":
+        g = layers.flatten_backward(cache["flat_shape"], g)
+        g = layers.avgpool_to_backward(cache["avgpool"], g)
+    return g, grads
+
+
+# ---------------------------------------------------------------------------
+# Output layers (final classifier — trained with the global RSS gradient)
+# ---------------------------------------------------------------------------
+
+
+def init_output(key: torch.Tensor, in_features: int, num_classes: int,
+                *, device="cpu") -> dict:
+    return layers.linear_init(key, in_features, num_classes, device=device)
+
+
+def output_forward(params: dict, a: torch.Tensor) -> tuple[torch.Tensor, dict]:
     """Output layers: flatten → IntegerLinear → NITRO Scaling (no ReLU)."""
+    cache: dict[str, Any] = {}
     if a.ndim > 2:
-        a = layers.flatten_forward(a)
-    z = layers.linear_forward(params, a)
-    return scaling.scale_forward(z, scaling.linear_scale_factor(a.shape[-1]))
+        a, cache["flat_shape"] = layers.flatten_forward(a)
+    z, cache["linear"] = layers.linear_forward(params, a)
+    return scaling.scale_forward(z, scaling.linear_scale_factor(a.shape[-1])), cache
+
+
+def output_backward(params: dict, cache: dict, grad_loss: torch.Tensor) -> dict:
+    g = scaling.scale_backward(grad_loss)
+    _, grads = layers.linear_backward(params, cache["linear"], g)
+    return grads
+
+
+def local_gradient(y_hat: torch.Tensor, y_onehot: torch.Tensor) -> torch.Tensor:
+    """∇L_l = ŷ_l − y (RSS)."""
+    return rss_grad(y_hat, y_onehot)

@@ -1,15 +1,15 @@
 """Integer Kaiming initialisation (port of ``repro.core.init``).
 
 Weights are drawn from U(-b, b), b = ⌊128·1732 / (√fan_in·1000)⌋ with an
-integer √.  Draws come from an explicit ``torch.Generator``; they do not
-reproduce ``jax.random``'s bits (tests carry weights across instead).
+integer √.  Draws come from a threefry key (``core.prng``), so a key
+gives exactly the weights ``jax.random.randint`` gives the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core import numerics
+from repro_torch.core import numerics, prng
 
 
 def kaiming_bound(fan_in: int) -> int:
@@ -19,17 +19,10 @@ def kaiming_bound(fan_in: int) -> int:
 
 
 def integer_kaiming_uniform(
-    generator: torch.Generator, shape: tuple[int, ...], fan_in: int,
+    key: torch.Tensor, shape: tuple[int, ...], fan_in: int,
     *, device: torch.device | str = "cpu",
 ) -> torch.Tensor:
-    """Discrete uniform U(-b, b) int32 weights (inclusive bounds).
-
-    Drawn on the generator's device (the CPU for a default generator),
-    then placed on ``device``.
-    """
+    """Discrete uniform U(-b, b) int32 weights (inclusive bounds), drawn
+    on ``device``."""
     b = kaiming_bound(fan_in)
-    w = torch.randint(
-        -b, b + 1, shape, generator=generator, dtype=numerics.INT_DTYPE,
-        device=generator.device,
-    )
-    return w.to(device)
+    return prng.randint(key, shape, -b, b + 1, device=device)

@@ -1,0 +1,185 @@
+"""The NITRO-D learning algorithm (port of ``repro.core.les``, paper §3.3)
+— integer-only LES training.
+
+One training step:
+
+  1. forward through every block's forward layers and the output layers;
+  2. output layers: ∇L_o = ŷ − y → IntegerSGD update (γ_inv^lr, η_inv^lr);
+  3. per block: learning layers on a_l → ŷ_l; ∇L_l = ŷ_l − y →
+     learning-layer update; δ_l^fw from the learning-layer backward →
+     forward-layer update (γ_inv^fw = γ_inv^lr·AF, η_inv^fw).
+
+No gradient crosses a block boundary, and every value is an integer.
+This slice ports the split step (``fuse_opt=False``) without telemetry.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import blocks as B
+from repro_torch.core import model as M
+from repro_torch.core import optimizer as opt
+from repro_torch.core.losses import ONE_HOT_VALUE, one_hot_int, rss_grad, rss_loss
+from repro_torch.core.numerics import INT_DTYPE, argmax_first
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
+
+
+class TrainState(NamedTuple):
+    params: dict
+    opt_lr: opt.IntegerSGDState   # learning + output layers
+    opt_fw: opt.IntegerSGDState   # forward layers (γ amplified by AF)
+    step: torch.Tensor            # int32 scalar
+
+
+def create_train_state(key: torch.Tensor, cfg: M.NitroConfig, *,
+                       device=DEFAULT_DEVICE) -> TrainState:
+    device = resolve_device(device)
+    params = M.init_params(key, cfg, device=device)
+    af = opt.amplification_factor(cfg.num_classes)
+    return TrainState(
+        params=params,
+        opt_lr=opt.init_state(cfg.gamma_inv, cfg.eta_lr, device=device),
+        opt_fw=opt.init_state(cfg.gamma_inv * af, cfg.eta_fw, device=device),
+        step=torch.zeros((), dtype=INT_DTYPE, device=device),
+    )
+
+
+class StepGrads(NamedTuple):
+    """Raw integer gradients of one step, shaped like the params:
+    ``blocks`` a tuple of ``{"fw": ..., "lr": ...}``, ``output`` a dict."""
+
+    blocks: tuple
+    output: dict
+
+
+class StepMetrics(NamedTuple):
+    loss: torch.Tensor          # integer RSS of the output layers (int32)
+    correct: torch.Tensor       # correct top-1 predictions in the batch (int32)
+    local_losses: torch.Tensor  # per-block integer RSS (L,) int32
+
+    def scaled_loss(self, batch_size: int) -> float:
+        """Display-only per-sample loss in one-hot units: loss / (B·32²),
+        computed on the host from the integer metric."""
+        return float(self.loss) / (float(batch_size) * ONE_HOT_VALUE ** 2)
+
+
+def _correct(y_hat: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (argmax_first(y_hat) == labels).sum().to(INT_DTYPE)
+
+
+def compute_gradients(
+    state: TrainState,
+    cfg: M.NitroConfig,
+    x,
+    labels: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    fused: bool = True,
+    fuse_bwd: bool = True,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> tuple[StepGrads, StepMetrics]:
+    """Forward + backward over a batch: raw gradients, no update."""
+    params = state.params
+    labels = labels.to(params["output"]["w"].device)
+    y = one_hot_int(labels, cfg.num_classes)
+
+    y_hat, acts, fw_caches, out_cache = M.forward(
+        params, cfg, x, train=True, key=key, fused=fused, backend=backend,
+        conv_mode=conv_mode,
+    )
+
+    grad_o = rss_grad(y_hat, y)
+    out_grads = B.output_backward(params["output"], out_cache, grad_o)
+
+    block_grads = []
+    local_losses = []
+    for spec, p, a_l, fw_cache in zip(cfg.blocks, params["blocks"], acts, fw_caches):
+        y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
+        grad_l = B.local_gradient(y_hat_l, y)
+        local_losses.append(rss_loss(y_hat_l, y))
+        delta_fw, lr_grads = B.learning_layers_backward(p, spec, lr_cache, grad_l)
+        fw_grads = B.forward_layers_backward(
+            p, spec, fw_cache, delta_fw,
+            conv_mode=conv_mode, backend=backend, fuse_bwd=fuse_bwd,
+        )
+        block_grads.append({"fw": fw_grads, "lr": lr_grads})
+
+    grads = StepGrads(blocks=tuple(block_grads), output=out_grads)
+    metrics = StepMetrics(
+        loss=rss_loss(y_hat, y),
+        correct=_correct(y_hat, labels),
+        local_losses=torch.stack(local_losses),
+    )
+    return grads, metrics
+
+
+def apply_gradients(state: TrainState, grads: StepGrads, *,
+                    fuse_opt: bool = False) -> TrainState:
+    """IntegerSGD update of every parameter group from raw gradients."""
+    if fuse_opt:
+        raise NotImplementedError(
+            "apply_gradients(fuse_opt=True) needs the integer_sgd_update "
+            "kernel, which a later slice of the port brings")
+    new_blocks = [
+        {
+            "fw": opt.apply_tree(p["fw"], g["fw"], state.opt_fw),
+            "lr": opt.apply_tree(p["lr"], g["lr"], state.opt_lr),
+        }
+        for p, g in zip(state.params["blocks"], grads.blocks)
+    ]
+    new_output = opt.apply_tree(state.params["output"], grads.output, state.opt_lr)
+    new_params = {"blocks": new_blocks, "output": new_output}
+    return state._replace(params=new_params, step=state.step + 1)
+
+
+def train_step(
+    state: TrainState,
+    cfg: M.NitroConfig,
+    x,
+    labels: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    fused: bool = True,
+    fuse_bwd: bool = True,
+    fuse_opt: bool = False,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+    telemetry: bool = False,
+) -> tuple[TrainState, StepMetrics]:
+    """One integer-only NITRO-D step: ``compute_gradients`` then
+    ``apply_gradients``.
+
+    On CUDA tensors the default path runs ``stream_conv_fwd`` and
+    ``nitro_matmul_fwd`` forward and ``stream_conv_grad_w`` and
+    ``nitro_matmul_grad_w`` backward; ``backend="reference"`` runs their
+    plain versions, ``fused=False`` / ``fuse_bwd=False`` the unfused
+    compositions — all bitwise the same.
+    """
+    if fuse_opt or telemetry:
+        raise NotImplementedError(
+            "train_step(fuse_opt=True) and telemetry come with a later slice "
+            "of the port (the *_grad_w_opt kernels and obs.telemetry)")
+    grads, metrics = compute_gradients(
+        state, cfg, x, labels, key,
+        fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
+    )
+    return apply_gradients(state, grads), metrics
+
+
+def eval_step(state: TrainState, cfg: M.NitroConfig, x,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Correct predictions (int32) over a batch, on the unfused forward."""
+    y_hat = M.frozen_forward(state.params, cfg, x)
+    return _correct(y_hat, labels.to(y_hat.device))
+
+
+def reduce_lr_on_plateau(state: TrainState, plateau) -> TrainState:
+    """Apply the ÷3 schedule to both optimiser groups (γ_inv ×3)."""
+    return state._replace(
+        opt_lr=opt.step_lr_schedule(state.opt_lr, plateau),
+        opt_fw=opt.step_lr_schedule(state.opt_fw, plateau),
+    )

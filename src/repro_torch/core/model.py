@@ -1,4 +1,4 @@
-"""NITRO-D model container (port of ``repro.core.model``, inference).
+"""NITRO-D model container (port of ``repro.core.model``).
 
 A static ``NitroConfig`` plus a parameter tree of int32 tensors shaped
 exactly like the JAX package's:
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import blocks as B
+from repro_torch.core import prng
 from repro_torch.core.numerics import INT_DTYPE
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 
@@ -34,20 +35,25 @@ class NitroConfig:
         return len(self.blocks)
 
 
-def init_params(generator: torch.Generator, cfg: NitroConfig, *,
+def init_params(key: torch.Tensor, cfg: NitroConfig, *,
                 device=DEFAULT_DEVICE) -> dict:
-    """Initialise every block + the output layers (integer Kaiming)."""
+    """Initialise every block + the output layers (integer Kaiming).
+
+    ``key`` splits into one key per block and one for the output layers,
+    as in the JAX package, so ``init_params(prng.PRNGKey(s), cfg)`` equals
+    its ``init_params(jax.random.PRNGKey(s), cfg)`` bit for bit.
+    """
     device = resolve_device(device)
+    keys = prng.split(key, cfg.num_blocks + 1)
     params: dict = {"blocks": [], "output": None}
     shape = cfg.input_shape
-    for spec in cfg.blocks:
-        p, shape = B.init_block(generator, spec, shape, cfg.num_classes,
-                                device=device)
+    for spec, k in zip(cfg.blocks, keys[:-1]):
+        p, shape = B.init_block(k, spec, shape, cfg.num_classes, device=device)
         params["blocks"].append(p)
     feat = 1
     for d in shape:
         feat *= d
-    params["output"] = B.init_output(generator, feat, cfg.num_classes,
+    params["output"] = B.init_output(keys[-1], feat, cfg.num_classes,
                                      device=device)
     return params
 
@@ -76,16 +82,45 @@ def params_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> dict:
     }
 
 
+def forward(
+    params: dict,
+    cfg: NitroConfig,
+    x,
+    *,
+    train: bool = False,
+    key: torch.Tensor | None = None,
+    fused: bool = True,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> tuple[torch.Tensor, list[torch.Tensor], list[dict], dict]:
+    """Full forward pass: (ŷ, block activations, forward caches, output
+    cache).  Training splits ``key`` into one dropout key per block."""
+    device = params["output"]["w"].device
+    a = torch.as_tensor(x).to(device=device, dtype=INT_DTYPE)
+    acts: list[torch.Tensor] = []
+    caches: list[dict] = []
+    if train and key is not None:
+        drop_keys = list(prng.split(key, cfg.num_blocks))
+    else:
+        drop_keys = [None] * cfg.num_blocks
+    for spec, p, dk in zip(cfg.blocks, params["blocks"], drop_keys):
+        a, cache = B.forward_layers(
+            p, spec, a, dropout_key=dk, train=train, fused=fused,
+            backend=backend, conv_mode=conv_mode,
+        )
+        acts.append(a)
+        caches.append(cache)
+    y_hat, out_cache = B.output_forward(params["output"], a)
+    return y_hat, acts, caches, out_cache
+
+
 def frozen_forward(params: dict, cfg: NitroConfig, x) -> torch.Tensor:
     """Inference logits on frozen params: the unfused reference composition.
 
     The oracle the fused plan is held against — it calls no kernel.
     """
-    device = params["output"]["w"].device
-    a = torch.as_tensor(x).to(device=device, dtype=INT_DTYPE)
-    for spec, p in zip(cfg.blocks, params["blocks"]):
-        a = B.forward_layers(p, spec, a)
-    return B.output_forward(params["output"], a)
+    y_hat, _, _, _ = forward(params, cfg, x, train=False, fused=False)
+    return y_hat
 
 
 def predict(params: dict, cfg: NitroConfig, x) -> torch.Tensor:

@@ -30,6 +30,20 @@ def _wrap_int32(v: torch.Tensor) -> torch.Tensor:
     return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
 
 
+def sum_int32(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Integer sum that keeps int32 and wraps mod 2³², as XLA's int32
+    reduction does (a torch integer sum promotes to int64)."""
+    total = x.sum(dtype=torch.int64) if dim is None else x.sum(dim, dtype=torch.int64)
+    return _wrap_int32(total)
+
+
+def argmax_first(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Index of the first maximum along ``dim`` (int64), as ``jnp.argmax``
+    breaks ties; written out so no device's tie rule matters."""
+    is_max = x == x.amax(dim, keepdim=True)
+    return (is_max.cumsum(dim) == 0).sum(dim)
+
+
 def _matmul_f64_exact(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """int32 product mod 2³² from float64 GEMMs over 16-bit limbs.
 

@@ -26,6 +26,11 @@ def scale_forward(z: torch.Tensor, sf: int) -> torch.Tensor:
     return numerics.floor_div(z, sf)
 
 
+def scale_backward(grad_out: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: δ^{ic} = δ^{sl} (paper §3.2)."""
+    return grad_out
+
+
 def pow2_split(sf: int) -> tuple[int, int]:
     """Split SF into (shift, residual) with SF = residual << shift.
 

@@ -1,5 +1,6 @@
 // NITRO epilogue shared by the hand-written Hopper kernels: NITRO Scaling
-// (⌊z / (residual · 2^shift)⌋) and NITRO-ReLU, with floor semantics.
+// (⌊z / (residual · 2^shift)⌋) and NITRO-ReLU, with floor semantics, and
+// the NITRO-ReLU derivative the gradient kernels apply to δ on load.
 //
 // CUDA's `/` and `%` truncate toward zero on signed integers; the paper's
 // ⌊·⌋ rounds toward −∞.  Every divide here therefore goes through
@@ -28,16 +29,53 @@ struct Epilogue {
   int mu;         // μ_int8, subtracted after the ReLU (0 without ReLU)
   int apply_relu;
 
-  __device__ __forceinline__ int operator()(int z) const {
+  // NITRO Scaling: z* = ⌊z / SF⌋.
+  __device__ __forceinline__ int scale(int z) const {
     z >>= shift;  // arithmetic shift on signed int: floor by 2^shift
-    if (residual != 1) z = floor_div_pos(z, residual);
-    if (apply_relu) {
-      z = (z < 0) ? floor_div_pos(max(z, -127), alpha_inv) : min(z, 127);
-      z -= mu;
-    }
-    return z;
+    return residual != 1 ? floor_div_pos(z, residual) : z;
+  }
+
+  // NITRO-ReLU of z*, minus μ.
+  __device__ __forceinline__ int relu(int z) const {
+    z = (z < 0) ? floor_div_pos(max(z, -127), alpha_inv) : min(z, 127);
+    return z - mu;
+  }
+
+  __device__ __forceinline__ int operator()(int z) const {
+    z = scale(z);
+    return apply_relu ? relu(z) : z;
   }
 };
+
+// Division by a divisor fixed for a launch, without a divide instruction
+// (Lemire, Kaser and Kurz, "Faster remainder by direct computation",
+// 2019): n / d = hi64(n · m) for every 32-bit unsigned n, with
+// m = ⌊(2^64 − 1) / d⌋ + 1.  d = 1 keeps m = 0 and returns n.
+struct FastDiv {
+  unsigned d;
+  unsigned long long m;
+
+  __host__ __device__ explicit FastDiv(unsigned d_ = 1)
+      : d(d_), m(d_ > 1 ? ~0ull / d_ + 1 : 0ull) {}
+
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return m ? (unsigned)__umul64hi(m, n) : n;
+  }
+
+  // ⌊a / d⌋, rounding toward −∞ (d < 2^31): −⌈|a| / d⌉ for a < 0.
+  __device__ __forceinline__ int floor_div(int a) const {
+    if (a >= 0) return (int)div((unsigned)a);
+    return (int)(0u - div(0u - (unsigned)a + d - 1u));
+  }
+};
+
+// NITRO-ReLU derivative + the scaling STE (the identity) on one δ value:
+// 0 where z* saturates (z* < −127 or z* > 127), ⌊δ/α_inv⌋ where z* < 0,
+// δ elsewhere.  relu_bwd(0, 0) = 0, so zero padding stays exact.
+__device__ __forceinline__ int relu_bwd(int z, int g, const FastDiv& alpha_inv) {
+  if (z < -127 || z > 127) return 0;
+  return z < 0 ? alpha_inv.floor_div(g) : g;
+}
 
 // Narrow to the output dtype.  int8 stores keep the low byte (the JAX
 // package's astype wraps the same way); in range for every α_inv ≥ 2.

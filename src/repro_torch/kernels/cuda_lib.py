@@ -23,17 +23,25 @@ import torch
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
-COMMON_HEADERS = (_HERE / "csrc_common" / "nitro_epilogue.cuh",)
+COMMON_HEADERS = (
+    _HERE / "csrc_common" / "nitro_epilogue.cuh",
+    _HERE / "csrc_common" / "int_gemm.cuh",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     "-I", str(_HERE / "csrc_common"),
 )
 
-#: kernel name → its CUDA source
+#: library name → its CUDA source.  ``nitro_matmul`` also holds the
+#: training forward ``nitro_matmul_fwd``; every other kernel is a library
+#: of its own.
 SOURCES = {
     "nitro_matmul": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul.cu",
+    "nitro_matmul_grad_w": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_w.cu",
     "stream_conv": _HERE / "nitro_conv" / "csrc" / "stream_conv.cu",
+    "stream_conv_fwd": _HERE / "nitro_conv" / "csrc" / "stream_conv_fwd.cu",
+    "stream_conv_grad_w": _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_w.cu",
 }
 
 _lock = threading.Lock()
@@ -141,6 +149,45 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.nitro_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg}) at launch")
+
+
+def entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
+    """``(lib, fn)``: library ``lib_name`` (built on first use) and its C
+    entry point ``fn_name``, typed as ``n_ptrs`` pointers, ``n_ints`` ints
+    and the stream, returning a ``cudaError_t``."""
+    lib = load(lib_name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (sizes split-K grids)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name} kernel needs its operands on one CUDA device, got "
+            f"{[str(t.device) for t in tensors]} (CPU tensors go to the "
+            f"plain version)"
+        )
+
+
+def as_int32(name: str, *tensors: torch.Tensor) -> list[torch.Tensor]:
+    """Lift integer operands to contiguous int32 (the training dtype)."""
+    out = []
+    for t in tensors:
+        if t.dtype not in (torch.int8, torch.int16, torch.int32):
+            raise ValueError(f"{name}: integer operands expected, got {t.dtype}")
+        out.append(t.to(torch.int32).contiguous())
+    return out
 
 
 def check_inputs(name: str, x: torch.Tensor, w: torch.Tensor, *,

@@ -1,12 +1,20 @@
-from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv
+from repro_torch.kernels.nitro_conv.nitro_conv import (
+    stream_conv,
+    stream_conv_fwd,
+    stream_conv_grad_w,
+)
 from repro_torch.kernels.nitro_conv.ops import (
     CONV_MODES,
+    conv_grad_w,
     fused_conv,
+    fused_conv_fwd,
     resolve_conv_mode,
 )
 from repro_torch.kernels.nitro_conv.ref import (
     DEFAULT_BH,
     conv_geometry,
+    stream_conv_fwd_ref,
+    stream_conv_grad_w_ref,
     stream_conv_ref,
 )
 
@@ -14,8 +22,14 @@ __all__ = [
     "CONV_MODES",
     "DEFAULT_BH",
     "conv_geometry",
+    "conv_grad_w",
     "fused_conv",
+    "fused_conv_fwd",
     "resolve_conv_mode",
     "stream_conv",
+    "stream_conv_fwd",
+    "stream_conv_fwd_ref",
+    "stream_conv_grad_w",
+    "stream_conv_grad_w_ref",
     "stream_conv_ref",
 ]

@@ -1,13 +1,20 @@
-"""Python wrapper of the hand-written ``stream_conv`` CUDA kernel.
+"""Python wrappers of the hand-written streaming conv CUDA kernels.
 
-Replaces the Pallas TPU kernel ``repro.kernels.nitro_conv.stream_conv``
-(``_stream_conv_kernel``): a K×K stride-1 'same' NHWC conv by implicit
-im2col with the NITRO scale / ReLU epilogue and an optional fused 2×2
-max-pool.  Source: ``csrc/stream_conv.cu``, which also notes the
-kernel's bound and design.
+  * ``stream_conv`` replaces the Pallas ``stream_conv``
+    (``_stream_conv_kernel``): a K×K stride-1 'same' NHWC conv by implicit
+    im2col with the NITRO scale / ReLU epilogue and an optional fused 2×2
+    max-pool — the inference step;
+  * ``stream_conv_fwd`` replaces ``stream_conv_fwd``
+    (``_stream_conv_fwd_kernel``): the conv writing ``(a, z*)`` — the
+    training forward, an implicit-im2col GEMM over all N·H·W pixels;
+  * ``stream_conv_grad_w`` replaces ``stream_conv_grad_w``
+    (``_stream_grad_w_fused_kernel`` / ``_stream_grad_w_kernel``): the
+    weight gradient, δ masked by the NITRO-ReLU derivative when z* is given.
 
-The wrapper takes CUDA tensors only; the dispatcher (``ops.fused_conv``)
-sends CPU tensors to the plain version in ``ref.py``.
+Sources: ``csrc/stream_conv.cu``, ``csrc/stream_conv_fwd.cu`` and
+``csrc/stream_conv_grad_w.cu``, which note each kernel's bound and
+design.  The wrappers take CUDA tensors only; the dispatchers in
+``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -115,3 +122,103 @@ def stream_conv(
 
 #: launches of the CUDA kernel (the wrapper adds one per launch)
 stream_conv.launches = cuda_lib.LaunchCounter()
+
+
+def _conv_shapes(name: str, x: torch.Tensor, k: int, c_w: int) -> None:
+    if x.ndim != 4 or x.shape[3] != c_w or k % 2 == 0:
+        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)}, K={k}, C={c_w}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: input must have fewer than 2^31 elements")
+
+
+def stream_conv_fwd(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming training forward on the card: ``(a, z_star)``, both int32
+    (N,H,W,F).  x (N,H,W,C) and w (K,K,C,F) are lifted to int32."""
+    if w.ndim != 4 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"stream_conv_fwd: bad weight shape {tuple(w.shape)}")
+    _conv_shapes("stream_conv_fwd", x, w.shape[0], w.shape[2])
+    cuda_lib.require_cuda("stream_conv_fwd", x, w)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    x, w = cuda_lib.as_int32("stream_conv_fwd", x, w)
+    n, h, w_sp, c = x.shape
+    k, f = w.shape[0], w.shape[-1]
+    a = torch.empty((n, h, w_sp, f), dtype=torch.int32, device=x.device)
+    z_star = torch.empty_like(a)
+    if a.numel() == 0:
+        return a, z_star
+    if a.numel() >= 2 ** 31:
+        raise ValueError("stream_conv_fwd: output must have fewer than 2^31 elements")
+    lib, launch = cuda_lib.entry("stream_conv_fwd", "stream_conv_fwd_launch", 4, 10)
+    shift, residual = pow2_split(sf)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), w.reshape(k * k * c, f).data_ptr(), a.data_ptr(),
+            z_star.data_ptr(), n, h, w_sp, c, f, k, shift, residual, alpha_inv,
+            mu_int8(alpha_inv), stream,
+        )
+    cuda_lib.check(lib, err, "stream_conv_fwd")
+    stream_conv_fwd.launches.add()
+    return a, z_star
+
+
+def stream_conv_grad_w(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    kernel_size: int,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Streaming conv weight gradient on the card: (N,H,W,C) input ×
+    (N,H,W,F) grad → (K,K,C,F) int32.
+
+    With ``z_star`` (the shape of ``grad_out``) each δ is masked by the
+    NITRO-ReLU derivative as the kernel loads it; without it δ is taken
+    as it is.  The contraction over N·H·W is split across blocks whose
+    partial sums are added with atomics (exact: int32 addition wraps mod
+    2³² in any order).
+    """
+    k = int(kernel_size)
+    _conv_shapes("stream_conv_grad_w", x, k, x.shape[-1] if x.ndim == 4 else -1)
+    if grad_out.ndim != 4 or grad_out.shape[:3] != x.shape[:3]:
+        raise ValueError(f"stream_conv_grad_w: grad {tuple(grad_out.shape)} "
+                         f"does not match input {tuple(x.shape)}")
+    if z_star is not None and z_star.shape != grad_out.shape:
+        raise ValueError("delta/z_star shape mismatch")
+    operands = (x, grad_out) if z_star is None else (x, grad_out, z_star)
+    cuda_lib.require_cuda("stream_conv_grad_w", *operands)
+    if z_star is not None and alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    operands = cuda_lib.as_int32("stream_conv_grad_w", *operands)
+    x, grad_out = operands[0], operands[1]
+    z_ptr = operands[2].data_ptr() if z_star is not None else None
+    n, h, w_sp, c = x.shape
+    f = grad_out.shape[-1]
+    if max(k * k * c, f) >= 65535 * 64:
+        raise ValueError("stream_conv_grad_w: output exceeds the kernel's grid")
+    out = torch.zeros((k * k * c, f), dtype=torch.int32, device=x.device)
+    if out.numel() == 0 or n * h * w_sp == 0:
+        return out.reshape(k, k, c, f)
+    lib, launch = cuda_lib.entry("stream_conv_grad_w", "stream_conv_grad_w_launch", 4, 8)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), grad_out.data_ptr(), z_ptr, out.data_ptr(),
+            n, h, w_sp, c, f, k, max(int(alpha_inv), 1),
+            cuda_lib.sm_count(x.device), stream,
+        )
+    cuda_lib.check(lib, err, "stream_conv_grad_w")
+    stream_conv_grad_w.launches.add()
+    return out.reshape(k, k, c, f)
+
+
+stream_conv_fwd.launches = cuda_lib.LaunchCounter()
+stream_conv_grad_w.launches = cuda_lib.LaunchCounter()

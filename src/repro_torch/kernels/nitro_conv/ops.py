@@ -1,5 +1,7 @@
-"""Dispatch for the streaming conv (port of
-``repro.kernels.nitro_conv.ops``, inference entry point).
+"""Dispatch for the streaming conv kernels (port of
+``repro.kernels.nitro_conv.ops``): ``fused_conv`` (inference),
+``fused_conv_fwd`` (training forward) and ``conv_grad_w`` (training
+weight gradient).
 
 ``conv_mode``
   * ``'stream'``      — implicit im2col: the CUDA kernel stages row bands
@@ -11,6 +13,8 @@
 
 ``backend`` has ``nitro_matmul.ops``' vocabulary: ``auto | cuda |
 reference``.  Every (mode, backend) combination gives the same bits.
+The training entry points take ``conv_mode='stream'`` only; the
+materialised training route is not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +23,11 @@ import torch
 
 from repro_torch.core.layers import conv_im2col_operands, window_view_2x2
 from repro_torch.kernels.nitro_conv import ref as conv_ref
-from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv
+from repro_torch.kernels.nitro_conv.nitro_conv import (
+    stream_conv,
+    stream_conv_fwd,
+    stream_conv_grad_w,
+)
 from repro_torch.kernels.nitro_matmul.ops import (
     _guard_int8,
     check_alpha_inv,
@@ -78,3 +86,52 @@ def fused_conv(
         x, w, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu, pool=pool,
         out_dtype=out_dtype, operand_dtype=od,
     )
+
+
+def _training_mode(conv_mode: str) -> None:
+    if resolve_conv_mode(conv_mode) != "stream":
+        raise NotImplementedError(
+            "conv_mode='materialise' for training is not ported yet (a later "
+            "slice of the port); use conv_mode='stream'"
+        )
+
+
+def fused_conv_fwd(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused conv training forward: ``(a, z_star)``, both int32 (N,H,W,F)."""
+    alpha_inv = check_alpha_inv(alpha_inv, True)
+    backend = resolve_backend(backend, x.device)
+    _training_mode(conv_mode)
+    fn = conv_ref.stream_conv_fwd_ref if backend == "reference" else stream_conv_fwd
+    return fn(x, w, sf=sf, alpha_inv=alpha_inv)
+
+
+def conv_grad_w(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    kernel_size: int,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> torch.Tensor:
+    """Conv weight gradient: (N,H,W,C) × (N,H,W,F) → (K,K,C,F) int32.
+
+    ``z_star`` applies the NITRO-ReLU derivative to δ inside the kernel;
+    without it the caller has already applied the activation backward.
+    """
+    backend = resolve_backend(backend, x.device)
+    if z_star is not None:
+        alpha_inv = check_alpha_inv(alpha_inv, True)
+    _training_mode(conv_mode)
+    fn = conv_ref.stream_conv_grad_w_ref if backend == "reference" else stream_conv_grad_w
+    return fn(x, grad_out, kernel_size=kernel_size, z_star=z_star,
+              alpha_inv=alpha_inv)

@@ -1,12 +1,12 @@
-"""Plain PyTorch version of the streaming implicit-im2col conv (port of
-``repro.kernels.nitro_conv.ref``, inference forward).
+"""Plain PyTorch versions of the streaming implicit-im2col conv kernels
+(port of ``repro.kernels.nitro_conv.ref``): the inference step, the
+training forward ``(a, z*)`` and the weight gradient.
 
-Runs the kernel's algorithm in plain tensor ops: a loop over output-row
+Each runs the algorithm in plain tensor ops: a loop over output-row
 bands, each forming a band-local patch block from K² overlapping row
-slices and feeding one integer matmul, with the scale / ReLU / 2×2 pool
-epilogue applied per band.  The full ``(N·H·W, K²·C)`` patch matrix is
-never formed.  Patch layout matches ``core.layers.im2col``: segment
-``(ki, kj)`` at channels ``[(ki·K + kj)·C, …)``.
+slices and feeding one integer matmul.  The full ``(N·H·W, K²·C)`` patch
+matrix is never formed.  Patch layout matches ``core.layers.im2col``:
+segment ``(ki, kj)`` at channels ``[(ki·K + kj)·C, …)``.
 """
 
 from __future__ import annotations
@@ -14,9 +14,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.activations import nitro_relu
+from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.layers import window_view_2x2
-from repro_torch.core.numerics import int_matmul
+from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_forward
 
 #: Default row-band height of the CUDA kernel (the JAX package's
@@ -97,3 +97,64 @@ def stream_conv_ref(
         outs.append(a.to(out_dtype))
     out = torch.cat(outs, dim=1)
     return out[:, : h // 2] if pool else out[:, :h]
+
+
+def _stream_z_bands(x: torch.Tensor, w: torch.Tensor, bh: int | None):
+    """Yield the raw int32 pre-activation bands z, each (N, bh, W, F)."""
+    n, h, w_sp, c = x.shape
+    k, f = w.shape[0], w.shape[-1]
+    bh, h_pad, p = conv_geometry(h, k, bh, pool=False)
+    xp = F.pad(x, (0, 0, p, p, p, p + h_pad - h))
+    w_flat = w.reshape(k * k * c, f)
+    for t in range(h_pad // bh):
+        band = xp[:, t * bh:t * bh + bh + 2 * p]
+        yield int_matmul(_band_patches(band, k, w_sp), w_flat).reshape(n, bh, w_sp, f)
+
+
+def stream_conv_fwd_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    out_dtype: torch.dtype = torch.int32,
+    bh: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Streaming training forward: ``(a, z_star)``, both (N,H,W,F); z_star
+    is int32 (the NITRO-ReLU/STE backward's cache)."""
+    h = x.shape[1]
+    z = torch.cat(list(_stream_z_bands(x, w, bh)), dim=1)
+    z_star = scale_forward(z[:, :h], sf)
+    return nitro_relu(z_star, alpha_inv).to(out_dtype), z_star
+
+
+def stream_conv_grad_w_ref(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    kernel_size: int,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+    bh: int | None = None,
+) -> torch.Tensor:
+    """Streaming weight gradient Σ_bands patch_bandᵀ @ relu_bwd(g_band).
+
+    (N,H,W,C) input × (N,H,W,F) grad → (K,K,C,F) int32.  With ``z_star``
+    each gradient band is masked by the NITRO-ReLU derivative before its
+    matmul; without it δ is taken as it is.
+    """
+    n, h, w_sp, c = x.shape
+    k = kernel_size
+    f = grad_out.shape[-1]
+    bh, h_pad, p = conv_geometry(h, k, bh, pool=False)
+    xp = F.pad(x.to(INT_DTYPE), (0, 0, p, p, p, p + h_pad - h))
+    gp = F.pad(grad_out.to(INT_DTYPE), (0, 0, 0, 0, 0, h_pad - h))
+    zp = None if z_star is None else F.pad(z_star, (0, 0, 0, 0, 0, h_pad - h))
+    grad_w = torch.zeros((k * k * c, f), dtype=INT_DTYPE, device=x.device)
+    for t in range(h_pad // bh):
+        patches = _band_patches(xp[:, t * bh:t * bh + bh + 2 * p], k, w_sp)
+        g_band = gp[:, t * bh:t * bh + bh]
+        if zp is not None:
+            g_band = nitro_relu_backward(zp[:, t * bh:t * bh + bh], g_band, alpha_inv)
+        grad_w = grad_w + int_matmul(patches.T, g_band.reshape(n * bh * w_sp, f))
+    return grad_w.reshape(k, k, c, f)

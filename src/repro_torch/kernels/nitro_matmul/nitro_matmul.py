@@ -1,12 +1,19 @@
-"""Python wrapper of the hand-written ``nitro_matmul`` CUDA kernel.
+"""Python wrappers of the hand-written NITRO matmul CUDA kernels.
 
-Replaces the Pallas TPU kernel ``repro.kernels.nitro_matmul.nitro_matmul``
-(``_nitro_matmul_kernel``): ``relu(⌊x @ w / SF⌋) − μ`` (or the scale
-alone) from one int32 accumulator, written as int8 or int32.  Source:
-``csrc/nitro_matmul.cu``, which also notes the kernel's bound and design.
+  * ``nitro_matmul`` replaces the Pallas ``nitro_matmul``
+    (``_nitro_matmul_kernel``): ``relu(⌊x @ w / SF⌋) − μ`` (or the scale
+    alone) into int8 or int32 — the inference step;
+  * ``nitro_matmul_fwd`` replaces ``nitro_matmul_fwd``
+    (``_nitro_matmul_fwd_kernel``): ``(a, z*)`` from one accumulator — the
+    training forward;
+  * ``nitro_matmul_grad_w`` replaces ``nitro_matmul_grad_w``
+    (``_nitro_grad_w_kernel``): ``xᵀ @ relu_bwd(z*, δ)`` — the training
+    weight gradient.
 
-The wrapper takes CUDA tensors only; the dispatcher (``ops.fused_matmul``)
-sends CPU tensors to the plain version in ``ref.py``.
+Sources: ``csrc/nitro_matmul.cu`` (the first two) and
+``csrc/nitro_matmul_grad_w.cu``, which note each kernel's bound and
+design.  The wrappers take CUDA tensors only; the dispatchers in
+``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from repro_torch.core.activations import mu_int8
 from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
+
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.nitro_matmul_launch
@@ -72,3 +80,88 @@ def nitro_matmul(
 
 #: launches of the CUDA kernel (the wrapper adds one per launch)
 nitro_matmul.launches = cuda_lib.LaunchCounter()
+
+
+def _check_2d(name: str, a: torch.Tensor, b: torch.Tensor, dim_a: int, dim_b: int):
+    if a.ndim != 2 or b.ndim != 2 or a.shape[dim_a] != b.shape[dim_b]:
+        raise ValueError(f"{name}: bad shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    if max(*a.shape, *b.shape) >= 2 ** 31 or a.numel() >= 2 ** 31 or b.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: dimensions must fit int32")
+
+
+def nitro_matmul_fwd(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused training forward on the card: ``(a, z_star)``, both int32.
+
+    x (M,K) and w (K,N) are lifted to int32 (the training dtype);
+    ``z_star = ⌊x @ w / sf⌋``, ``a = nitro_relu(z_star)``.
+    """
+    _check_2d("nitro_matmul_fwd", x, w, 1, 0)
+    cuda_lib.require_cuda("nitro_matmul_fwd", x, w)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    x, w = cuda_lib.as_int32("nitro_matmul_fwd", x, w)
+    m, k = x.shape
+    n = w.shape[1]
+    a = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    z_star = torch.empty_like(a)
+    if a.numel() == 0:
+        return a, z_star
+    lib, launch = cuda_lib.entry("nitro_matmul", "nitro_matmul_fwd_launch", 4, 7)
+    shift, residual = pow2_split(sf)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), z_star.data_ptr(),
+            m, n, k, shift, residual, alpha_inv, mu_int8(alpha_inv), stream,
+        )
+    cuda_lib.check(lib, err, "nitro_matmul_fwd")
+    nitro_matmul_fwd.launches.add()
+    return a, z_star
+
+
+def nitro_matmul_grad_w(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Fused weight gradient on the card: ``xᵀ @ relu_bwd(z_star, δ)``.
+
+    x (B,M), delta and z_star (B,N) → (M,N) int32.  The contraction over
+    the batch is split across blocks whose partial sums are added with
+    atomics (exact: int32 addition wraps mod 2³² in any order).
+    """
+    _check_2d("nitro_matmul_grad_w", x, delta, 0, 0)
+    if z_star.shape != delta.shape:
+        raise ValueError(f"delta/z_star shape mismatch {tuple(delta.shape)} "
+                         f"vs {tuple(z_star.shape)}")
+    cuda_lib.require_cuda("nitro_matmul_grad_w", x, delta, z_star)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    x, delta, z_star = cuda_lib.as_int32("nitro_matmul_grad_w", x, delta, z_star)
+    b, m = x.shape
+    n = delta.shape[1]
+    out = torch.zeros((m, n), dtype=torch.int32, device=x.device)
+    if out.numel() == 0 or b == 0:
+        return out
+    lib, launch = cuda_lib.entry("nitro_matmul_grad_w", "nitro_matmul_grad_w_launch", 4, 5)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), delta.data_ptr(), z_star.data_ptr(), out.data_ptr(),
+            b, m, n, alpha_inv, cuda_lib.sm_count(x.device), stream,
+        )
+    cuda_lib.check(lib, err, "nitro_matmul_grad_w")
+    nitro_matmul_grad_w.launches.add()
+    return out
+
+
+nitro_matmul_fwd.launches = cuda_lib.LaunchCounter()
+nitro_matmul_grad_w.launches = cuda_lib.LaunchCounter()

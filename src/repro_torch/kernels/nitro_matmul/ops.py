@@ -1,9 +1,11 @@
-"""Dispatch for the fused NITRO matmul (port of
-``repro.kernels.nitro_matmul.ops``, inference entry point).
+"""Dispatch for the NITRO matmul kernels (port of
+``repro.kernels.nitro_matmul.ops``): ``fused_matmul`` (inference),
+``fused_matmul_fwd`` (training forward) and ``grad_w_matmul`` (training
+weight gradient).
 
 Backends:
 
-  * ``'cuda'``      — the hand-written kernel (``nitro_matmul.py``);
+  * ``'cuda'``      — the hand-written kernels (``nitro_matmul.py``);
   * ``'reference'`` — the plain PyTorch version (``ref.py``), on any device;
   * ``'auto'``      — ``cuda`` for CUDA tensors, ``reference`` for CPU ones.
 
@@ -14,8 +16,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul
-from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_ref
+from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+    nitro_matmul,
+    nitro_matmul_fwd,
+    nitro_matmul_grad_w,
+)
+from repro_torch.kernels.nitro_matmul.ref import (
+    nitro_matmul_fwd_ref,
+    nitro_matmul_grad_w_ref,
+    nitro_matmul_ref,
+)
 
 BACKENDS = ("auto", "cuda", "reference")
 
@@ -108,3 +118,38 @@ def fused_matmul(
         x2, w2, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu,
         out_dtype=out_dtype, operand_dtype=od,
     )
+
+
+def fused_matmul_fwd(
+    x2: torch.Tensor,
+    w2: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused training forward on 2-D operands: ``(a, z_star)``, both int32.
+
+    Training operands are int32 (the JAX package's dtype contract), so
+    there is no ``operand_dtype`` here.
+    """
+    backend = resolve_backend(backend, x2.device)
+    alpha_inv = check_alpha_inv(alpha_inv, True)
+    fn = nitro_matmul_fwd_ref if backend == "reference" else nitro_matmul_fwd
+    return fn(x2, w2, sf=sf, alpha_inv=alpha_inv)
+
+
+def grad_w_matmul(
+    x2: torch.Tensor,
+    delta2: torch.Tensor,
+    z_star2: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Fused weight gradient ``x2ᵀ @ relu_bwd(z*, δ)``, the NITRO-ReLU
+    derivative applied to δ as the kernel loads it."""
+    backend = resolve_backend(backend, x2.device)
+    alpha_inv = check_alpha_inv(alpha_inv, True)
+    fn = nitro_matmul_grad_w_ref if backend == "reference" else nitro_matmul_grad_w
+    return fn(x2, delta2, z_star2, alpha_inv=alpha_inv)

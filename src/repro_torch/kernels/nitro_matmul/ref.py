@@ -1,18 +1,19 @@
-"""Plain PyTorch version of the fused NITRO matmul (port of
+"""Plain PyTorch versions of the NITRO matmul kernels (port of
 ``repro.kernels.nitro_matmul.ref``).
 
-Composes integer matmul → NITRO Scaling → NITRO-ReLU exactly as
-``repro_torch.core`` defines them.  The CUDA kernel must match it bit for
-bit; the CPU path of the dispatcher runs it.
+Composes integer matmul → NITRO Scaling → NITRO-ReLU (forward) and
+NITRO-ReLU derivative → integer matmul (weight gradient) exactly as
+``repro_torch.core`` defines them.  The CUDA kernels must match them bit
+for bit; the CPU path of the dispatchers runs them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.activations import nitro_relu
-from repro_torch.core.numerics import int_matmul
-from repro_torch.core.scaling import scale_forward
+from repro_torch.core.activations import nitro_relu, nitro_relu_backward
+from repro_torch.core.numerics import INT_DTYPE, int_matmul
+from repro_torch.core.scaling import scale_backward, scale_forward
 
 
 def nitro_matmul_ref(
@@ -42,3 +43,37 @@ def nitro_matmul_ref(
     if apply_relu:
         z_star = nitro_relu(z_star, alpha_inv)
     return z_star.to(out_dtype)
+
+
+def nitro_matmul_fwd_ref(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    out_dtype: torch.dtype = torch.int32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: ``(a, z_star)``; ``z_star`` is always int32 (the
+    cache the NITRO-ReLU/STE backward reads)."""
+    z_star = scale_forward(int_matmul(x, w), sf)
+    return nitro_relu(z_star, alpha_inv).to(out_dtype), z_star
+
+
+def masked_delta(delta: torch.Tensor, z_star: torch.Tensor,
+                 alpha_inv: int) -> torch.Tensor:
+    """The δ prologue the grad kernels apply on load: NITRO-ReLU
+    derivative, then the scaling STE (the identity)."""
+    return scale_backward(nitro_relu_backward(z_star, delta, alpha_inv))
+
+
+def nitro_matmul_grad_w_ref(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Weight gradient ``xᵀ @ relu_bwd(z*, δ)``: x (B,M), δ/z* (B,N) →
+    (M,N) int32."""
+    g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
+    return int_matmul(x.to(INT_DTYPE).T, g)

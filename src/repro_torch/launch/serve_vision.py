@@ -22,19 +22,19 @@ import argparse
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.configs import get_paper_config
 from repro_torch.core import model as M
+from repro_torch.core import prng
 from repro_torch.infer import compile_plan, freeze, load_frozen
 from repro_torch.serving import VisionEngine, latency_summary_ms, snapshot_delta
 
 
 def _random_frozen(arch: str, scale: float, seed: int):
-    """Seeded random-init weights, frozen (init draws on the CPU)."""
+    """Seeded random-init weights (``PRNGKey(seed)``, the JAX launcher's
+    init), frozen."""
     cfg = get_paper_config(arch, scale=scale)
-    gen = torch.Generator().manual_seed(seed)
-    return freeze(M.init_params(gen, cfg, device="cpu"), cfg)
+    return freeze(M.init_params(prng.PRNGKey(seed), cfg, device="cpu"), cfg)
 
 
 def _parser() -> argparse.ArgumentParser:

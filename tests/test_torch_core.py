@@ -5,6 +5,7 @@ go through the JAX function and its port, and the results must be equal,
 dtype included.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ from repro_torch.configs import paper as tpaper
 from repro_torch.core import activations as tact
 from repro_torch.core import init as tinit
 from repro_torch.core import numerics as tnum
+from repro_torch.core import prng
 from repro_torch.core import scaling as tscale
 
 
@@ -118,14 +120,15 @@ def test_kaiming_bound_every_fan_in(arch):
 
 
 def test_integer_kaiming_uniform_range_and_generator():
-    g = torch.Generator().manual_seed(0)
-    w = tinit.integer_kaiming_uniform(g, (3, 3, 128, 256), 1152)
+    """Drawn from a threefry key: in [-b, b], reproducible, and the JAX
+    package's draw for the same key."""
+    w = tinit.integer_kaiming_uniform(prng.PRNGKey(0), (3, 3, 128, 256), 1152)
     b = jinit.kaiming_bound(1152)
     assert w.dtype == torch.int32 and w.shape == (3, 3, 128, 256)
     assert int(w.min()) == -b and int(w.max()) == b
-    w2 = tinit.integer_kaiming_uniform(torch.Generator().manual_seed(0),
-                                       (3, 3, 128, 256), 1152)
+    w2 = tinit.integer_kaiming_uniform(prng.PRNGKey(0), (3, 3, 128, 256), 1152)
     assert torch.equal(w, w2)
+    _eq(w, jinit.integer_kaiming_uniform(jax.random.PRNGKey(0), (3, 3, 128, 256), 1152))
 
 
 @pytest.mark.parametrize("arch,scale", [("vgg8b", 1.0), ("vgg11b", 0.25),

@@ -1,4 +1,5 @@
-"""PyTorch port on a CUDA card: each kernel ≡ its plain version, bitwise.
+"""PyTorch port on a CUDA card: each kernel ≡ its plain version, bitwise,
+and the CUDA training step ≡ the plain one.
 
 This file imports torch and the port only (no JAX), so it runs where the
 kernels do:
@@ -14,11 +15,29 @@ import torch
 
 from repro_torch.configs import get_paper_config
 from repro_torch.core import model as M
+from repro_torch.core import prng
 from repro_torch.infer import compile_plan, freeze
-from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv
-from repro_torch.kernels.nitro_conv.ref import stream_conv_ref
-from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul
-from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_ref
+from repro_torch.core import les
+from repro_torch.kernels.nitro_conv.nitro_conv import (
+    stream_conv,
+    stream_conv_fwd,
+    stream_conv_grad_w,
+)
+from repro_torch.kernels.nitro_conv.ref import (
+    stream_conv_fwd_ref,
+    stream_conv_grad_w_ref,
+    stream_conv_ref,
+)
+from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+    nitro_matmul,
+    nitro_matmul_fwd,
+    nitro_matmul_grad_w,
+)
+from repro_torch.kernels.nitro_matmul.ref import (
+    nitro_matmul_fwd_ref,
+    nitro_matmul_grad_w_ref,
+    nitro_matmul_ref,
+)
 
 _T = {"int8": torch.int8, "int32": torch.int32}
 _MM_CASES = [((5, 7, 3), 3 << 5), ((64, 300, 70), 3 << 8), ((33, 2048, 10), 3 << 9)]
@@ -73,9 +92,105 @@ def test_stream_conv_matches_plain(cuda_device):
 @pytest.mark.gpu
 def test_cuda_plan_matches_reference_plan(cuda_device):
     cfg = get_paper_config("vgg8b", scale=0.25)
-    fm = freeze(M.init_params(torch.Generator().manual_seed(2), cfg, device="cpu"), cfg)
+    fm = freeze(M.init_params(prng.PRNGKey(2), cfg, device="cpu"), cfg)
     x = np.random.default_rng(2).integers(-127, 128, (5, *cfg.input_shape)).astype(np.int32)
     got = compile_plan(fm, device=cuda_device).logits(x)
     want = compile_plan(fm, device=cuda_device, backend="reference").logits(x)
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(compile_plan(fm, device="cpu").logits(x), want.cpu())
+
+
+def _wide(g, shape, lim, device):
+    return torch.randint(-lim, lim, shape, generator=g).to(torch.int32).to(device)
+
+
+_MM_TRAIN = [((5, 7, 3), 3 << 8), ((64, 300, 70), 3 << 10), ((1000, 20, 10), 3 << 4)]
+
+
+@pytest.mark.gpu
+def test_nitro_matmul_fwd_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(3)
+    for (m, k, n), sf in _MM_TRAIN:
+        x, w = _ints(g, (m, k), torch.int32, cuda_device), _wide(g, (k, n), 2 ** 10, cuda_device)
+        for alpha_inv in (1, 2, 10):
+            got = nitro_matmul_fwd(x, w, sf=sf, alpha_inv=alpha_inv)
+            want = nitro_matmul_fwd_ref(x, w, sf=sf, alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_nitro_matmul_grad_w_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(4)
+    for b, m, n in ((5, 7, 3), (64, 300, 70), (1000, 20, 10)):
+        x = _wide(g, (b, m), 2 ** 31 - 1, cuda_device)
+        delta = _wide(g, (b, n), 2 ** 20, cuda_device)
+        z = _wide(g, (b, n), 300, cuda_device)
+        for alpha_inv in (1, 2, 10):
+            got = nitro_matmul_grad_w(x, delta, z, alpha_inv=alpha_inv)
+            want = nitro_matmul_grad_w_ref(x, delta, z, alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+_CONV_TRAIN = [  # (N, H, W, C, F, K, sf)
+    (2, 7, 9, 5, 12, 3, 3 << 9),
+    (2, 9, 7, 6, 10, 5, 3 << 10),
+    (3, 33, 31, 3, 70, 3, 3 << 9),
+    (1, 12, 90, 150, 36, 3, 3 << 11),
+]
+
+
+@pytest.mark.gpu
+def test_stream_conv_fwd_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(5)
+    for n, h, w_sp, c, f, k, sf in _CONV_TRAIN:
+        x = _ints(g, (n, h, w_sp, c), torch.int32, cuda_device)
+        w = _wide(g, (k, k, c, f), 2 ** 10, cuda_device)
+        for alpha_inv in (1, 10):
+            got = stream_conv_fwd(x, w, sf=sf, alpha_inv=alpha_inv)
+            want = stream_conv_fwd_ref(x, w, sf=sf, alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_stream_conv_grad_w_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(6)
+    for n, h, w_sp, c, f, k, _ in _CONV_TRAIN:
+        x = _ints(g, (n, h, w_sp, c), torch.int32, cuda_device)
+        delta = _wide(g, (n, h, w_sp, f), 2 ** 20, cuda_device)
+        z = _wide(g, (n, h, w_sp, f), 300, cuda_device)
+        for z_star, alpha_inv in ((z, 1), (z, 10), (None, 10)):
+            got = stream_conv_grad_w(x, delta, kernel_size=k, z_star=z_star,
+                                     alpha_inv=alpha_inv)
+            want = stream_conv_grad_w_ref(x, delta, kernel_size=k, z_star=z_star,
+                                          alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_train_steps_match_reference(cuda_device):
+    """Two VGG8B steps at scale 0.25 through the kernels ≡ the plain step."""
+    cfg = get_paper_config("vgg8b", scale=0.25)
+    rng = np.random.default_rng(7)
+    states = {b: les.create_train_state(prng.PRNGKey(1), cfg, device=cuda_device)
+              for b in ("cuda", "reference")}
+    for it in range(2):
+        x = torch.from_numpy(rng.integers(-127, 128, (16, *cfg.input_shape))
+                             .astype(np.int32)).to(cuda_device)
+        y = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32)).to(cuda_device)
+        out = {b: les.train_step(states[b], cfg, x, y, prng.PRNGKey(it), backend=b)
+               for b in states}
+        states = {b: out[b][0] for b in out}
+        for f in ("loss", "correct", "local_losses"):
+            assert torch.equal(getattr(out["cuda"][1], f), getattr(out["reference"][1], f))
+    got, want = states["cuda"], states["reference"]
+    for bg, bw in zip(got.params["blocks"], want.params["blocks"]):
+        for part in ("fw", "lr"):
+            assert torch.equal(bg[part]["w"], bw[part]["w"])
+    assert torch.equal(got.params["output"]["w"], want.params["output"]["w"])
+    assert int(got.step) == 2 and torch.equal(got.opt_fw.gamma_inv, want.opt_fw.gamma_inv)

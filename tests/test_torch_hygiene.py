@@ -55,7 +55,7 @@ def test_forbidden_import_scan_catches_offenders(tmp_path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
-        "import repro_torch, repro_torch.launch.serve_vision\n"
+        "import repro_torch, repro_torch.launch.serve_vision, repro_torch.launch.train\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
@@ -77,16 +77,17 @@ def no_cuda():
 def test_default_device_entry_points_raise(no_cuda):
     from repro_torch.configs import get_paper_config
     from repro_torch.core import model as M
+    from repro_torch.core import prng
     from repro_torch.infer import compile_plan, freeze
     from repro_torch.launch import serve_vision
 
     cfg = get_paper_config("mlp1", scale=0.1)
-    params = M.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params = M.init_params(prng.PRNGKey(0), cfg, device="cpu")
     fm = freeze(params, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compile_plan(fm)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        M.init_params(torch.Generator().manual_seed(0), cfg)
+        M.init_params(prng.PRNGKey(0), cfg)
     tree = {"blocks": [{"fw": {"w": b["fw"]["w"].numpy()}, "lr": {"w": b["lr"]["w"].numpy()}}
                        for b in params["blocks"]],
             "output": {"w": params["output"]["w"].numpy()}}
@@ -95,6 +96,21 @@ def test_default_device_entry_points_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_vision.main(["--arch", "mlp1", "--scale", "0.1", "--requests", "1"])
     assert compile_plan(fm, device="cpu").logits(np.zeros((1, 784), np.int32)).shape == (1, 10)
+
+
+def test_train_entry_points_raise_without_cuda(no_cuda):
+    """The trainer defaults to the card and raises on a host without one."""
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import les, prng
+    from repro_torch.launch import train
+
+    cfg = get_paper_config("vgg8b", scale=0.0625)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        les.create_train_state(prng.PRNGKey(0), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "vgg8b", "--steps", "1", "--scale", "0.0625"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train_nitro("vgg8b", steps=1, scale=0.0625)
 
 
 def _run_smoke(cwd: Path):

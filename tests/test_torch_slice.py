@@ -20,6 +20,7 @@ from repro.infer import save_frozen as j_save_frozen
 from repro.serving.vision import VisionEngine as JVisionEngine
 from repro_torch.configs import paper as tpaper
 from repro_torch.core import model as TM
+from repro_torch.core import prng
 from repro_torch.infer import compile_plan, freeze, load_frozen
 from repro_torch.launch import serve_vision
 from repro_torch.serving import VisionEngine
@@ -60,7 +61,7 @@ def test_params_from_numpy_frozen_forward_matches(small):
 def test_init_params_tree_shape_matches_jax(small):
     _, _, np_tree = small
     cfg = tpaper.get("vgg8b", scale=0.0625)
-    tparams = TM.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tparams = TM.init_params(prng.PRNGKey(0), cfg, device="cpu")
     assert len(tparams["blocks"]) == len(np_tree["blocks"])
     for tb, jb in zip(tparams["blocks"], np_tree["blocks"]):
         for part in ("fw", "lr"):
