@@ -9,8 +9,9 @@ Phases, each fatal on failure:
      each, in parallel, timed;
   3. hold each kernel against its plain PyTorch version on the card,
      bitwise (tolerance 0: every value is an integer): the serving kernels
-     at every VGG8B step shape at batch 32, the training kernels at every
-     VGG8B training shape at batch 64, and all at ragged shapes;
+     at every VGG8B step shape at batch 32, the training and update
+     kernels at every VGG8B training shape at batch 64 (the update kernels
+     at several optimiser states), and all at ragged shapes;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
      full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
      with the launch counts reset just before and read just after; every
@@ -22,13 +23,29 @@ Phases, each fatal on failure:
      stream_conv_grad_w 6× and nitro_matmul_grad_w 1×, and the final
      TrainState and every step's metrics must equal, bitwise, those of the
      same run with ``--backend reference`` on the card;
+  5b. the ``fuse_opt`` path: the same CLI run with ``--fuse-opt``, counted
+     the same way; each step must launch stream_conv_fwd 6×,
+     nitro_matmul_fwd 1×, stream_conv_grad_w_opt 6× and
+     nitro_matmul_grad_w_opt 1× (and no split grad_W kernel), and its
+     final TrainState, every step's metrics and the test accuracy must
+     equal the split run's bitwise;
+  5c. the fused apply: the CLI's 4 batches and keys through
+     ``compute_gradients`` then ``apply_gradients(fuse_opt=True)``,
+     counted; each step must launch integer_sgd_update 15× and the state
+     must equal the split run's bitwise;
   6. time each kernel per step shape with CUDA events beside its bound and
-     its plain version, the serving batch latency and the training step.
+     its plain version, the serving batch latency, and the split and
+     ``fuse_opt`` training steps host to host in turns.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
 the kernel summed over its step shapes and ``launches`` is its path's
-count; then, last, ``{"ok": true, "device": {...}}``.  Exits non-zero,
+count; then, last, ``{"ok": true, "device": {...}}``.  ``ms`` is CUDA-event
+time over back-to-back launches, except for nitro_matmul_grad_w_opt and
+integer_sgd_update, whose launches are shorter than their wrappers' host
+path: there it is the device time ``torch.profiler`` reports (the
+back-to-back time is printed beside it, and nitro_matmul_grad_w's device
+time beside its own).  Exits non-zero,
 without that line, when CUDA is absent or the script is not inside a
 checkout.
 
@@ -46,6 +63,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -81,12 +99,30 @@ KERNELS = {
         "source": "src/repro_torch/kernels/nitro_conv/csrc/stream_conv_grad_w.cu",
         "replaces": "src/repro/kernels/nitro_conv/nitro_conv.py:460",
     },
+    "nitro_matmul_grad_w_opt": {
+        "source": "src/repro_torch/kernels/nitro_matmul/csrc/nitro_matmul_grad_w_opt.cu",
+        "replaces": "src/repro/kernels/nitro_matmul/nitro_matmul.py:478",
+    },
+    "stream_conv_grad_w_opt": {
+        "source": "src/repro_torch/kernels/nitro_conv/csrc/stream_conv_grad_w_opt.cu",
+        "replaces": "src/repro/kernels/nitro_conv/nitro_conv.py:534",
+    },
+    "integer_sgd_update": {
+        "source": "src/repro_torch/kernels/integer_sgd/csrc/integer_sgd.cu",
+        "replaces": "src/repro/kernels/integer_sgd/integer_sgd.py:61",
+    },
 }
 TRAIN_KERNELS = ("stream_conv_fwd", "nitro_matmul_fwd", "stream_conv_grad_w",
                  "nitro_matmul_grad_w")
-#: launches of each training kernel per VGG8B step (6 convs, 1 linear)
+#: launches of each kernel per VGG8B step (6 convs, 1 linear) on the split
+#: path, the fuse_opt path and the fused apply
 PER_STEP = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
             "stream_conv_grad_w": 6, "nitro_matmul_grad_w": 1}
+PER_STEP_FUSE_OPT = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
+                     "stream_conv_grad_w_opt": 6, "nitro_matmul_grad_w_opt": 1}
+PER_STEP_FUSED_APPLY = {**PER_STEP, "integer_sgd_update": 15}
+#: parity cases held bitwise, by kernel
+PARITY_CASES: Counter = Counter()
 
 
 
@@ -175,6 +211,7 @@ def compare(name: str, got, want, errs: dict) -> None:
     if err != 0:
         bad = (got != want).nonzero()[0].tolist()
         die(f"{name}: kernel != plain (max |err| {err}), first at {bad}")
+    PARITY_CASES[kernel] += 1
     print(f"[parity] {name}: bitwise equal")
 
 
@@ -284,14 +321,27 @@ def main_path():
 
 def launch_counters() -> dict:
     """Each kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels.integer_sgd import integer_sgd_update
     from repro_torch.kernels.nitro_conv.nitro_conv import (
-        stream_conv, stream_conv_fwd, stream_conv_grad_w)
+        stream_conv, stream_conv_fwd, stream_conv_grad_w, stream_conv_grad_w_opt)
     from repro_torch.kernels.nitro_matmul.nitro_matmul import (
-        nitro_matmul, nitro_matmul_fwd, nitro_matmul_grad_w)
+        nitro_matmul, nitro_matmul_fwd, nitro_matmul_grad_w,
+        nitro_matmul_grad_w_opt)
 
     fns = (nitro_matmul, stream_conv, nitro_matmul_fwd, nitro_matmul_grad_w,
-           stream_conv_fwd, stream_conv_grad_w)
+           stream_conv_fwd, stream_conv_grad_w, nitro_matmul_grad_w_opt,
+           stream_conv_grad_w_opt, integer_sgd_update)
     return {f.__name__: f.launches for f in fns}
+
+
+def counted(fn):
+    """``(fn(), launches)``: every counter set to 0 just before the call
+    and read just after."""
+    counters = launch_counters()
+    for c in counters.values():
+        c.reset()
+    out = fn()
+    return out, {k: c.value for k, c in counters.items()}
 
 
 def train_shapes(cfg, batch: int):
@@ -313,6 +363,18 @@ def train_shapes(cfg, batch: int):
             shapes.append(("linear", (batch, m), (m, f), linear_scale_factor(m),
                            spec.alpha_inv))
     return shapes
+
+
+RAGGED_TRAIN = [  # (kind, x shape, w shape, sf, alpha_inv)
+    ("conv", (3, 7, 9, 5), (3, 3, 5, 40), 256 * 45, 10),
+    ("conv", (2, 9, 7, 6), (5, 5, 6, 33), 256 * 150, 2),
+    ("conv", (2, 11, 13, 3), (3, 3, 3, 16), 256 * 27, 1),
+    ("conv", (1, 12, 90, 150), (3, 3, 150, 36), 3 << 10, 10),
+    ("conv", (5, 33, 31, 3), (3, 3, 3, 70), 27, 10),
+    ("linear", (5, 7), (7, 3), 256 * 7, 10),
+    ("linear", (33, 300), (300, 70), 256 * 300, 2),
+    ("linear", (1000, 20), (20, 10), 3 << 4, 1),
+]
 
 
 def train_operands(xs, ws, g):
@@ -371,20 +433,10 @@ def train_parity(shapes, errs: dict) -> None:
     names = {"conv": ("stream_conv_fwd", "stream_conv_grad_w"),
              "linear": ("nitro_matmul_fwd", "nitro_matmul_grad_w")}
     g = torch.Generator().manual_seed(2)
-    ragged = [  # (kind, x shape, w shape, sf, alpha_inv)
-        ("conv", (3, 7, 9, 5), (3, 3, 5, 40), 256 * 45, 10),
-        ("conv", (2, 9, 7, 6), (5, 5, 6, 33), 256 * 150, 2),
-        ("conv", (2, 11, 13, 3), (3, 3, 3, 16), 256 * 27, 1),
-        ("conv", (1, 12, 90, 150), (3, 3, 150, 36), 3 << 10, 10),
-        ("conv", (5, 33, 31, 3), (3, 3, 3, 70), 27, 10),
-        ("linear", (5, 7), (7, 3), 256 * 7, 10),
-        ("linear", (33, 300), (300, 70), 256 * 300, 2),
-        ("linear", (1000, 20), (20, 10), 3 << 4, 1),
-    ]
     cases = [(f"step {i}", *sh) for i, sh in enumerate(shapes, 1)]
     cases += [(f"step {i} alpha_inv=1", kind, xs, ws, sf, 1)
               for i, (kind, xs, ws, sf, _) in enumerate(shapes, 1)]
-    cases += [("ragged", *sh) for sh in ragged]
+    cases += [("ragged", *sh) for sh in RAGGED_TRAIN]
     for tag, kind, xs, ws, sf, ai in cases:
         x, w, delta, z = train_operands(xs, ws, g)
         cuda = train_calls(kind, x, w, delta, z, sf, ai, "cuda")
@@ -405,6 +457,83 @@ def train_parity(shapes, errs: dict) -> None:
           lambda: grad_w_matmul(x, d, z, backend="reference"), errs)
 
 
+def opt_states(cfg):
+    """(γ_inv, η_inv, α_inv) held in the update kernels' parity: the
+    forward layers' state of a VGG8B run, the same after two plateaus
+    (γ_inv ×9), γ_inv = 1 without decay, and the learning layers'."""
+    af = 64 * cfg.num_classes
+    return [(cfg.gamma_inv * af, cfg.eta_fw, 10), (cfg.gamma_inv * af * 9, cfg.eta_fw, 1),
+            (1, 0, 1), (cfg.gamma_inv, cfg.eta_lr, 2)]
+
+
+def opt_call(kind, x, w, delta, z, state, alpha_inv, backend):
+    """One weight update (#4 or #9) through its dispatcher."""
+    from repro_torch.kernels.nitro_conv.ops import conv_grad_w_opt
+    from repro_torch.kernels.nitro_matmul.ops import grad_w_opt_matmul
+
+    if kind == "conv":
+        return lambda: conv_grad_w_opt(
+            x, delta, w, state.gamma_inv, state.eta_inv, kernel_size=w.shape[0],
+            z_star=z, alpha_inv=alpha_inv, backend=backend)
+    return lambda: grad_w_opt_matmul(
+        x, delta, z, w, state.gamma_inv, state.eta_inv, alpha_inv=alpha_inv,
+        backend=backend)
+
+
+def opt_parity(shapes, cfg, params, errs: dict) -> None:
+    """Phase 3c: the update kernels vs their plain versions, bitwise: #4
+    and #9 at every VGG8B training shape under each optimiser state of
+    ``opt_states``, at ragged shapes, with a contraction deep enough to
+    split and with full-range int32 operands; #11 on every VGG8B weight
+    tensor (the seeded init) and on ragged and misaligned tensors."""
+    import torch
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.integer_sgd.ops import apply_tree_fused
+
+    g = torch.Generator().manual_seed(5)
+    states = [(opt.init_state(gm, et, device="cuda"), ai) for gm, et, ai in opt_states(cfg)]
+    names = {"conv": "stream_conv_grad_w_opt", "linear": "nitro_matmul_grad_w_opt"}
+    cases = [(f"step {i}", kind, xs, ws) for i, (kind, xs, ws, _, _) in enumerate(shapes, 1)]
+    cases += [("ragged", kind, xs, ws) for kind, xs, ws, _, _ in RAGGED_TRAIN]
+    cases += [("deep", "linear", (4096, 300), (300, 70))]
+    for tag, kind, xs, ws in cases:
+        x, w, delta, z = train_operands(xs, ws, g)
+        for state, ai in states:
+            what = (f"{names[kind]} {tag} x{xs} w{ws} gamma_inv={int(state.gamma_inv)} "
+                    f"eta_inv={int(state.eta_inv)} alpha_inv={ai}")
+            _pair(what, opt_call(kind, x, w, delta, z, state, ai, "cuda"),
+                  opt_call(kind, x, w, delta, z, state, ai, "reference"), errs)
+    wide = (-(2 ** 31), 2 ** 31)  # int32 wrap in the accumulator and the update
+    for kind, xs, ws in (("linear", (300, 40), (40, 30)), ("linear", (2000, 40), (40, 30)),
+                         ("conv", (2, 9, 7, 6), (3, 3, 6, 33))):
+        x = torch.randint(*wide, xs, generator=g).to(torch.int32).cuda()
+        w = torch.randint(*wide, ws, generator=g).to(torch.int32).cuda()
+        out = (*xs[:-1], ws[-1])
+        d = torch.randint(*wide, out, generator=g).to(torch.int32).cuda()
+        z = torch.randint(-200, 200, out, generator=g).to(torch.int32).cuda()
+        state, ai = states[2]
+        _pair(f"{names[kind]} wide int32 x{xs} w{ws} gamma_inv=1",
+              opt_call(kind, x, w, d, z, state, ai, "cuda"),
+              opt_call(kind, x, w, d, z, state, ai, "reference"), errs)
+    leaves = [b[k]["w"] for b in params["blocks"] for k in ("fw", "lr")]
+    leaves.append(params["output"]["w"])
+    trees = [({"w": w.cuda()}, f"VGG8B weight {tuple(w.shape)}") for w in leaves]
+    for n in (1, 7, 129, 1_000_003):
+        trees.append(({"w": torch.randint(*wide, (n,), generator=g).to(torch.int32).cuda()},
+                      f"ragged ({n},) full range"))
+    base = torch.randint(-9000, 9000, (1001,), generator=g).to(torch.int32).cuda()
+    trees.append(({"w": base[1:]}, "misaligned (1000,) view"))
+    for tree, what in trees:
+        grads = {"w": torch.randint(*wide, tree["w"].shape, generator=g)
+                 .to(torch.int32).cuda()}
+        for state, _ in states:
+            _pair(f"integer_sgd_update {what} gamma_inv={int(state.gamma_inv)} "
+                  f"eta_inv={int(state.eta_inv)}",
+                  lambda: apply_tree_fused(tree, grads, state, backend="cuda")["w"],
+                  lambda: apply_tree_fused(tree, grads, state, backend="reference")["w"],
+                  errs)
+
+
 def _trees(state, metrics):
     """Every tensor of a TrainState and its step metrics, named."""
     out = {"step": state.step}
@@ -421,37 +550,111 @@ def _trees(state, metrics):
     return out
 
 
-def train_path():
-    """Phase 5: the port's train CLI at full width, counted, held against
-    the same run on the plain versions."""
-    import torch
-    from repro_torch.launch import train
+TRAIN_ARGV = ["--arch", "vgg8b", "--steps", str(TRAIN_STEPS),
+              "--batch", str(TRAIN_BATCH), "--seed", "0"]
 
-    argv = ["--arch", "vgg8b", "--steps", str(TRAIN_STEPS),
-            "--batch", str(TRAIN_BATCH), "--seed", "0"]
-    counters = launch_counters()
-    for c in counters.values():
-        c.reset()
-    res = train.main(argv)
-    launches = {k: c.value for k, c in counters.items()}
-    print(f"[train] {res['steps']} steps, launches {launches}")
-    want = {k: PER_STEP.get(k, 0) * res["steps"] for k in launches}
-    if res["steps"] != TRAIN_STEPS or launches != want:
-        die(f"expected {want} over {TRAIN_STEPS} steps, got {launches}")
-    ref = train.main(argv + ["--backend", "reference"])
-    got, exp = _trees(res["state"], res["step_metrics"]), _trees(ref["state"], ref["step_metrics"])
+
+def same_run(got_state, got_metrics, want_state, want_metrics, what: str) -> int:
+    """Die unless two runs' TrainStates and step metrics are bitwise equal;
+    returns the number of tensors compared."""
+    import torch
+
+    got, exp = _trees(got_state, got_metrics), _trees(want_state, want_metrics)
     if got.keys() != exp.keys():
-        die(f"train state trees differ: {sorted(got)} vs {sorted(exp)}")
+        die(f"{what}: state trees differ: {sorted(got)} vs {sorted(exp)}")
     for name in got:
         a, b = got[name], exp[name]
         if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
-            die(f"train {name}: cuda run != reference run")
+            die(f"{what}: {name} differs")
+    return len(got)
+
+
+def expect_launches(launches: dict, per_step: dict, steps: int, what: str) -> None:
+    want = {k: per_step.get(k, 0) * steps for k in launches}
+    if steps != TRAIN_STEPS or launches != want:
+        die(f"{what}: expected {want} over {TRAIN_STEPS} steps, got {launches} "
+            f"over {steps}")
+
+
+def train_path():
+    """Phase 5: the port's train CLI at full width, counted, held against
+    the same run on the plain versions."""
+    from repro_torch.launch import train
+
+    res, launches = counted(lambda: train.main(TRAIN_ARGV))
+    print(f"[train] {res['steps']} steps, launches {launches}")
+    expect_launches(launches, PER_STEP, res["steps"], "split run")
+    ref = train.main(TRAIN_ARGV + ["--backend", "reference"])
+    n = same_run(res["state"], res["step_metrics"], ref["state"], ref["step_metrics"],
+                 "cuda run vs reference run")
     if res["test_accuracy"] != ref["test_accuracy"]:
         die(f"test accuracy {res['test_accuracy']} != reference {ref['test_accuracy']}")
-    print(f"[train] final state, {len(got)} tensors incl. every step's metrics, "
+    print(f"[train] final state, {n} tensors incl. every step's metrics, "
           f"equals the reference backend's bitwise; test accuracy "
           f"{res['test_accuracy']:.4f}, scaled loss {res['scaled_loss']:.4f}")
     return res, ref, launches
+
+
+def fuse_opt_path(split):
+    """Phase 5b: the train CLI with --fuse-opt, counted, held against the
+    split run of phase 5 (same seed and data)."""
+    from repro_torch.launch import train
+
+    res, launches = counted(lambda: train.main(TRAIN_ARGV + ["--fuse-opt"]))
+    print(f"[train-fuse-opt] {res['steps']} steps, launches {launches}")
+    expect_launches(launches, PER_STEP_FUSE_OPT, res["steps"], "fuse_opt run")
+    n = same_run(res["state"], res["step_metrics"], split["state"], split["step_metrics"],
+                 "fuse_opt run vs split run")
+    if res["test_accuracy"] != split["test_accuracy"]:
+        die(f"fuse_opt test accuracy {res['test_accuracy']} != split "
+            f"{split['test_accuracy']}")
+    print(f"[train-fuse-opt] final state, {n} tensors incl. every step's metrics, "
+          f"and the test accuracy {res['test_accuracy']:.4f} equal the split run's "
+          f"bitwise")
+    return res, launches
+
+
+def cli_batches():
+    """The config and the (x, y, key) of each step of the phase 5 CLI run:
+    its dataset, its first epoch's batches and ``PRNGKey(step)``."""
+    import itertools
+
+    import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import prng
+    from repro_torch.data import synthetic
+
+    ds = synthetic.make_image_dataset("tiles32", n_train=4096, n_test=512, seed=0)
+    cfg = get_paper_config("vgg8b", scale=1.0, input_shape=ds.input_shape)
+    pairs = itertools.islice(synthetic.batches(ds.x_train, ds.y_train, TRAIN_BATCH, seed=0),
+                             TRAIN_STEPS)
+    return cfg, [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(), prng.PRNGKey(it))
+                 for it, (x, y) in enumerate(pairs)]
+
+
+def fused_apply_path(split):
+    """Phase 5c: compute_gradients then apply_gradients(fuse_opt=True) on
+    the CLI run's batches and keys, counted, held against the split run."""
+    from repro_torch.core import les, prng
+
+    cfg, steps = cli_batches()
+
+    def run():
+        state, metrics = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda"), []
+        for x, y, key in steps:
+            grads, m = les.compute_gradients(state, cfg, x, y, key)
+            state = les.apply_gradients(state, grads, fuse_opt=True)
+            metrics.append(m)
+        return state, metrics
+
+    (state, metrics), launches = counted(run)
+    print(f"[train-fused-apply] {len(metrics)} steps, launches {launches}")
+    expect_launches(launches, PER_STEP_FUSED_APPLY, len(metrics), "fused apply")
+    n = same_run(state, metrics, split["state"], split["step_metrics"],
+                 "fused apply vs split run")
+    print(f"[train-fused-apply] final state, {n} tensors incl. every step's "
+          f"metrics, equals the split run's bitwise")
+    return launches
 
 
 def time_cuda(fn, iters: int, warmup: int) -> float:
@@ -468,6 +671,57 @@ def time_cuda(fn, iters: int, warmup: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, calls: int):
+    """Run ``fn`` ``calls`` times under ``torch.profiler`` (CUDA activity);
+    returns (host-to-host ms over the calls, {kernel name: (device ms in
+    all, launches)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernels[e.key] = (us / 1e3, e.count)
+    return wall, kernels
+
+
+def device_ms(fn, kernel: str, calls: int) -> float:
+    """Mean device time (ms) of one launch of ``kernel`` by ``fn``, from
+    the profiler: for a kernel shorter than its wrapper's host path, where
+    back-to-back CUDA events time the host."""
+    _, kernels = device_profile(fn, calls)
+    hits = [(ms, n) for name, (ms, n) in kernels.items() if kernel in name]
+    if not hits or sum(n for _, n in hits) != calls:
+        die(f"profiler saw {hits} launches of {kernel}, expected {calls}")
+    return sum(ms for ms, _ in hits) / calls
+
+
+def add_time(per_kernel: dict, kernel: str, ms: float, plain_ms: float,
+             ops: float, nbytes: float) -> tuple[float, str]:
+    """Add one launch's times to ``per_kernel``; returns its bound (ms) and
+    what bounds it."""
+    ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    k = per_kernel.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                       "ops_ms": 0.0, "bytes_ms": 0.0})
+    k["ms"] += ms
+    k["plain_ms"] += plain_ms
+    k["bound_ms"] += max(ops_ms, bytes_ms)
+    k["ops_ms"] += ops_ms
+    k["bytes_ms"] += bytes_ms
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
 def work(meta, a, w, out_elems: int, out_itemsize: int):
@@ -493,21 +747,12 @@ def timing(steps, card: str) -> dict:
         ms = time_cuda(lambda: run_step(meta, a, w, "cuda"), iters=50, warmup=5)
         plain = time_cuda(lambda: run_step(meta, a, w, "reference"), iters=5, warmup=1)
         ops, nbytes = work(meta, a, w, out.numel(), out.element_size())
-        ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound = max(ops_ms, bytes_ms)
-        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        bound, by = add_time(per_kernel, kernel, ms, plain, ops, nbytes)
         print(f"[time] {card} | step {i} {kernel} in{tuple(a.shape)} "
               f"w{tuple(w.shape)} operands={meta.operand_dtype} | kernel "
               f"{ms:.4f} ms | plain {plain:.4f} ms | bound {bound:.5f} ms "
               f"({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | "
               f"{100 * bound / ms:.2f}% of bound | library none")
-        k = per_kernel.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                           "ops_ms": 0.0, "bytes_ms": 0.0})
-        k["ms"] += ms
-        k["plain_ms"] += plain
-        k["bound_ms"] += bound
-        k["ops_ms"] += ops_ms
-        k["bytes_ms"] += bytes_ms
     return per_kernel
 
 
@@ -523,6 +768,8 @@ def train_work(kind, kernel, xs, ws):
         macs, x_el, out_el, w_el = b * m * f, b * m, b * f, m * f
     if kernel.endswith("_fwd"):
         nbytes = 4 * (x_el + w_el + 2 * out_el)   # x, w in; a, z* out
+    elif kernel.endswith("_opt"):
+        nbytes = 4 * (x_el + 2 * out_el + 2 * w_el)  # x, δ, z*, W in; W′ out
     else:
         nbytes = 4 * (x_el + 2 * out_el + w_el)   # x, δ, z* in; grad_W out
     return 2 * macs, nbytes
@@ -544,28 +791,86 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
             ms = time_cuda(fn, iters=20, warmup=3)
             plain_ms = time_cuda(pfn, iters=3, warmup=1)
             ops, nbytes = train_work(kind, kernel, xs, ws)
-            ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-            bound = max(ops_ms, bytes_ms)
-            by = "operations" if ops_ms >= bytes_ms else "bytes"
+            bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
+            dev = (f" (device, profiler: {device_ms(fn, 'grad_w_kernel', 20):.4f} ms)"
+                   if kernel == "nitro_matmul_grad_w" else "")
             print(f"[time] {card} | train step {i} {kernel} x{xs} w{ws} int32 | "
-                  f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | bound "
+                  f"kernel {ms:.4f} ms{dev} | plain {plain_ms:.4f} ms | bound "
                   f"{bound:.5f} ms ({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) "
                   f"| {100 * bound / ms:.2f}% of bound | library none")
-            k = per_kernel.setdefault(kernel, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                               "ops_ms": 0.0, "bytes_ms": 0.0})
-            k["ms"] += ms
-            k["plain_ms"] += plain_ms
-            k["bound_ms"] += bound
-            k["ops_ms"] += ops_ms
-            k["bytes_ms"] += bytes_ms
         if cuda[2] is not None:  # #8 on a pre-masked δ (the fuse_bwd=False path)
             ms = time_cuda(cuda[2], iters=20, warmup=3)
             print(f"[time] {card} | train step {i} stream_conv_grad_w without z* "
                   f"(no mask on load) | kernel {ms:.4f} ms")
 
 
-def train_end_to_end(res, ref, cfg, card: str) -> None:
-    """Host-to-host time of one training step on the final state."""
+def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
+    """Phase 6c: per-shape kernel / plain / bound times of the update
+    kernels — #4 and #9 at each forward layer of a step (the forward
+    layers' optimiser state), #11 on each of a step's 15 weight tensors."""
+    import torch
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.integer_sgd.integer_sgd import integer_sgd_update
+    from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
+
+    g = torch.Generator().manual_seed(6)
+    gamma, eta, _ = opt_states(cfg)[0]
+    state = opt.init_state(gamma, eta, device="cuda")
+    for i, (kind, xs, ws, _, ai) in enumerate(shapes, 1):
+        x, w, delta, z = train_operands(xs, ws, g)
+        kernel = "stream_conv_grad_w_opt" if kind == "conv" else "nitro_matmul_grad_w_opt"
+        ms = time_cuda(opt_call(kind, x, w, delta, z, state, ai, "cuda"), iters=20, warmup=3)
+        plain_ms = time_cuda(opt_call(kind, x, w, delta, z, state, ai, "reference"),
+                             iters=3, warmup=1)
+        how = ""
+        if kind == "linear":  # shorter than its wrapper's host path
+            events, ms = ms, device_ms(opt_call(kind, x, w, delta, z, state, ai, "cuda"),
+                                       "grad_w_opt_kernel", 20)
+            how = f" (device, profiler; back to back through the wrapper {events:.4f} ms)"
+        ops, nbytes = train_work(kind, kernel, xs, ws)
+        bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
+        print(f"[time] {card} | train step {i} {kernel} x{xs} w{ws} int32 | kernel "
+              f"{ms:.4f} ms{how} | plain {plain_ms:.4f} ms | bound {bound:.5f} ms ({by}: "
+              f"{ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | {100 * bound / ms:.2f}% "
+              f"of bound | library none")
+    leaves = [b[k]["w"] for b in params["blocks"] for k in ("fw", "lr")]
+    leaves.append(params["output"]["w"])
+    for w in leaves:
+        w = w.cuda()
+        grad = torch.randint(-(2 ** 24), 2 ** 24, w.shape, generator=g).to(torch.int32).cuda()
+        call = lambda: integer_sgd_update(w, grad, state.gamma_inv, state.eta_inv)  # noqa: E731
+        ms = device_ms(call, "integer_sgd", 50)
+        per_call = time_cuda(call, iters=50, warmup=5)
+        plain_ms = time_cuda(lambda: integer_sgd_ref(w, grad, state.gamma_inv,
+                                                     state.eta_inv), iters=10, warmup=2)
+        # W and g read, W′ written; 2 floor divides + 2 adds per weight
+        ops, nbytes = 4 * w.numel(), 12 * w.numel()
+        bound, by = add_time(per_kernel, "integer_sgd_update", ms, plain_ms, ops, nbytes)
+        print(f"[time] {card} | integer_sgd_update w{tuple(w.shape)} int32 | kernel "
+              f"{ms:.4f} ms (device, profiler; back to back through the wrapper "
+              f"{per_call:.4f} ms per call) | plain {plain_ms:.4f} ms | bound "
+              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB) | {100 * bound / ms:.2f}% "
+              f"of bound | library none")
+
+
+def pending_bounds(shapes, card: str) -> None:
+    """The bounds of the two kernels still to port (#5, #10) over a step's
+    shapes, from the shapes alone: each moves δ, z* and W in and a
+    grad_x the shape of x out, which is grad_W's count."""
+    for kernel, kind in (("nitro_matmul_grad_x", "linear"), ("stream_conv_grad_x", "conv")):
+        work = [train_work(k, kernel, xs, ws) for k, xs, ws, _, _ in shapes if k == kind]
+        ops, nbytes = sum(o for o, _ in work), sum(b for _, b in work)
+        ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"[bound] {card} | {kernel} (not ported) | {len(work)} launches per step on "
+              f"a path that returns grad_x | bound {max(ops_ms, bytes_ms):.5f} ms ({by}: "
+              f"{ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB)")
+
+
+def train_end_to_end(res, ref, fuse, cfg, card: str) -> None:
+    """Host-to-host time of one training step on the final state: the
+    split step, the fuse_opt step and the fused apply on the kernels and
+    the split step on the plain versions, in turns."""
     import numpy as np
     import torch
     from repro_torch.core import les, prng
@@ -576,18 +881,45 @@ def train_end_to_end(res, ref, cfg, card: str) -> None:
     y = torch.from_numpy(rng.integers(0, 10, TRAIN_BATCH).astype(np.int32)).cuda()
     key = prng.PRNGKey(TRAIN_STEPS)
     state = res["state"]
+
+    def fused_apply():
+        grads, _ = les.compute_gradients(state, cfg, x, y, key)
+        return les.apply_gradients(state, grads, fuse_opt=True)
+
+    steps = {
+        "split": lambda: les.train_step(state, cfg, x, y, key),
+        "fuse_opt": lambda: les.train_step(state, cfg, x, y, key, fuse_opt=True),
+        "fused_apply": fused_apply,
+        "reference": lambda: les.train_step(state, cfg, x, y, key, backend="reference"),
+    }
+    order = ["split", "fuse_opt", "fused_apply", "reference"]
     ms = {}
-    for backend in ("cuda", "reference", "reference", "cuda"):  # in turns
-        t = time_cuda(lambda: les.train_step(state, cfg, x, y, key, backend=backend),
-                      iters=5, warmup=1)
-        ms[backend] = min(ms.get(backend, t), t)
+    for name in order + order[::-1] + order:  # in turns: ABCD DCBA ABCD
+        t = time_cuda(steps[name], iters=10, warmup=1)
+        ms[name] = min(ms.get(name, t), t)
     print(f"[e2e-train] {card} | VGG8B full width, batch {TRAIN_BATCH}, host to "
-          f"host: {ms['cuda']:.3f} ms per training step "
-          f"({TRAIN_BATCH / ms['cuda'] * 1e3:.1f} img/s) on the kernels, "
+          f"host: {ms['split']:.3f} ms per training step "
+          f"({TRAIN_BATCH / ms['split'] * 1e3:.1f} img/s) on the kernels, "
           f"{ms['reference']:.3f} ms ({TRAIN_BATCH / ms['reference'] * 1e3:.1f} img/s) "
-          f"on the plain versions (best of two turns of 5) | CLI step loop incl. "
+          f"on the plain versions (best of three turns of 10) | CLI step loop incl. "
           f"first steps: cuda {res['train_s'] / res['steps'] * 1e3:.3f} ms/step, "
           f"reference {ref['train_s'] / ref['steps'] * 1e3:.3f} ms/step")
+    for name in ("split", "fuse_opt"):
+        wall, kernels = device_profile(steps[name], 3)
+        busy = sum(ms for ms, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+        print(f"[profile] {card} | {name} step, 3 steps: {wall / 3:.3f} ms host to host, "
+              f"device busy {busy / 3:.3f} ms per step ({100 * busy / wall:.1f}%), idle "
+              f"{100 - 100 * busy / wall:.1f}% | top: " + "; ".join(
+                  f"{k[:48]} {ms / 3:.3f} ms x{n // 3}" for k, (ms, n) in top))
+    print(f"[e2e-train-fuse-opt] {card} | VGG8B full width, batch {TRAIN_BATCH}, host "
+          f"to host: fuse_opt step {ms['fuse_opt']:.3f} ms "
+          f"({TRAIN_BATCH / ms['fuse_opt'] * 1e3:.1f} img/s), split step "
+          f"{ms['split']:.3f} ms ({TRAIN_BATCH / ms['split'] * 1e3:.1f} img/s), "
+          f"compute_gradients + fused apply {ms['fused_apply']:.3f} ms "
+          f"({TRAIN_BATCH / ms['fused_apply'] * 1e3:.1f} img/s) (same call, best of "
+          f"three turns of 10) | CLI step loop incl. first steps: fuse_opt "
+          f"{fuse['train_s'] / fuse['steps'] * 1e3:.3f} ms/step")
 
 
 def end_to_end(res, card: str) -> None:
@@ -626,7 +958,8 @@ def main() -> int:
     import numpy as np
 
     cfg = get_paper_config("vgg8b", scale=1.0)
-    fm = freeze(M.init_params(prng.PRNGKey(0), cfg, device="cpu"), cfg)
+    params = M.init_params(prng.PRNGKey(0), cfg, device="cpu")
+    fm = freeze(params, cfg)
     plan = compile_plan(fm, device="cuda")
     x = np.random.default_rng(0).integers(-127, 128, (BATCH, *cfg.input_shape)).astype(np.int32)
     steps = step_inputs(plan, x)
@@ -635,14 +968,23 @@ def main() -> int:
     parity(steps, errs)
     shapes = train_shapes(cfg, TRAIN_BATCH)
     train_parity(shapes, errs)
+    opt_parity(shapes, cfg, params, errs)
     res, launches = main_path()
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
+    fuse_res, fuse_launches = fuse_opt_path(train_res)
+    launches.update({k: fuse_launches[k] for k in
+                     ("stream_conv_grad_w_opt", "nitro_matmul_grad_w_opt")})
+    launches["integer_sgd_update"] = fused_apply_path(train_res)["integer_sgd_update"]
     per_kernel = timing(steps, card)
     train_timing(shapes, card, per_kernel)
+    opt_timing(shapes, cfg, params, card, per_kernel)
+    pending_bounds(shapes, card)
     end_to_end(res, card)
-    train_end_to_end(train_res, train_ref, cfg, card)
+    train_end_to_end(train_res, train_ref, fuse_res, cfg, card)
 
+    print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
+          f"{dict(PARITY_CASES)}")
     rows = []
     for name, meta in KERNELS.items():
         k = per_kernel[name]

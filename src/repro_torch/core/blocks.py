@@ -186,6 +186,42 @@ def forward_layers_backward(
     return grads
 
 
+def forward_layers_update(
+    params: dict,
+    spec: BlockSpec,
+    cache: dict,
+    delta_fw: torch.Tensor,
+    opt_state,
+    *,
+    conv_mode: str = "stream",
+    backend: str = "auto",
+    fuse_bwd: bool = True,
+) -> dict:
+    """``forward_layers_backward`` + IntegerSGD: returns the updated fw
+    params.  The same dropout/pool backwards, then the weight gradient is
+    consumed where it is produced: the IntegerSGD step runs in the grad_W
+    kernel's flush (``layers.conv_update`` / ``linear_update``), so grad_W
+    is never written.  Bitwise backward then ``optimizer.apply_tree``."""
+    g = delta_fw
+    if "dropout" in cache:
+        g = layers.dropout_backward(cache["dropout"], g)
+    if "pool" in cache:
+        g = layers.maxpool_backward(cache["pool"], g)
+    if spec.kind == "conv":
+        _, new_fw = layers.conv_update(
+            params["fw"], cache["conv"], g, opt_state,
+            z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
+            fuse_bwd=fuse_bwd, conv_mode=conv_mode, backend=backend,
+        )
+    else:
+        _, new_fw = layers.linear_update(
+            params["fw"], cache["linear"], g, opt_state,
+            z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
+            fuse_bwd=fuse_bwd, backend=backend,
+        )
+    return new_fw
+
+
 # ---------------------------------------------------------------------------
 # Learning layers
 # ---------------------------------------------------------------------------

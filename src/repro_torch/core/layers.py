@@ -64,6 +64,32 @@ def linear_backward(
     return grad_x, {"w": grad_w}
 
 
+def linear_update(
+    params: dict,
+    cache: torch.Tensor,
+    grad_out: torch.Tensor,
+    opt_state,
+    *,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+    fuse_bwd: bool = True,
+    backend: str = "auto",
+) -> tuple[torch.Tensor | None, dict]:
+    """``linear_backward`` + IntegerSGD in one pass: ``(grad_x, {"w": W′})``.
+
+    The update runs as the grad_W kernel's flush
+    (``grad_ops.linear_weight_update``), so grad_W is never written —
+    bitwise ``linear_backward`` then ``optimizer.apply_update``.
+    """
+    from repro_torch.kernels import grad_ops  # lazy: grad_ops imports layers
+
+    grad_x, w_new = grad_ops.linear_weight_update(
+        cache, params["w"], grad_out, opt_state, z_star=z_star,
+        alpha_inv=alpha_inv, fuse_bwd=fuse_bwd, backend=backend,
+    )
+    return grad_x, {"w": w_new}
+
+
 # ---------------------------------------------------------------------------
 # Integer Conv2D (K×K, stride 1, 'same' padding) via im2col + matmul
 # ---------------------------------------------------------------------------
@@ -130,6 +156,34 @@ def conv_backward(
         fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
     )
     return grad_x, {"w": grad_w}
+
+
+def conv_update(
+    params: dict,
+    cache: ConvCache,
+    grad_out: torch.Tensor,
+    opt_state,
+    *,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+    fuse_bwd: bool = True,
+    conv_mode: str = "stream",
+    backend: str = "auto",
+) -> tuple[None, dict]:
+    """``conv_backward`` + IntegerSGD in one pass: ``(None, {"w": W′})``.
+
+    Stream mode applies the update in the streaming grad_W kernel's flush
+    (``grad_ops.conv_weight_update``); the escape hatches compose the
+    gradient with ``optimizer.apply_update``, bitwise the same.
+    """
+    from repro_torch.kernels import grad_ops  # lazy: grad_ops imports layers
+
+    grad_x, w_new = grad_ops.conv_weight_update(
+        cache.x, params["w"], grad_out, opt_state, z_star=z_star,
+        alpha_inv=alpha_inv, fuse_bwd=fuse_bwd, backend=backend,
+        conv_mode=conv_mode,
+    )
+    return grad_x, {"w": w_new}
 
 
 # ---------------------------------------------------------------------------

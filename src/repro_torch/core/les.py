@@ -10,7 +10,8 @@ One training step:
      forward-layer update (γ_inv^fw = γ_inv^lr·AF, η_inv^fw).
 
 No gradient crosses a block boundary, and every value is an integer.
-This slice ports the split step (``fuse_opt=False``) without telemetry.
+Ported: the split step (``compute_gradients`` → ``apply_gradients``) and
+the ``fuse_opt`` step, both without telemetry.
 """
 
 from __future__ import annotations
@@ -118,22 +119,91 @@ def compute_gradients(
 
 
 def apply_gradients(state: TrainState, grads: StepGrads, *,
-                    fuse_opt: bool = False) -> TrainState:
-    """IntegerSGD update of every parameter group from raw gradients."""
+                    fuse_opt: bool = False, backend: str = "auto") -> TrainState:
+    """IntegerSGD update of every parameter group from raw gradients.
+
+    ``fuse_opt=True`` runs each update through the fused IntegerSGD kernel
+    (``kernels.integer_sgd.apply_tree_fused``: W and g read once, W′
+    written once, one launch per weight tensor) instead of the tensor ops
+    of ``optimizer.apply_tree`` — bitwise the same.  ``backend`` is only
+    read with ``fuse_opt``.
+    """
     if fuse_opt:
-        raise NotImplementedError(
-            "apply_gradients(fuse_opt=True) needs the integer_sgd_update "
-            "kernel, which a later slice of the port brings")
+        # lazy: core imports no kernel package at module scope
+        from repro_torch.kernels.integer_sgd.ops import apply_tree_fused
+
+        def _apply(p, g, s):
+            return apply_tree_fused(p, g, s, backend=backend)
+    else:
+        _apply = opt.apply_tree
     new_blocks = [
         {
-            "fw": opt.apply_tree(p["fw"], g["fw"], state.opt_fw),
-            "lr": opt.apply_tree(p["lr"], g["lr"], state.opt_lr),
+            "fw": _apply(p["fw"], g["fw"], state.opt_fw),
+            "lr": _apply(p["lr"], g["lr"], state.opt_lr),
         }
         for p, g in zip(state.params["blocks"], grads.blocks)
     ]
-    new_output = opt.apply_tree(state.params["output"], grads.output, state.opt_lr)
+    new_output = _apply(state.params["output"], grads.output, state.opt_lr)
     new_params = {"blocks": new_blocks, "output": new_output}
     return state._replace(params=new_params, step=state.step + 1)
+
+
+def _fused_opt_step(
+    state: TrainState,
+    cfg: M.NitroConfig,
+    x,
+    labels: torch.Tensor,
+    key: torch.Tensor,
+    *,
+    fused: bool,
+    fuse_bwd: bool,
+    backend: str,
+    conv_mode: str,
+) -> tuple[TrainState, StepMetrics]:
+    """The step behind ``train_step(fuse_opt=True)``.
+
+    Each block's forward-layer weight gradient is consumed inside the
+    grad_W kernel whose flush applies IntegerSGD
+    (``blocks.forward_layers_update``), so no forward-layer grad_W is
+    written.  The learning and output layers keep ``optimizer.apply_tree``:
+    their gradients are small (d_lr × classes) and their backward has no
+    kernel flush.  Bitwise the split step: floor division of an exact
+    int32 sum is exact.
+    """
+    params = state.params
+    labels = labels.to(params["output"]["w"].device)
+    y = one_hot_int(labels, cfg.num_classes)
+
+    y_hat, acts, fw_caches, out_cache = M.forward(
+        params, cfg, x, train=True, key=key, fused=fused, backend=backend,
+        conv_mode=conv_mode,
+    )
+
+    grad_o = rss_grad(y_hat, y)
+    out_grads = B.output_backward(params["output"], out_cache, grad_o)
+    new_output = opt.apply_tree(params["output"], out_grads, state.opt_lr)
+
+    new_blocks = []
+    local_losses = []
+    for spec, p, a_l, fw_cache in zip(cfg.blocks, params["blocks"], acts, fw_caches):
+        y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
+        grad_l = B.local_gradient(y_hat_l, y)
+        local_losses.append(rss_loss(y_hat_l, y))
+        delta_fw, lr_grads = B.learning_layers_backward(p, spec, lr_cache, grad_l)
+        new_fw = B.forward_layers_update(
+            p, spec, fw_cache, delta_fw, state.opt_fw,
+            conv_mode=conv_mode, backend=backend, fuse_bwd=fuse_bwd,
+        )
+        new_lr = opt.apply_tree(p["lr"], lr_grads, state.opt_lr)
+        new_blocks.append({"fw": new_fw, "lr": new_lr})
+
+    metrics = StepMetrics(
+        loss=rss_loss(y_hat, y),
+        correct=_correct(y_hat, labels),
+        local_losses=torch.stack(local_losses),
+    )
+    new_params = {"blocks": new_blocks, "output": new_output}
+    return state._replace(params=new_params, step=state.step + 1), metrics
 
 
 def train_step(
@@ -158,11 +228,21 @@ def train_step(
     ``nitro_matmul_grad_w`` backward; ``backend="reference"`` runs their
     plain versions, ``fused=False`` / ``fuse_bwd=False`` the unfused
     compositions — all bitwise the same.
+
+    ``fuse_opt=True`` takes ``_fused_opt_step``: the forward layers'
+    IntegerSGD runs in the flush of ``stream_conv_grad_w_opt`` and
+    ``nitro_matmul_grad_w_opt``, so their grad_W is never written —
+    bitwise the split step.
     """
-    if fuse_opt or telemetry:
+    if telemetry:
         raise NotImplementedError(
-            "train_step(fuse_opt=True) and telemetry come with a later slice "
-            "of the port (the *_grad_w_opt kernels and obs.telemetry)")
+            "train_step(telemetry=True) comes with a later slice of the port "
+            "(obs.telemetry)")
+    if fuse_opt:
+        return _fused_opt_step(
+            state, cfg, x, labels, key, fused=fused, fuse_bwd=fuse_bwd,
+            backend=backend, conv_mode=conv_mode,
+        )
     grads, metrics = compute_gradients(
         state, cfg, x, labels, key,
         fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,

@@ -1,6 +1,7 @@
 // NITRO epilogue shared by the hand-written Hopper kernels: NITRO Scaling
-// (⌊z / (residual · 2^shift)⌋) and NITRO-ReLU, with floor semantics, and
-// the NITRO-ReLU derivative the gradient kernels apply to δ on load.
+// (⌊z / (residual · 2^shift)⌋) and NITRO-ReLU, with floor semantics, the
+// NITRO-ReLU derivative the gradient kernels apply to δ on load, and the
+// IntegerSGD update the three update kernels apply.
 //
 // CUDA's `/` and `%` truncate toward zero on signed integers; the paper's
 // ⌊·⌋ rounds toward −∞.  Every divide here therefore goes through
@@ -68,6 +69,51 @@ struct FastDiv {
     return (int)(0u - div(0u - (unsigned)a + d - 1u));
   }
 };
+
+// ⌊a / d⌋ for a divisor d ≠ 0 of either sign that is only known on the
+// device (γ_inv): |d| by FastDiv, the sign folded into the dividend, which
+// is negated in 64 bits so that a = −2³¹ wraps as XLA's int32 floor
+// division does (⌊−2³¹ / −1⌋ = −2³¹).
+struct FloorDivBy {
+  FastDiv mag;  // |d| ≤ 2³¹
+  bool neg;
+
+  __device__ explicit FloorDivBy(int d)
+      : mag(d < 0 ? 0u - (unsigned)d : (unsigned)d), neg(d < 0) {}
+
+  __device__ __forceinline__ int operator()(int a) const {
+    const long long b = neg ? -(long long)a : (long long)a;  // |b| ≤ 2³¹
+    if (b >= 0) return (int)mag.div((unsigned)b);
+    return (int)(0u - mag.div((unsigned)(-b) + mag.d - 1u));  // −⌈|b| / |d|⌉
+  }
+};
+
+// IntegerSGD's two divisors, built on the device from the values read
+// there: γ_inv and η_inv are the optimiser state's 0-d int32 tensors,
+// which the lr schedule changes on the device, so no host value exists to
+// build them from (the counterpart of the TPU kernels' SMEM scalars).
+struct SgdDivisors {
+  FloorDivBy gamma;  // γ_inv ≠ 0
+  FastDiv eta;       // max(η_inv, 1)
+  bool decay;        // η_inv ≠ 0
+
+  __device__ SgdDivisors(const int32_t* gamma_inv, const int32_t* eta_inv)
+      : gamma(__ldg(gamma_inv)),
+        eta((unsigned)max(__ldg(eta_inv), 1)),
+        decay(__ldg(eta_inv) != 0) {}
+};
+
+// IntegerSGD on one weight (paper Algorithm 1, the counterpart of
+// integer_sgd_tile): W − (⌊g/γ_inv⌋ + ⌊W/η_inv⌋), no decay for η_inv = 0.
+// Both divides floor (so −η_inv ≤ W < 0 decays by −1, 0 ≤ W < η_inv by 0);
+// the sum and difference wrap mod 2³² in unsigned.  The one definition
+// that integer_sgd_update, nitro_matmul_grad_w_opt and
+// stream_conv_grad_w_opt all call.
+__device__ __forceinline__ int integer_sgd(int w, int g, const SgdDivisors& s) {
+  const unsigned delta = (unsigned)s.gamma(g);
+  const unsigned decay = s.decay ? (unsigned)s.eta.floor_div(w) : 0u;
+  return (int)((unsigned)w - (delta + decay));
+}
 
 // NITRO-ReLU derivative + the scaling STE (the identity) on one δ value:
 // 0 where z* saturates (z* < −127 or z* > 127), ⌊δ/α_inv⌋ where z* < 0,

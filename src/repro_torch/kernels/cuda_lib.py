@@ -12,6 +12,7 @@ waits for all of them, so a cold start pays for the slowest build only.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,6 +27,7 @@ BUILD_DIR = _HERE / "_build"
 COMMON_HEADERS = (
     _HERE / "csrc_common" / "nitro_epilogue.cuh",
     _HERE / "csrc_common" / "int_gemm.cuh",
+    _HERE / "csrc_common" / "grad_w_stage.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,13 +41,23 @@ NVCC_FLAGS = (
 SOURCES = {
     "nitro_matmul": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul.cu",
     "nitro_matmul_grad_w": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_w.cu",
+    "nitro_matmul_grad_w_opt":
+        _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_w_opt.cu",
     "stream_conv": _HERE / "nitro_conv" / "csrc" / "stream_conv.cu",
     "stream_conv_fwd": _HERE / "nitro_conv" / "csrc" / "stream_conv_fwd.cu",
     "stream_conv_grad_w": _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_w.cu",
+    "stream_conv_grad_w_opt":
+        _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_w_opt.cu",
+    "integer_sgd": _HERE / "integer_sgd" / "csrc" / "integer_sgd.cu",
 }
+
+#: Output tile of the grad_W GEMM core (``BM``/``BN`` in int_gemm.cuh):
+#: the ``*_grad_w_opt`` kernels keep one arrival counter per tile.
+GEMM_TILE = 64
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_workspaces: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 class LaunchCounter:
@@ -164,9 +176,52 @@ def entry(lib_name: str, fn_name: str, n_ptrs: int, n_ints: int):
     return lib, fn
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def sm_count(device: torch.device) -> int:
-    """Streaming multiprocessors of ``device`` (sizes split-K grids)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """Streaming multiprocessors of ``device`` (sizes split-K grids),
+    read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
+
+
+def split_workspace(device: torch.device, m: int, n: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(ws, arrivals)`` for a ``*_grad_w_opt`` launch with an M×N output
+    on ``device``'s current stream: int32 split sums (≥ M·N) and one
+    arrival counter per 64×64 output tile, both zero.
+
+    Each launch leaves them zero again, so one pair per (device, stream)
+    serves every call in stream order; it grows to the largest output
+    seen (9.4 MB at VGG8B's conv 6) and is zeroed once, when allocated.
+    """
+    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
+    stream = torch.cuda.current_stream(device)
+    key = (device, stream.cuda_stream)
+    with _lock:
+        ws, arrivals = _workspaces.get(key, (None, None))
+        if ws is None or ws.numel() < m * n:
+            ws = torch.zeros(max(m * n, 1), dtype=torch.int32, device=device)
+        if arrivals is None or arrivals.numel() < tiles:
+            arrivals = torch.zeros(max(tiles, 1), dtype=torch.int32, device=device)
+        _workspaces[key] = (ws, arrivals)
+    return ws, arrivals
+
+
+def sgd_scalar(name: str, v, device: torch.device) -> torch.Tensor:
+    """An IntegerSGD divisor as the 0-d int32 tensor on ``device`` that the
+    kernels read (γ_inv / η_inv of the optimiser state are such tensors
+    already; a Python int is copied over)."""
+    if not isinstance(v, torch.Tensor):
+        return torch.tensor(int(v), dtype=torch.int32, device=device)
+    if v.numel() != 1 or v.dtype != torch.int32 or v.device != device:
+        raise ValueError(
+            f"{name} must be an int32 scalar on {device}, got "
+            f"{v.dtype}{tuple(v.shape)} on {v.device}")
+    return v.reshape(()).contiguous()
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

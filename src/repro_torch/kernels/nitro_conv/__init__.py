@@ -2,10 +2,12 @@ from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
     stream_conv_fwd,
     stream_conv_grad_w,
+    stream_conv_grad_w_opt,
 )
 from repro_torch.kernels.nitro_conv.ops import (
     CONV_MODES,
     conv_grad_w,
+    conv_grad_w_opt,
     fused_conv,
     fused_conv_fwd,
     resolve_conv_mode,
@@ -14,6 +16,7 @@ from repro_torch.kernels.nitro_conv.ref import (
     DEFAULT_BH,
     conv_geometry,
     stream_conv_fwd_ref,
+    stream_conv_grad_w_opt_ref,
     stream_conv_grad_w_ref,
     stream_conv_ref,
 )
@@ -23,6 +26,7 @@ __all__ = [
     "DEFAULT_BH",
     "conv_geometry",
     "conv_grad_w",
+    "conv_grad_w_opt",
     "fused_conv",
     "fused_conv_fwd",
     "resolve_conv_mode",
@@ -30,6 +34,8 @@ __all__ = [
     "stream_conv_fwd",
     "stream_conv_fwd_ref",
     "stream_conv_grad_w",
+    "stream_conv_grad_w_opt",
+    "stream_conv_grad_w_opt_ref",
     "stream_conv_grad_w_ref",
     "stream_conv_ref",
 ]

@@ -22,60 +22,9 @@
 // input is formed (the TPU kernel staged row bands in VMEM instead).  The contraction N·H·W is
 // long where the output is small (65,536 deep for a 27×128 gradient at
 // conv 1), so it is split across blocks and combined with atomicAdd.
-#include "int_gemm.cuh"
-
-namespace {
+#include "grad_w_stage.cuh"
 
 using namespace nitro::gemm;
-
-// A(m, p) = x[n, h + ki − K/2, w + kj − K/2, c] with m = (ki·K + kj)·C + c
-// and p = (n·H + h)·W + w, 0 outside the image.  Thread t stages patch
-// column m = row0 + t % BM (decomposed once) for the pixels
-// k0 + t / BM + 4e, each decomposed as it is staged — by multiplying
-// with W's and H's FastDiv constants, not by dividing.
-struct PatchColumnsA {
-  struct Params {
-    const int32_t* x;
-    int H, W, C, K, M;
-    nitro::FastDiv by_w, by_h;
-  };
-  const int32_t* __restrict__ x;
-  int H, W, C;
-  nitro::FastDiv by_w, by_h;
-  int di, dj, c;
-  bool ok;
-
-  __device__ PatchColumnsA(const Params& p, int row0, int)
-      : x(p.x), H(p.H), W(p.W), C(p.C), by_w(p.by_w), by_h(p.by_h) {
-    int m = row0 + (int)threadIdx.x % BM;
-    ok = m < p.M;
-    if (!ok) m = 0;
-    const int seg = m / C;
-    c = m - seg * C;
-    di = seg / p.K - p.K / 2;
-    dj = seg % p.K - p.K / 2;
-  }
-
-  __device__ __forceinline__ void stage(int (&a)[BK][BM + 1], int k0,
-                                        int k_end) const {
-#pragma unroll
-    for (int e = 0; e < BK * BM / THREADS; ++e) {
-      const int kk = threadIdx.x / BM + e * (THREADS / BM);
-      const int q = k0 + kk;
-      int v = 0;
-      if (ok && q < k_end) {
-        const int t = (int)by_w.div((unsigned)q), w = q - t * W;
-        const int n = (int)by_h.div((unsigned)t), h = t - n * H;
-        const int hh = h + di, ww = w + dj;
-        if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-          v = x[(((size_t)n * H + hh) * W + ww) * C + c];
-      }
-      a[kk][threadIdx.x % BM] = v;
-    }
-  }
-};
-
-}  // namespace
 
 // x (N,H,W,C), delta and z_star (N,H,W,F) int32 contiguous (z_star may be
 // null: plain δ); out (K·K·C, F) int32, zeroed by the caller.  sms: the

@@ -9,11 +9,14 @@
     training forward, an implicit-im2col GEMM over all N·H·W pixels;
   * ``stream_conv_grad_w`` replaces ``stream_conv_grad_w``
     (``_stream_grad_w_fused_kernel`` / ``_stream_grad_w_kernel``): the
-    weight gradient, δ masked by the NITRO-ReLU derivative when z* is given.
+    weight gradient, δ masked by the NITRO-ReLU derivative when z* is given;
+  * ``stream_conv_grad_w_opt`` replaces ``stream_conv_grad_w_opt``
+    (``_stream_grad_w_opt_kernel``): that gradient with IntegerSGD in the
+    flush, returning W′ — the ``fuse_opt`` weight update.
 
-Sources: ``csrc/stream_conv.cu``, ``csrc/stream_conv_fwd.cu`` and
-``csrc/stream_conv_grad_w.cu``, which note each kernel's bound and
-design.  The wrappers take CUDA tensors only; the dispatchers in
+Sources: ``csrc/stream_conv.cu``, ``csrc/stream_conv_fwd.cu``,
+``csrc/stream_conv_grad_w.cu`` and ``csrc/stream_conv_grad_w_opt.cu``,
+which note each kernel's bound and design.  The wrappers take CUDA tensors only; the dispatchers in
 ``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
@@ -220,5 +223,66 @@ def stream_conv_grad_w(
     return out.reshape(k, k, c, f)
 
 
+def stream_conv_grad_w_opt(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    kernel_size: int,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Streaming conv weight update on the card: ``stream_conv_grad_w``'s
+    gradient g with IntegerSGD in the flush, ``W − (⌊g/γ_inv⌋ +
+    ⌊W/η_inv⌋)``; g is never written.
+
+    x (N,H,W,C), grad_out and z_star (N,H,W,F), w (K,K,C,F) → W′ (K,K,C,F)
+    int32.  ``gamma_inv``/``eta_inv`` are the optimiser state's 0-d int32
+    tensors on the card (read there: no host sync) or ints.
+    """
+    k = int(kernel_size)
+    _conv_shapes("stream_conv_grad_w_opt", x, k, x.shape[-1] if x.ndim == 4 else -1)
+    if grad_out.ndim != 4 or grad_out.shape[:3] != x.shape[:3]:
+        raise ValueError(f"stream_conv_grad_w_opt: grad {tuple(grad_out.shape)} "
+                         f"does not match input {tuple(x.shape)}")
+    if z_star.shape != grad_out.shape:
+        raise ValueError("delta/z_star shape mismatch")
+    n, h, w_sp, c = x.shape
+    f = grad_out.shape[-1]
+    if tuple(w.shape) != (k, k, c, f):
+        raise ValueError(f"stream_conv_grad_w_opt: w {tuple(w.shape)} != "
+                         f"{(k, k, c, f)}")
+    cuda_lib.require_cuda("stream_conv_grad_w_opt", x, grad_out, z_star, w)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    x, grad_out, z_star, w = cuda_lib.as_int32(
+        "stream_conv_grad_w_opt", x, grad_out, z_star, w)
+    gamma = cuda_lib.sgd_scalar("gamma_inv", gamma_inv, x.device)
+    eta = cuda_lib.sgd_scalar("eta_inv", eta_inv, x.device)
+    m = k * k * c
+    if max(m, f) >= 65535 * cuda_lib.GEMM_TILE:
+        raise ValueError("stream_conv_grad_w_opt: output exceeds the kernel's grid")
+    w_new = torch.empty_like(w)
+    if w.numel() == 0:
+        return w_new
+    lib, launch = cuda_lib.entry(
+        "stream_conv_grad_w_opt", "stream_conv_grad_w_opt_launch", 9, 8)
+    ws, arrivals = cuda_lib.split_workspace(x.device, m, f)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), grad_out.data_ptr(), z_star.data_ptr(), w.data_ptr(),
+            w_new.data_ptr(), gamma.data_ptr(), eta.data_ptr(), ws.data_ptr(),
+            arrivals.data_ptr(), n, h, w_sp, c, f, k, int(alpha_inv),
+            cuda_lib.sm_count(x.device), stream,
+        )
+    cuda_lib.check(lib, err, "stream_conv_grad_w_opt")
+    stream_conv_grad_w_opt.launches.add()
+    return w_new
+
+
 stream_conv_fwd.launches = cuda_lib.LaunchCounter()
 stream_conv_grad_w.launches = cuda_lib.LaunchCounter()
+stream_conv_grad_w_opt.launches = cuda_lib.LaunchCounter()

@@ -1,7 +1,8 @@
 """Dispatch for the streaming conv kernels (port of
 ``repro.kernels.nitro_conv.ops``): ``fused_conv`` (inference),
-``fused_conv_fwd`` (training forward) and ``conv_grad_w`` (training
-weight gradient).
+``fused_conv_fwd`` (training forward), ``conv_grad_w`` (training
+weight gradient) and ``conv_grad_w_opt`` (the ``fuse_opt`` weight
+update).
 
 ``conv_mode``
   * ``'stream'``      — implicit im2col: the CUDA kernel stages row bands
@@ -14,7 +15,9 @@ weight gradient).
 ``backend`` has ``nitro_matmul.ops``' vocabulary: ``auto | cuda |
 reference``.  Every (mode, backend) combination gives the same bits.
 The training entry points take ``conv_mode='stream'`` only; the
-materialised training route is not ported yet.
+materialised training route is not ported yet.  ``conv_grad_w_opt`` is
+stream-only by design, as in the JAX package: the materialised gradient
+has no kernel flush to fuse the optimiser into.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
     stream_conv_fwd,
     stream_conv_grad_w,
+    stream_conv_grad_w_opt,
 )
 from repro_torch.kernels.nitro_matmul.ops import (
     _guard_int8,
@@ -135,3 +139,38 @@ def conv_grad_w(
     fn = conv_ref.stream_conv_grad_w_ref if backend == "reference" else stream_conv_grad_w
     return fn(x, grad_out, kernel_size=kernel_size, z_star=z_star,
               alpha_inv=alpha_inv)
+
+
+def conv_grad_w_opt(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    w: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    kernel_size: int,
+    z_star: torch.Tensor,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> torch.Tensor:
+    """Conv weight *update*: ``conv_grad_w`` with IntegerSGD applied in the
+    streaming kernel's flush — returns W′ (K,K,C,F), grad_W never written.
+
+    Stream-only: ``conv_mode='materialise'`` raises ``ValueError`` (its
+    caller, ``grad_ops.conv_weight_update``, takes the unfused escape
+    hatch there).  ``z_star`` is required: a caller without it has
+    pre-masked δ, which is also the escape hatch's job.
+    """
+    backend = resolve_backend(backend, x.device)
+    alpha_inv = check_alpha_inv(alpha_inv, True)
+    if resolve_conv_mode(conv_mode) == "materialise":
+        raise ValueError(
+            "conv_grad_w_opt is stream-only: the materialise path has no "
+            "kernel flush to fuse the optimiser into — compute conv_grad_w "
+            "and apply optimizer.apply_update instead"
+        )
+    fn = (conv_ref.stream_conv_grad_w_opt_ref if backend == "reference"
+          else stream_conv_grad_w_opt)
+    return fn(x, grad_out, z_star, w, gamma_inv, eta_inv,
+              kernel_size=kernel_size, alpha_inv=alpha_inv)

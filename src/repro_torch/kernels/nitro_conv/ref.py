@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the streaming implicit-im2col conv kernels
 (port of ``repro.kernels.nitro_conv.ref``): the inference step, the
-training forward ``(a, z*)`` and the weight gradient.
+training forward ``(a, z*)``, the weight gradient and the weight update.
 
 Each runs the algorithm in plain tensor ops: a loop over output-row
 bands, each forming a band-local patch block from K² overlapping row
@@ -18,6 +18,7 @@ from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.layers import window_view_2x2
 from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_forward
+from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
 
 #: Default row-band height of the CUDA kernel (the JAX package's
 #: ``DEFAULT_TILES.bh``).
@@ -158,3 +159,22 @@ def stream_conv_grad_w_ref(
             g_band = nitro_relu_backward(zp[:, t * bh:t * bh + bh], g_band, alpha_inv)
         grad_w = grad_w + int_matmul(patches.T, g_band.reshape(n * bh * w_sp, f))
     return grad_w.reshape(k, k, c, f)
+
+
+def stream_conv_grad_w_opt_ref(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    kernel_size: int,
+    alpha_inv: int = 10,
+    bh: int | None = None,
+) -> torch.Tensor:
+    """Weight update: ``stream_conv_grad_w_ref`` (δ masked by z*) then
+    IntegerSGD → W′ (K,K,C,F) int32."""
+    grad_w = stream_conv_grad_w_ref(x, grad_out, kernel_size=kernel_size,
+                                    z_star=z_star, alpha_inv=alpha_inv, bh=bh)
+    return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)

@@ -12,38 +12,9 @@
 // Design: the split-K GEMM of int_gemm.cuh with A(p, m) = x[p, m].
 // The batch contraction is short (64), so at this shape every output tile
 // is one block with one split; the ReLU derivative masks δ on load.
-#include "int_gemm.cuh"
-
-namespace {
+#include "grad_w_stage.cuh"
 
 using namespace nitro::gemm;
-
-// A(m, b) = x[b, m]: thread t stages feature m = row0 + t % BM of the
-// samples k0 + t / BM + 4e, so consecutive threads read consecutive m.
-struct DenseColumnsA {
-  struct Params {
-    const int32_t* x;
-    int M;
-  };
-  const int32_t* __restrict__ x;
-  int M, m;
-  bool ok;
-
-  __device__ DenseColumnsA(const Params& p, int row0, int)
-      : x(p.x), M(p.M), m(row0 + (int)threadIdx.x % BM), ok(m < p.M) {}
-
-  __device__ __forceinline__ void stage(int (&a)[BK][BM + 1], int k0,
-                                        int k_end) {
-#pragma unroll
-    for (int e = 0; e < BK * BM / THREADS; ++e) {
-      const int kk = threadIdx.x / BM + e * (THREADS / BM);
-      const int k = k0 + kk;
-      a[kk][threadIdx.x % BM] = (ok && k < k_end) ? x[(size_t)k * M + m] : 0;
-    }
-  }
-};
-
-}  // namespace
 
 // x (B,M), delta and z_star (B,N) int32 contiguous; out (M,N) int32,
 // zeroed by the caller.  sms: the card's SM count (sizes the splits).

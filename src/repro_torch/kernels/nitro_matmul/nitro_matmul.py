@@ -8,11 +8,14 @@
     training forward;
   * ``nitro_matmul_grad_w`` replaces ``nitro_matmul_grad_w``
     (``_nitro_grad_w_kernel``): ``xᵀ @ relu_bwd(z*, δ)`` — the training
-    weight gradient.
+    weight gradient;
+  * ``nitro_matmul_grad_w_opt`` replaces ``nitro_matmul_grad_w_opt``
+    (``_nitro_grad_w_opt_kernel``): that gradient with IntegerSGD in the
+    flush, returning W′ — the ``fuse_opt`` weight update.
 
-Sources: ``csrc/nitro_matmul.cu`` (the first two) and
-``csrc/nitro_matmul_grad_w.cu``, which note each kernel's bound and
-design.  The wrappers take CUDA tensors only; the dispatchers in
+Sources: ``csrc/nitro_matmul.cu`` (the first two),
+``csrc/nitro_matmul_grad_w.cu`` and ``csrc/nitro_matmul_grad_w_opt.cu``,
+which note each kernel's bound and design.  The wrappers take CUDA tensors only; the dispatchers in
 ``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
@@ -163,5 +166,60 @@ def nitro_matmul_grad_w(
     return out
 
 
+def nitro_matmul_grad_w_opt(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Fused weight update on the card: ``W − (⌊g/γ_inv⌋ + ⌊W/η_inv⌋)``
+    with ``g = xᵀ @ relu_bwd(z_star, δ)``, which is never written.
+
+    x (B,M), delta and z_star (B,N), w (M,N) → W′ (M,N) int32.
+    ``gamma_inv``/``eta_inv`` are the optimiser state's 0-d int32 tensors
+    on the card (the kernel reads them there: no host sync) or ints.
+    """
+    _check_2d("nitro_matmul_grad_w_opt", x, delta, 0, 0)
+    if z_star.shape != delta.shape:
+        raise ValueError(f"delta/z_star shape mismatch {tuple(delta.shape)} "
+                         f"vs {tuple(z_star.shape)}")
+    if w.shape != (x.shape[1], delta.shape[1]):
+        raise ValueError(f"nitro_matmul_grad_w_opt: w {tuple(w.shape)} != "
+                         f"({x.shape[1]}, {delta.shape[1]})")
+    cuda_lib.require_cuda("nitro_matmul_grad_w_opt", x, delta, z_star, w)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    x, delta, z_star, w = cuda_lib.as_int32(
+        "nitro_matmul_grad_w_opt", x, delta, z_star, w)
+    gamma = cuda_lib.sgd_scalar("gamma_inv", gamma_inv, x.device)
+    eta = cuda_lib.sgd_scalar("eta_inv", eta_inv, x.device)
+    b, m = x.shape
+    n = delta.shape[1]
+    if max(m, n) >= 65535 * cuda_lib.GEMM_TILE:
+        raise ValueError("nitro_matmul_grad_w_opt: output exceeds the kernel's grid")
+    w_new = torch.empty_like(w)
+    if w.numel() == 0:
+        return w_new
+    lib, launch = cuda_lib.entry(
+        "nitro_matmul_grad_w_opt", "nitro_matmul_grad_w_opt_launch", 9, 5)
+    ws, arrivals = cuda_lib.split_workspace(x.device, m, n)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), delta.data_ptr(), z_star.data_ptr(), w.data_ptr(),
+            w_new.data_ptr(), gamma.data_ptr(), eta.data_ptr(), ws.data_ptr(),
+            arrivals.data_ptr(), b, m, n, alpha_inv,
+            cuda_lib.sm_count(x.device), stream,
+        )
+    cuda_lib.check(lib, err, "nitro_matmul_grad_w_opt")
+    nitro_matmul_grad_w_opt.launches.add()
+    return w_new
+
+
 nitro_matmul_fwd.launches = cuda_lib.LaunchCounter()
 nitro_matmul_grad_w.launches = cuda_lib.LaunchCounter()
+nitro_matmul_grad_w_opt.launches = cuda_lib.LaunchCounter()

@@ -1,7 +1,8 @@
 """Dispatch for the NITRO matmul kernels (port of
 ``repro.kernels.nitro_matmul.ops``): ``fused_matmul`` (inference),
-``fused_matmul_fwd`` (training forward) and ``grad_w_matmul`` (training
-weight gradient).
+``fused_matmul_fwd`` (training forward), ``grad_w_matmul`` (training
+weight gradient) and ``grad_w_opt_matmul`` (the ``fuse_opt`` weight
+update).
 
 Backends:
 
@@ -20,9 +21,11 @@ from repro_torch.kernels.nitro_matmul.nitro_matmul import (
     nitro_matmul,
     nitro_matmul_fwd,
     nitro_matmul_grad_w,
+    nitro_matmul_grad_w_opt,
 )
 from repro_torch.kernels.nitro_matmul.ref import (
     nitro_matmul_fwd_ref,
+    nitro_matmul_grad_w_opt_ref,
     nitro_matmul_grad_w_ref,
     nitro_matmul_ref,
 )
@@ -153,3 +156,28 @@ def grad_w_matmul(
     alpha_inv = check_alpha_inv(alpha_inv, True)
     fn = nitro_matmul_grad_w_ref if backend == "reference" else nitro_matmul_grad_w
     return fn(x2, delta2, z_star2, alpha_inv=alpha_inv)
+
+
+def grad_w_opt_matmul(
+    x2: torch.Tensor,
+    delta2: torch.Tensor,
+    z_star2: torch.Tensor,
+    w2: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Fused weight *update* on 2-D operands: returns W′.
+
+    ``cuda`` runs ``nitro_matmul_grad_w_opt`` (IntegerSGD in the grad_W
+    kernel's flush, grad_W never written); ``reference`` composes the
+    plain gradient with ``integer_sgd_ref`` — the same bits, as floor
+    division of an exact int32 sum is exact.
+    """
+    backend = resolve_backend(backend, x2.device)
+    alpha_inv = check_alpha_inv(alpha_inv, True)
+    fn = (nitro_matmul_grad_w_opt_ref if backend == "reference"
+          else nitro_matmul_grad_w_opt)
+    return fn(x2, delta2, z_star2, w2, gamma_inv, eta_inv, alpha_inv=alpha_inv)

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the NITRO matmul kernels (port of
 ``repro.kernels.nitro_matmul.ref``).
 
-Composes integer matmul → NITRO Scaling → NITRO-ReLU (forward) and
-NITRO-ReLU derivative → integer matmul (weight gradient) exactly as
-``repro_torch.core`` defines them.  The CUDA kernels must match them bit
+Composes integer matmul → NITRO Scaling → NITRO-ReLU (forward),
+NITRO-ReLU derivative → integer matmul (weight gradient) and that
+gradient → IntegerSGD (weight update) exactly as ``repro_torch.core``
+defines them.  The CUDA kernels must match them bit
 for bit; the CPU path of the dispatchers runs them.
 """
 
@@ -14,6 +15,7 @@ import torch
 from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_backward, scale_forward
+from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
 
 
 def nitro_matmul_ref(
@@ -77,3 +79,19 @@ def nitro_matmul_grad_w_ref(
     (M,N) int32."""
     g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
     return int_matmul(x.to(INT_DTYPE).T, g)
+
+
+def nitro_matmul_grad_w_opt_ref(
+    x: torch.Tensor,
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Weight update: ``nitro_matmul_grad_w_ref`` then IntegerSGD → W′
+    (M,N) int32."""
+    grad_w = nitro_matmul_grad_w_ref(x, delta, z_star, alpha_inv=alpha_inv)
+    return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)

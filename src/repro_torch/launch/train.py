@@ -10,9 +10,11 @@ CNNs): integer-only LES training of VGG8B / VGG11B.
 
 The data, the init and the dropout key of step ``it`` (``PRNGKey(it)``)
 are those of the JAX launcher, so both give the same trajectory and the
-same test accuracy for the same arguments.  Not ported in this slice:
-the MLP archs, data parallelism, telemetry and health alerts, autotuning,
-``--fuse-opt`` and checkpoints (so every run starts at step 0).
+same test accuracy for the same arguments.  ``--fuse-opt`` takes the
+``fuse_opt`` step (IntegerSGD in the grad_W kernels' flush), bitwise the
+split step.  Not ported yet: the MLP archs, data parallelism, telemetry
+and health alerts, autotuning and checkpoints (so every run starts at
+step 0).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ ARCHS = ("vgg8b", "vgg11b")
 
 def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 dataset: str = "tiles32", scale: float = 1.0, seed: int = 0,
-                device=DEFAULT_DEVICE, backend: str = "auto") -> dict:
+                device=DEFAULT_DEVICE, backend: str = "auto",
+                fuse_opt: bool = False) -> dict:
     """Integer-only NITRO-D training, then test accuracy.
 
     Returns ``test_accuracy``, ``steps`` and ``scaled_loss`` (the keys of
@@ -63,7 +66,7 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
             state, metrics = les.train_step(
                 state, cfg, torch.from_numpy(x).to(device),
                 torch.from_numpy(y).to(device), prng.PRNGKey(it),
-                backend=backend,
+                backend=backend, fuse_opt=fuse_opt,
             )
             step_metrics.append(metrics)
             if it % 50 == 0:
@@ -101,6 +104,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="auto", choices=("auto", "cuda", "reference"),
                     help="auto = the CUDA kernels on the card, the plain "
                          "versions on the CPU; reference = the plain versions")
+    ap.add_argument("--fuse-opt", action="store_true",
+                    help="apply IntegerSGD in the grad_W kernels' flush "
+                         "(bitwise the split step)")
     return ap
 
 
@@ -109,7 +115,8 @@ def main(argv=None) -> dict:
     args = _parser().parse_args(argv)
     return train_nitro(args.arch, steps=args.steps, batch=args.batch,
                        dataset=args.dataset, scale=args.scale, seed=args.seed,
-                       device=args.device, backend=args.backend)
+                       device=args.device, backend=args.backend,
+                       fuse_opt=args.fuse_opt)
 
 
 if __name__ == "__main__":

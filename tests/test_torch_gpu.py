@@ -18,13 +18,17 @@ from repro_torch.core import model as M
 from repro_torch.core import prng
 from repro_torch.infer import compile_plan, freeze
 from repro_torch.core import les
+from repro_torch.core import optimizer as opt
+from repro_torch.kernels.integer_sgd import integer_sgd_ref, integer_sgd_update
 from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
     stream_conv_fwd,
     stream_conv_grad_w,
+    stream_conv_grad_w_opt,
 )
 from repro_torch.kernels.nitro_conv.ref import (
     stream_conv_fwd_ref,
+    stream_conv_grad_w_opt_ref,
     stream_conv_grad_w_ref,
     stream_conv_ref,
 )
@@ -32,9 +36,11 @@ from repro_torch.kernels.nitro_matmul.nitro_matmul import (
     nitro_matmul,
     nitro_matmul_fwd,
     nitro_matmul_grad_w,
+    nitro_matmul_grad_w_opt,
 )
 from repro_torch.kernels.nitro_matmul.ref import (
     nitro_matmul_fwd_ref,
+    nitro_matmul_grad_w_opt_ref,
     nitro_matmul_grad_w_ref,
     nitro_matmul_ref,
 )
@@ -194,3 +200,93 @@ def test_cuda_train_steps_match_reference(cuda_device):
             assert torch.equal(bg[part]["w"], bw[part]["w"])
     assert torch.equal(got.params["output"]["w"], want.params["output"]["w"])
     assert int(got.step) == 2 and torch.equal(got.opt_fw.gamma_inv, want.opt_fw.gamma_inv)
+
+
+# (γ_inv, η_inv): decay on, decay off with γ_inv = 1, a negative γ_inv, the
+# forward layers' γ after two plateaus, and a γ_inv that floors most
+# gradients to 0 or −1
+_SGD_STATES = [(512, 12000), (1, 0), (-3, 5), (512 * 640 * 9, 3), (2 ** 31 - 1, 0)]
+
+
+@pytest.mark.gpu
+def test_integer_sgd_update_matches_plain(cuda_device):
+    """Full-range int32 W and g (the update wraps), ragged sizes, a view
+    whose start is not 16-byte aligned (the scalar path), γ_inv as a 0-d
+    tensor on the card or an int."""
+    g = torch.Generator().manual_seed(8)
+    for shape in ((1,), (7,), (129,), (3, 3, 3, 128), (2048, 1024)):
+        w = _wide(g, shape, 2 ** 31 - 1, cuda_device)
+        grad = _wide(g, shape, 2 ** 31 - 1, cuda_device)
+        for gamma, eta in _SGD_STATES:
+            state = opt.init_state(gamma, eta, device=cuda_device)
+            got = integer_sgd_update(w, grad, state.gamma_inv, state.eta_inv)
+            want = integer_sgd_ref(w, grad, gamma, eta)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+    w, grad = _wide(g, (1001,), 2 ** 20, cuda_device), _wide(g, (1001,), 2 ** 20, cuda_device)
+    got = integer_sgd_update(w[1:], grad[1:], 7, 3)
+    assert torch.equal(got, integer_sgd_ref(w[1:], grad[1:], 7, 3))
+    assert integer_sgd_update.launches.value > 0
+
+
+@pytest.mark.gpu
+def test_nitro_matmul_grad_w_opt_matches_plain(cuda_device):
+    """VGG8B's linear shape (one split: the flush from registers), deep
+    batches (split-K: the workspace and the last-arriving split), each
+    twice, so a second call proves the workspace was left zero."""
+    g = torch.Generator().manual_seed(9)
+    for b, m, n in ((5, 7, 3), (64, 2048, 1024), (1000, 20, 10), (4096, 300, 70)):
+        x = _wide(g, (b, m), 2 ** 31 - 1, cuda_device)
+        delta = _wide(g, (b, n), 2 ** 20, cuda_device)
+        z = _wide(g, (b, n), 300, cuda_device)
+        w = _wide(g, (m, n), 2 ** 31 - 1, cuda_device)
+        for (gamma, eta), alpha_inv in zip(_SGD_STATES, (10, 1, 2, 10, 3)):
+            for _ in range(2):
+                got = nitro_matmul_grad_w_opt(x, delta, z, w, gamma, eta,
+                                              alpha_inv=alpha_inv)
+                want = nitro_matmul_grad_w_opt_ref(x, delta, z, w, gamma, eta,
+                                                   alpha_inv=alpha_inv)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_stream_conv_grad_w_opt_matches_plain(cuda_device):
+    g = torch.Generator().manual_seed(10)
+    for n, h, w_sp, c, f, k, _ in _CONV_TRAIN:
+        x = _ints(g, (n, h, w_sp, c), torch.int32, cuda_device)
+        delta = _wide(g, (n, h, w_sp, f), 2 ** 20, cuda_device)
+        z = _wide(g, (n, h, w_sp, f), 300, cuda_device)
+        w = _wide(g, (k, k, c, f), 2 ** 31 - 1, cuda_device)
+        for (gamma, eta), alpha_inv in zip(_SGD_STATES, (10, 1, 2, 10, 3)):
+            for _ in range(2):
+                got = stream_conv_grad_w_opt(x, delta, z, w, gamma, eta,
+                                             kernel_size=k, alpha_inv=alpha_inv)
+                want = stream_conv_grad_w_opt_ref(x, delta, z, w, gamma, eta,
+                                                  kernel_size=k, alpha_inv=alpha_inv)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_fuse_opt_steps_match_split_steps(cuda_device):
+    """Two VGG8B fuse_opt steps at scale 0.25 through the kernels ≡ the
+    split steps on the kernels, and the fused apply ≡ the split apply."""
+    cfg = get_paper_config("vgg8b", scale=0.25)
+    rng = np.random.default_rng(11)
+    fused = split = les.create_train_state(prng.PRNGKey(3), cfg, device=cuda_device)
+    for it in range(2):
+        x = torch.from_numpy(rng.integers(-127, 128, (16, *cfg.input_shape))
+                             .astype(np.int32)).to(cuda_device)
+        y = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32)).to(cuda_device)
+        fused, fm = les.train_step(fused, cfg, x, y, prng.PRNGKey(it), fuse_opt=True)
+        grads, sm = les.compute_gradients(split, cfg, x, y, prng.PRNGKey(it))
+        applied = les.apply_gradients(split, grads, fuse_opt=True)
+        split = les.apply_gradients(split, grads)
+        for f in ("loss", "correct", "local_losses"):
+            assert torch.equal(getattr(fm, f), getattr(sm, f))
+        for state in (fused, applied):
+            for bs, bw in zip(state.params["blocks"], split.params["blocks"]):
+                for part in ("fw", "lr"):
+                    assert torch.equal(bs[part]["w"], bw[part]["w"])
+            assert torch.equal(state.params["output"]["w"], split.params["output"]["w"])

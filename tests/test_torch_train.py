@@ -298,15 +298,18 @@ def test_eval_and_plateau_match_jax():
     _assert_state_eq(ts, js)
 
 
-def test_unported_step_options_raise():
+@pytest.mark.parametrize("options", [
+    {"telemetry": True},
+    {"telemetry": True, "fuse_opt": True},
+    {"conv_mode": "materialise", "fuse_opt": True},
+], ids=["telemetry", "telemetry-fuse_opt", "materialise-fuse_opt"])
+def test_unported_step_options_raise(options):
+    """Telemetry and materialised training are not ported: they raise,
+    with or without fuse_opt (which is ported)."""
     tcfg, _, ts, _ = _states("vgg8b")
     x, y = _batch(tcfg, 0)
     with pytest.raises(NotImplementedError, match="later slice"):
-        tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0), fuse_opt=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0), telemetry=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tles.apply_gradients(ts, None, fuse_opt=True)
+        tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0), **options)
 
 
 def test_train_nitro_matches_jax(capsys):
