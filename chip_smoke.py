@@ -11,7 +11,9 @@ Phases, each fatal on failure:
      bitwise (tolerance 0: every value is an integer): the serving kernels
      at every VGG8B step shape at batch 32, the training and update
      kernels at every VGG8B training shape at batch 64 (the update kernels
-     at several optimiser states), and all at ragged shapes;
+     at several optimiser states), the input-gradient kernels at every
+     VGG8B training shape and mlp4's linear shapes (3d), and all at ragged
+     shapes;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
      full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
      with the launch counts reset just before and read just after; every
@@ -33,9 +35,26 @@ Phases, each fatal on failure:
      ``compute_gradients`` then ``apply_gradients(fuse_opt=True)``,
      counted; each step must launch integer_sgd_update 15× and the state
      must equal the split run's bitwise;
+     (phases 5, 5b and 5c launch no grad_x kernel: the LES step discards
+     grad_x, as the compiled JAX step does);
+  5d. the grad_x path: full-width VGG8B's forward with caches on the CLI's
+     first batch, each block's δ_fw as the LES step forms it, then every
+     block's ``layers.conv_backward`` / ``linear_backward`` with z* and
+     ``conv_update`` / ``linear_update``, counted: stream_conv_grad_x 6×
+     and nitro_matmul_grad_x 1× per pass beside the grad_W (or grad_W_opt)
+     kernels; every grad_x and weight must equal the same calls with
+     ``backend='reference'``, and the weight gradients
+     ``compute_gradients``' for the same batch and key;
+  5e. the MLP path: ``launch.train.main`` takes 4 steps of full-width mlp4
+     (3072→3000×3→10) at batch 64, counted (nitro_matmul_fwd 3× and
+     nitro_matmul_grad_w 3× per step), equal to ``--backend reference``;
+  5f. resume: two CLI calls of 2 VGG8B steps with one ``--ckpt-dir``, the
+     second resuming from step 2, equal to the same two calls with
+     ``--backend reference``; a save → restore of the card's TrainState
+     is bitwise;
   6. time each kernel per step shape with CUDA events beside its bound and
-     its plain version, the serving batch latency, and the split and
-     ``fuse_opt`` training steps host to host in turns.
+     its plain version, the serving batch latency, the split and
+     ``fuse_opt`` training steps host to host in turns, and the mlp4 step.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -44,8 +63,9 @@ count; then, last, ``{"ok": true, "device": {...}}``.  ``ms`` is CUDA-event
 time over back-to-back launches, except for nitro_matmul_grad_w_opt and
 integer_sgd_update, whose launches are shorter than their wrappers' host
 path: there it is the device time ``torch.profiler`` reports (the
-back-to-back time is printed beside it, and nitro_matmul_grad_w's device
-time beside its own).  Exits non-zero,
+back-to-back time is printed beside it, and nitro_matmul_grad_w's and
+nitro_matmul_grad_x's device times beside their own).  The grad_x
+kernels' ``launches`` are phase 5d's (two passes).  Exits non-zero,
 without that line, when CUDA is absent or the script is not inside a
 checkout.
 
@@ -111,6 +131,14 @@ KERNELS = {
         "source": "src/repro_torch/kernels/integer_sgd/csrc/integer_sgd.cu",
         "replaces": "src/repro/kernels/integer_sgd/integer_sgd.py:61",
     },
+    "nitro_matmul_grad_x": {
+        "source": "src/repro_torch/kernels/nitro_matmul/csrc/nitro_matmul_grad_x.cu",
+        "replaces": "src/repro/kernels/nitro_matmul/nitro_matmul.py:547",
+    },
+    "stream_conv_grad_x": {
+        "source": "src/repro_torch/kernels/nitro_conv/csrc/stream_conv_grad_x.cu",
+        "replaces": "src/repro/kernels/nitro_conv/nitro_conv.py:611",
+    },
 }
 TRAIN_KERNELS = ("stream_conv_fwd", "nitro_matmul_fwd", "stream_conv_grad_w",
                  "nitro_matmul_grad_w")
@@ -121,6 +149,15 @@ PER_STEP = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
 PER_STEP_FUSE_OPT = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
                      "stream_conv_grad_w_opt": 6, "nitro_matmul_grad_w_opt": 1}
 PER_STEP_FUSED_APPLY = {**PER_STEP, "integer_sgd_update": 15}
+#: launches of one grad_x pass over VGG8B's blocks (backward, then update)
+PER_GRAD_X_PASS = {"stream_conv_grad_x": 12, "nitro_matmul_grad_x": 2,
+                   "stream_conv_grad_w": 6, "nitro_matmul_grad_w": 1,
+                   "stream_conv_grad_w_opt": 6, "nitro_matmul_grad_w_opt": 1}
+#: launches per mlp4 step (three linear blocks)
+PER_STEP_MLP = {"nitro_matmul_fwd": 3, "nitro_matmul_grad_w": 3}
+#: mlp4's forward-layer shapes at batch 64: (kind, x shape, w shape)
+MLP4_SHAPES = [("linear", (TRAIN_BATCH, 3072), (3072, 3000)),
+               ("linear", (TRAIN_BATCH, 3000), (3000, 3000))]
 #: parity cases held bitwise, by kernel
 PARITY_CASES: Counter = Counter()
 
@@ -323,14 +360,16 @@ def launch_counters() -> dict:
     """Each kernel wrapper's launch counter, by kernel name."""
     from repro_torch.kernels.integer_sgd import integer_sgd_update
     from repro_torch.kernels.nitro_conv.nitro_conv import (
-        stream_conv, stream_conv_fwd, stream_conv_grad_w, stream_conv_grad_w_opt)
+        stream_conv, stream_conv_fwd, stream_conv_grad_w, stream_conv_grad_w_opt,
+        stream_conv_grad_x)
     from repro_torch.kernels.nitro_matmul.nitro_matmul import (
         nitro_matmul, nitro_matmul_fwd, nitro_matmul_grad_w,
-        nitro_matmul_grad_w_opt)
+        nitro_matmul_grad_w_opt, nitro_matmul_grad_x)
 
     fns = (nitro_matmul, stream_conv, nitro_matmul_fwd, nitro_matmul_grad_w,
            stream_conv_fwd, stream_conv_grad_w, nitro_matmul_grad_w_opt,
-           stream_conv_grad_w_opt, integer_sgd_update)
+           stream_conv_grad_w_opt, integer_sgd_update, nitro_matmul_grad_x,
+           stream_conv_grad_x)
     return {f.__name__: f.launches for f in fns}
 
 
@@ -534,6 +573,58 @@ def opt_parity(shapes, cfg, params, errs: dict) -> None:
                   errs)
 
 
+RAGGED_GRAD_X = [  # (kind, x shape, w shape): C = 3, odd batches, F % 64 != 0
+    ("conv", (3, 7, 9, 5), (3, 3, 5, 40)),
+    ("conv", (2, 9, 7, 6), (5, 5, 6, 33)),
+    ("conv", (5, 33, 31, 3), (3, 3, 3, 70)),
+    ("conv", (1, 12, 90, 150), (3, 3, 150, 36)),
+    ("linear", (5, 7), (7, 3)),
+    ("linear", (33, 300), (300, 70)),
+    ("linear", (1000, 20), (20, 10)),
+]
+
+
+def grad_x_call(kind, w, delta, z, alpha_inv, backend):
+    """One input gradient (#5 or #10; #6 at sf=1 without z*) through its
+    dispatcher."""
+    from repro_torch.kernels.nitro_conv.ops import conv_grad_x
+    from repro_torch.kernels.nitro_matmul.ops import grad_x_matmul
+
+    if kind == "conv":
+        return lambda: conv_grad_x(delta, w, z_star=z, alpha_inv=alpha_inv,
+                                   backend=backend)
+    return lambda: grad_x_matmul(delta, z, w, alpha_inv=alpha_inv, backend=backend)
+
+
+def grad_x_parity(shapes, errs: dict) -> None:
+    """Phase 3d: the input-gradient kernels vs their plain versions,
+    bitwise: #10 and #5 at every VGG8B training shape and #5 at mlp4's
+    linear shapes, at α_inv 10 (δ of ±2²⁰) and α_inv 1 (full-range int32
+    δ and w: the sums wrap), at ragged shapes; and #6 at sf=1 without
+    ReLU — the conv grad_x route without z* — at every VGG8B conv."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    wide = (-(2 ** 31), 2 ** 31)
+    names = {"conv": "stream_conv_grad_x", "linear": "nitro_matmul_grad_x"}
+    cases = [(f"step {i}", kind, xs, ws) for i, (kind, xs, ws, _, _) in enumerate(shapes, 1)]
+    cases += [("mlp4", *sh) for sh in MLP4_SHAPES]
+    cases += [("ragged", *sh) for sh in RAGGED_GRAD_X]
+    for tag, kind, xs, ws in cases:
+        _, w, delta, z = train_operands(xs, ws, g)
+        full = [torch.randint(*wide, t.shape, generator=g).to(torch.int32).cuda()
+                for t in (w, delta)]
+        for (wt, dt), ai, rng in (((w, delta), 10, "delta +-2^20"),
+                                  (full, 1, "full-range int32")):
+            _pair(f"{names[kind]} {tag} x{xs} w{ws} alpha_inv={ai} {rng}",
+                  grad_x_call(kind, wt, dt, z, ai, "cuda"),
+                  grad_x_call(kind, wt, dt, z, ai, "reference"), errs)
+        if kind == "conv" and tag.startswith("step"):
+            _pair(f"stream_conv sf=1 grad_x without z* {tag} x{xs} w{ws}",
+                  grad_x_call(kind, full[0], full[1], None, 1, "cuda"),
+                  grad_x_call(kind, full[0], full[1], None, 1, "reference"), errs)
+
+
 def _trees(state, metrics):
     """Every tensor of a TrainState and its step metrics, named."""
     out = {"step": state.step}
@@ -655,6 +746,127 @@ def fused_apply_path(split):
     print(f"[train-fused-apply] final state, {n} tensors incl. every step's "
           f"metrics, equals the split run's bitwise")
     return launches
+
+
+def _same(what: str, got, want) -> None:
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(got, want):
+        die(f"{what} differs")
+
+
+def grad_x_path():
+    """Phase 5d: the grad_x path at full width, counted, held against the
+    same calls on the plain versions and against compute_gradients."""
+    from repro_torch.core import blocks as B
+    from repro_torch.core import layers, les, prng
+    from repro_torch.core import model as M
+    from repro_torch.core.losses import one_hot_int
+
+    cfg, steps = cli_batches()
+    x, y, key = steps[0]
+    state = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda")
+    params = state.params
+    _, acts, caches, _ = M.forward(params, cfg, x, train=True, key=key)
+    y1 = one_hot_int(y, cfg.num_classes)
+    deltas = []
+    for spec, p, a_l, cache in zip(cfg.blocks, params["blocks"], acts, caches):
+        y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
+        delta_fw, _ = B.learning_layers_backward(p, spec, lr_cache,
+                                                 B.local_gradient(y_hat_l, y1))
+        deltas.append(B.forward_layers_delta(cache, delta_fw))
+
+    def passes(backend):
+        out = []
+        for spec, p, cache, g in zip(cfg.blocks, params["blocks"], caches, deltas):
+            kw = dict(z_star=cache["z_star"], alpha_inv=spec.alpha_inv, backend=backend)
+            if spec.kind == "conv":
+                gx, gw = layers.conv_backward(p["fw"], cache["conv"], g, **kw)
+                ux, new = layers.conv_update(p["fw"], cache["conv"], g, state.opt_fw, **kw)
+            else:
+                gx, gw = layers.linear_backward(p["fw"], cache["linear"], g, **kw)
+                ux, new = layers.linear_update(p["fw"], cache["linear"], g,
+                                               state.opt_fw, **kw)
+            out.append((gx, gw["w"], ux, new["w"]))
+        return out
+
+    got, launches = counted(lambda: passes("cuda"))
+    print(f"[grad-x] {len(cfg.blocks)} blocks, backward + update, launches {launches}")
+    want = {k: PER_GRAD_X_PASS.get(k, 0) for k in launches}
+    if launches != want:
+        die(f"grad_x path: expected {want}, got {launches}")
+    ref = passes("reference")
+    grads, _ = les.compute_gradients(state, cfg, x, y, key)
+    for i, (g4, r4, gb) in enumerate(zip(got, ref, grads.blocks)):
+        for what, a, b in zip(("grad_x", "grad_W", "update grad_x", "W'"), g4, r4):
+            _same(f"grad_x path block {i} {what} vs reference", a, b)
+        _same(f"grad_x path block {i} grad_W vs compute_gradients", g4[1], gb["fw"]["w"])
+        _same(f"grad_x path block {i} grad_x of backward vs update", g4[0], g4[2])
+    shapes = [tuple(g4[0].shape) for g4 in got]
+    print(f"[grad-x] every grad_x {shapes}, grad_W and W' equals the reference "
+          f"backend's bitwise; grad_W equals compute_gradients'")
+    return launches
+
+
+MLP_ARGV = ["--arch", "mlp4", "--dataset", "tiles32", "--steps", str(TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seed", "0"]
+
+
+def mlp_path():
+    """Phase 5e: the train CLI on full-width mlp4, counted, held against the
+    same run on the plain versions."""
+    from repro_torch.launch import train
+
+    res, launches = counted(lambda: train.main(MLP_ARGV))
+    print(f"[train-mlp4] {res['steps']} steps, launches {launches}")
+    expect_launches(launches, PER_STEP_MLP, res["steps"], "mlp4 run")
+    ref = train.main(MLP_ARGV + ["--backend", "reference"])
+    n = same_run(res["state"], res["step_metrics"], ref["state"], ref["step_metrics"],
+                 "mlp4 cuda run vs reference run")
+    if res["test_accuracy"] != ref["test_accuracy"]:
+        die(f"mlp4 test accuracy {res['test_accuracy']} != reference "
+            f"{ref['test_accuracy']}")
+    print(f"[train-mlp4] final state, {n} tensors incl. every step's metrics, equals "
+          f"the reference backend's bitwise; test accuracy {res['test_accuracy']:.4f}")
+    return res, ref
+
+
+def resume_path():
+    """Phase 5f: two CLI calls of 2 VGG8B steps sharing a --ckpt-dir, the
+    second resuming, on the kernels and on the plain versions; and a
+    save → restore round trip of the card's TrainState."""
+    import tempfile
+
+    from repro_torch.launch import train
+    from repro_torch.train import checkpoint as ckpt
+
+    argv = ["--arch", "vgg8b", "--steps", "2", "--batch", str(TRAIN_BATCH), "--seed", "0"]
+    with tempfile.TemporaryDirectory(prefix="nitro_ckpt_") as d:
+        runs = {}
+        for backend in ("cuda", "reference"):
+            call = argv + ["--backend", backend, "--ckpt-dir", f"{d}/{backend}"]
+            first = train.main(call)
+            second = train.main(call)
+            if first["start_step"] != 0 or second["start_step"] != 2 or \
+                    int(second["state"].step) != 4:
+                die(f"{backend} resume: start steps {first['start_step']}, "
+                    f"{second['start_step']}, final step {int(second['state'].step)}")
+            runs[backend] = second
+        n = same_run(runs["cuda"]["state"], runs["cuda"]["step_metrics"],
+                     runs["reference"]["state"], runs["reference"]["step_metrics"],
+                     "resumed cuda run vs resumed reference run")
+        state = runs["cuda"]["state"]
+        ckpt.save(f"{d}/round_trip", 4, state)
+        back, step = ckpt.restore(f"{d}/round_trip", state)
+        flat, flat_back = ckpt.flatten_with_paths(state), ckpt.flatten_with_paths(back)
+        for (p, a), (q, b) in zip(flat, flat_back, strict=True):
+            if p != q or a.device != b.device:
+                die(f"round trip: {p} on {a.device} came back as {q} on {b.device}")
+            _same(f"round trip {p}", b, a)
+    print(f"[resume] second call resumed from step 2; final state after 4 steps, "
+          f"{n} tensors incl. the resumed steps' metrics, equals the reference "
+          f"backend's bitwise; save -> restore of the card's TrainState ({len(flat)} "
+          f"leaves, step {step}) is bitwise")
 
 
 def time_cuda(fn, iters: int, warmup: int) -> float:
@@ -853,18 +1065,43 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
               f"of bound | library none")
 
 
-def pending_bounds(shapes, card: str) -> None:
-    """The bounds of the two kernels still to port (#5, #10) over a step's
-    shapes, from the shapes alone: each moves δ, z* and W in and a
-    grad_x the shape of x out, which is grad_W's count."""
-    for kernel, kind in (("nitro_matmul_grad_x", "linear"), ("stream_conv_grad_x", "conv")):
-        work = [train_work(k, kernel, xs, ws) for k, xs, ws, _, _ in shapes if k == kind]
-        ops, nbytes = sum(o for o, _ in work), sum(b for _, b in work)
+def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
+    """Phase 6d: per-shape kernel / plain / bound times of the input-
+    gradient kernels at a VGG8B step's shapes (summed into the kernels
+    line), at mlp4's linear shapes, and of #6 at sf=1 (the grad_x route
+    without z*) beside #10."""
+    import torch
+
+    g = torch.Generator().manual_seed(8)
+    cases = [(f"train step {i}", kind, xs, ws, ai, True)
+             for i, (kind, xs, ws, _, ai) in enumerate(shapes, 1)]
+    cases += [("mlp4", kind, xs, ws, 10, False) for kind, xs, ws in MLP4_SHAPES]
+    for tag, kind, xs, ws, ai, in_step in cases:
+        _, w, delta, z = train_operands(xs, ws, g)
+        kernel = "stream_conv_grad_x" if kind == "conv" else "nitro_matmul_grad_x"
+        fn = grad_x_call(kind, w, delta, z, ai, "cuda")
+        ms = time_cuda(fn, iters=20, warmup=3)
+        plain_ms = time_cuda(grad_x_call(kind, w, delta, z, ai, "reference"),
+                             iters=3, warmup=1)
+        how = ""
+        if kind == "linear":  # short beside its wrapper's host path
+            events, ms = ms, device_ms(fn, "nitro_matmul_grad_x_kernel", 20)
+            how = f" (device, profiler; back to back through the wrapper {events:.4f} ms)"
+        ops, nbytes = train_work(kind, kernel, xs, ws)
         ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        by = "operations" if ops_ms >= bytes_ms else "bytes"
-        print(f"[bound] {card} | {kernel} (not ported) | {len(work)} launches per step on "
-              f"a path that returns grad_x | bound {max(ops_ms, bytes_ms):.5f} ms ({by}: "
-              f"{ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB)")
+        if in_step:
+            bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
+        else:
+            bound = max(ops_ms, bytes_ms)
+            by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"[time] {card} | {tag} {kernel} delta{(*xs[:-1], ws[-1])} w{ws} int32 | "
+              f"kernel {ms:.4f} ms{how} | plain {plain_ms:.4f} ms | bound {bound:.5f} ms "
+              f"({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | "
+              f"{100 * bound / ms:.2f}% of bound | library none")
+        if kind == "conv":
+            sf1 = time_cuda(grad_x_call(kind, w, delta, None, ai, "cuda"), iters=20, warmup=3)
+            print(f"[time] {card} | {tag} stream_conv sf=1 (grad_x without z*, δ "
+                  f"pre-masked) | kernel {sf1:.4f} ms")
 
 
 def train_end_to_end(res, ref, fuse, cfg, card: str) -> None:
@@ -922,6 +1159,41 @@ def train_end_to_end(res, ref, fuse, cfg, card: str) -> None:
           f"{fuse['train_s'] / fuse['steps'] * 1e3:.3f} ms/step")
 
 
+def mlp_end_to_end(res, ref, card: str) -> None:
+    """Host-to-host time of one full-width mlp4 step at batch 64, on the
+    kernels and on the plain versions, in turns."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import les, prng
+
+    cfg = get_paper_config("mlp4", scale=1.0)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(-127, 128, (TRAIN_BATCH, *cfg.input_shape))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, TRAIN_BATCH).astype(np.int32)).cuda()
+    key, state = prng.PRNGKey(TRAIN_STEPS), res["state"]
+    steps = {b: (lambda b=b: les.train_step(state, cfg, x, y, key, backend=b))
+             for b in ("cuda", "reference")}
+    ms = {}
+    for name in ("cuda", "reference", "reference", "cuda"):
+        t = time_cuda(steps[name], iters=10, warmup=1)
+        ms[name] = min(ms.get(name, t), t)
+    wall, kernels = device_profile(steps["cuda"], 3)
+    busy = sum(v for v, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values()) // 3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"[e2e-train-mlp4] {card} | mlp4 full width (3072-3000x3-10), batch "
+          f"{TRAIN_BATCH}, host to host: {ms['cuda']:.3f} ms per training step "
+          f"({TRAIN_BATCH / ms['cuda'] * 1e3:.1f} img/s) on the kernels, "
+          f"{ms['reference']:.3f} ms on the plain versions (best of two turns of 10); "
+          f"device busy {busy / 3:.3f} ms per step ({100 * busy / wall:.1f}%) over "
+          f"{launches} device launches per step | CLI step loop incl. first steps: "
+          f"cuda {res['train_s'] / res['steps'] * 1e3:.3f} ms/step, reference "
+          f"{ref['train_s'] / ref['steps'] * 1e3:.3f} ms/step | top: " + "; ".join(
+              f"{k[:48]} {v / 3:.3f} ms x{n // 3}" for k, (v, n) in top))
+
+
 def end_to_end(res, card: str) -> None:
     """Batch latency of the plan alone (host → logits on the host)."""
     import numpy as np
@@ -969,6 +1241,7 @@ def main() -> int:
     shapes = train_shapes(cfg, TRAIN_BATCH)
     train_parity(shapes, errs)
     opt_parity(shapes, cfg, params, errs)
+    grad_x_parity(shapes, errs)
     res, launches = main_path()
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
@@ -976,12 +1249,17 @@ def main() -> int:
     launches.update({k: fuse_launches[k] for k in
                      ("stream_conv_grad_w_opt", "nitro_matmul_grad_w_opt")})
     launches["integer_sgd_update"] = fused_apply_path(train_res)["integer_sgd_update"]
+    gx_launches = grad_x_path()
+    launches.update({k: gx_launches[k] for k in ("stream_conv_grad_x", "nitro_matmul_grad_x")})
+    mlp_res, mlp_ref = mlp_path()
+    resume_path()
     per_kernel = timing(steps, card)
     train_timing(shapes, card, per_kernel)
     opt_timing(shapes, cfg, params, card, per_kernel)
-    pending_bounds(shapes, card)
+    grad_x_timing(shapes, card, per_kernel)
     end_to_end(res, card)
     train_end_to_end(train_res, train_ref, fuse_res, cfg, card)
+    mlp_end_to_end(mlp_res, mlp_ref, card)
 
     print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
           f"{dict(PARITY_CASES)}")

@@ -152,6 +152,17 @@ def forward_layers(
     return a, cache
 
 
+def forward_layers_delta(cache: dict, delta_fw: torch.Tensor) -> torch.Tensor:
+    """δ_l^fw back through the dropout and pool backwards (tensor ops):
+    the gradient at the forward layer's pre-activation output."""
+    g = delta_fw
+    if "dropout" in cache:
+        g = layers.dropout_backward(cache["dropout"], g)
+    if "pool" in cache:
+        g = layers.maxpool_backward(cache["pool"], g)
+    return g
+
+
 def forward_layers_backward(
     params: dict,
     spec: BlockSpec,
@@ -165,23 +176,26 @@ def forward_layers_backward(
     """Backward through the forward layers from δ_l^fw; returns the weight
     gradients.  Dropout and pool backwards are tensor ops; the NITRO-ReLU
     derivative runs inside the grad_W kernel (``fuse_bwd=True``) or as a
-    materialised mask (``False``), bitwise the same."""
-    g = delta_fw
-    if "dropout" in cache:
-        g = layers.dropout_backward(cache["dropout"], g)
-    if "pool" in cache:
-        g = layers.maxpool_backward(cache["pool"], g)
+    materialised mask (``False``), bitwise the same.
+
+    The layer's input gradient is not computed (``need_grad_x=False``):
+    LES confines gradients to the block, so the JAX step discards it and
+    XLA removes its kernels from the compiled step; here no ``*_grad_x``
+    kernel is launched either.
+    """
+    g = forward_layers_delta(cache, delta_fw)
     if spec.kind == "conv":
         _, grads = layers.conv_backward(
             params["fw"], cache["conv"], g,
             z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
             fuse_bwd=fuse_bwd, conv_mode=conv_mode, backend=backend,
+            need_grad_x=False,
         )
     else:
         _, grads = layers.linear_backward(
             params["fw"], cache["linear"], g,
             z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
-            fuse_bwd=fuse_bwd, backend=backend,
+            fuse_bwd=fuse_bwd, backend=backend, need_grad_x=False,
         )
     return grads
 
@@ -201,23 +215,22 @@ def forward_layers_update(
     params.  The same dropout/pool backwards, then the weight gradient is
     consumed where it is produced: the IntegerSGD step runs in the grad_W
     kernel's flush (``layers.conv_update`` / ``linear_update``), so grad_W
-    is never written.  Bitwise backward then ``optimizer.apply_tree``."""
-    g = delta_fw
-    if "dropout" in cache:
-        g = layers.dropout_backward(cache["dropout"], g)
-    if "pool" in cache:
-        g = layers.maxpool_backward(cache["pool"], g)
+    is never written.  Bitwise backward then ``optimizer.apply_tree``.
+    The input gradient is not computed, as in ``forward_layers_backward``.
+    """
+    g = forward_layers_delta(cache, delta_fw)
     if spec.kind == "conv":
         _, new_fw = layers.conv_update(
             params["fw"], cache["conv"], g, opt_state,
             z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
             fuse_bwd=fuse_bwd, conv_mode=conv_mode, backend=backend,
+            need_grad_x=False,
         )
     else:
         _, new_fw = layers.linear_update(
             params["fw"], cache["linear"], g, opt_state,
             z_star=cache["z_star"], alpha_inv=spec.alpha_inv,
-            fuse_bwd=fuse_bwd, backend=backend,
+            fuse_bwd=fuse_bwd, backend=backend, need_grad_x=False,
         )
     return new_fw
 
@@ -272,8 +285,11 @@ def output_forward(params: dict, a: torch.Tensor) -> tuple[torch.Tensor, dict]:
 
 
 def output_backward(params: dict, cache: dict, grad_loss: torch.Tensor) -> dict:
+    """The output layer's weight gradient; its input gradient leaves the
+    model, so it is not computed (the JAX step discards it too)."""
     g = scaling.scale_backward(grad_loss)
-    _, grads = layers.linear_backward(params, cache["linear"], g)
+    _, grads = layers.linear_backward(params, cache["linear"], g,
+                                      need_grad_x=False)
     return grads
 
 

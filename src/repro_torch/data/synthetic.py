@@ -87,3 +87,18 @@ def batches(x: np.ndarray, y: np.ndarray, batch_size: int, seed: int = 0):
     for i in range(0, len(x) - batch_size + 1, batch_size):
         idx = order[i : i + batch_size]
         yield x[idx], y[idx]
+
+
+def flatten_for_mlp(ds: Dataset) -> Dataset:
+    """(N,H,W,C) → (N, H·W·C) for the MLP architectures."""
+    d = 1
+    for s in ds.input_shape:
+        d *= s
+    return Dataset(
+        ds.x_train.reshape(len(ds.x_train), d),
+        ds.y_train,
+        ds.x_test.reshape(len(ds.x_test), d),
+        ds.y_test,
+        ds.num_classes,
+        (d,),
+    )

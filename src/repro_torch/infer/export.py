@@ -111,7 +111,7 @@ def load_frozen(path: str, *, step: int | None = None) -> FrozenModel:
         )
     # save_frozen stores the list [{"w": ...}, ...] — JAX key paths "[i]/['w']"
     leaf_paths = [f"[{i}]/['w']" for i in range(len(meta["layers"]))]
-    arrays, _ = ckpt.restore(path, leaf_paths, step=step)
+    arrays, _ = ckpt.restore_leaves(path, leaf_paths, step=step)
     layers = []
     for lm, arr in zip(meta["layers"], arrays):
         if not np.issubdtype(arr.dtype, np.integer):

@@ -17,7 +17,12 @@
 //   * stream_conv_grad_w_opt / nitro_matmul_grad_w_opt: the same GEMM,
 //     whose flush applies IntegerSGD to the whole sum and writes W′
 //     (flush_sgd; with more than one split, through a workspace and a
-//     per-tile arrival counter — see grad_w_opt_kernel).
+//     per-tile arrival counter — see grad_w_opt_kernel);
+//   * stream_conv_grad_x: stream_conv_fwd's GEMM with A = δ masked by the
+//     NITRO-ReLU derivative as it is gathered, B = rot180_swap(w), and a
+//     flush that stores the int32 sum as it is;
+//   * nitro_matmul_grad_x: r = sample, k = fan-out, A = masked δ, B = wᵀ
+//     read from w's natural layout; split and flushed like grad_w.
 //
 // Design (simple and exact; wgmma/TMA are later work): 256 threads, each
 // a 4×4 micro-tile at stride 16 (shared-memory reads are broadcasts or
@@ -38,11 +43,20 @@ struct Tiles {
   int b[BK][BN];
 };
 
+// The same with B's rows padded too: for a B stager whose consecutive
+// threads walk the contraction (a transposed operand), so that their
+// stores spread over the banks (nitro_matmul_grad_x).
+struct PaddedTiles {
+  int a[BK][BM + 1];
+  int b[BK][BN + 1];
+};
+
 // acc += A[tile rows, k_begin..k_end) · B[k_begin..k_end, tile cols]; the
 // thread's micro-tile is rows ty + 16 i, cols tx + 16 j of the tile.
-template <class AStage, class BStage>
+// TileSet is Tiles or PaddedTiles, and the stagers take its arrays.
+template <class AStage, class BStage, class TileSet>
 __device__ __forceinline__ void mainloop(AStage& a, BStage& b, int k_begin,
-                                         int k_end, Tiles& t,
+                                         int k_end, TileSet& t,
                                          unsigned (&acc)[TM][TN]) {
   const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
 #pragma unroll

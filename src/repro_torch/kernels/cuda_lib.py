@@ -28,6 +28,7 @@ COMMON_HEADERS = (
     _HERE / "csrc_common" / "nitro_epilogue.cuh",
     _HERE / "csrc_common" / "int_gemm.cuh",
     _HERE / "csrc_common" / "grad_w_stage.cuh",
+    _HERE / "csrc_common" / "patch_rows.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,11 +44,13 @@ SOURCES = {
     "nitro_matmul_grad_w": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_w.cu",
     "nitro_matmul_grad_w_opt":
         _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_w_opt.cu",
+    "nitro_matmul_grad_x": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_x.cu",
     "stream_conv": _HERE / "nitro_conv" / "csrc" / "stream_conv.cu",
     "stream_conv_fwd": _HERE / "nitro_conv" / "csrc" / "stream_conv_fwd.cu",
     "stream_conv_grad_w": _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_w.cu",
     "stream_conv_grad_w_opt":
         _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_w_opt.cu",
+    "stream_conv_grad_x": _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_x.cu",
     "integer_sgd": _HERE / "integer_sgd" / "csrc" / "integer_sgd.cu",
 }
 

@@ -1,35 +1,37 @@
-"""Backward dispatcher for the integer weight gradients and updates (port
-of the part of ``repro.kernels.grad_ops`` that the LES training step
-runs).
+"""Backward dispatcher for the integer gradients and updates (port of
+``repro.kernels.grad_ops``).
 
 ``linear_grads`` / ``conv_grads`` take the raw block gradient δ (after
 the dropout/pool backwards) and, for a block's forward layers, the
-cached pre-ReLU ``z_star``:
+cached pre-ReLU ``z_star``, and return ``(grad_x, grad_w)``:
 
 ``fuse_bwd=True`` (default)
-    the NITRO-ReLU derivative + scaling STE runs inside the grad_W kernel
-    as δ is loaded (on the reference backend the plain version composes
-    the same ops), so the masked δ is never materialised;
+    the NITRO-ReLU derivative + scaling STE runs inside the gradient
+    kernels as δ is loaded (``*_grad_w`` and ``*_grad_x``; on the
+    reference backend the plain versions compose the same ops), so the
+    masked δ is never materialised;
 ``fuse_bwd=False``
     the escape hatch: ``masked_delta`` materialises the masked δ, then
-    plain integer matmuls run — bitwise the same.
+    plain integer matmuls run (the conv through its dispatchers without
+    ``z_star``) — bitwise the same.  The conv's ``conv_mode='materialise'``
+    pre-masks the same way: its im2col reads the whole δ anyway.
 
 ``z_star=None`` is the learning/output layers' backward (their scaling
-STE is the identity): two plain ``int_matmul``\\ s.
+STE is the identity): two plain ``int_matmul``\\ s for the linear layer.
 
 ``linear_weight_update`` / ``conv_weight_update`` are the ``fuse_opt``
-twins: they take the optimiser state and return the updated weight W′,
-the IntegerSGD step running in the grad_W kernel's flush
-(``grad_w_opt_matmul`` / ``conv_grad_w_opt``), so grad_W is never
-written.  Their escape hatches (``z_star=None``, ``fuse_bwd=False``, and
-for the conv ``conv_mode='materialise'``) compute the gradient as above
-and then run ``optimizer.apply_update`` — bitwise the same.
+twins: they return ``(grad_x, W′)``, the IntegerSGD step running in the
+grad_W kernel's flush (``grad_w_opt_matmul`` / ``conv_grad_w_opt``), so
+grad_W is never written.  Their escape hatches (``z_star=None``,
+``fuse_bwd=False``, and for the conv ``conv_mode='materialise'``)
+compute the gradients as above and then run ``optimizer.apply_update``
+— bitwise the same.
 
-With ``z_star`` only the weight is computed: LES confines gradients to
-the block, so ``blocks.forward_layers_backward`` and
-``forward_layers_update`` discard grad_x there (the JAX package computes
-and drops it).  Its kernels (``*_grad_x``) come with a later slice of the
-port; ``grad_x`` is returned as ``None``.
+``need_grad_x=False`` returns ``None`` for grad_x and computes nothing
+for it.  It is no feature of its own: it does eagerly what XLA's
+dead-code removal does to the jitted JAX step, which discards grad_x
+(LES confines gradients to the block), so the LES step here launches
+no ``*_grad_x`` kernel, as the compiled JAX step runs none.
 """
 
 from __future__ import annotations
@@ -52,18 +54,27 @@ def linear_grads(
     alpha_inv: int = 10,
     fuse_bwd: bool = True,
     backend: str = "auto",
+    need_grad_x: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """IntegerLinear backward: ``(grad_x, grad_w)``.
 
-    ``grad_w = xᵀ @ f(δ)``; ``grad_x = δ @ wᵀ`` only without ``z_star``
-    (``None`` otherwise, see the module docstring).
+    ``grad_w = xᵀ @ f(δ)`` and ``grad_x = f(δ) @ wᵀ``, with ``f`` the
+    NITRO-ReLU derivative + STE when ``z_star`` is given (inside the
+    kernels unless ``fuse_bwd=False``) and the identity otherwise.
     """
+    if z_star is not None and not fuse_bwd:
+        delta = masked_delta(delta, z_star, alpha_inv)
+        z_star = None
     if z_star is None:
-        return int_matmul(delta, w.T), int_matmul(x.T, delta)
-    if not fuse_bwd:
-        return None, int_matmul(x.T, masked_delta(delta, z_star, alpha_inv))
-    return None, mm_ops.grad_w_matmul(
-        x, delta, z_star, alpha_inv=alpha_inv, backend=backend)
+        grad_x = int_matmul(delta, w.T) if need_grad_x else None
+        return grad_x, int_matmul(x.T, delta)
+    grad_w = mm_ops.grad_w_matmul(x, delta, z_star, alpha_inv=alpha_inv,
+                                  backend=backend)
+    grad_x = None
+    if need_grad_x:
+        grad_x = mm_ops.grad_x_matmul(delta, z_star, w, alpha_inv=alpha_inv,
+                                      backend=backend)
+    return grad_x, grad_w
 
 
 def conv_grads(
@@ -76,16 +87,26 @@ def conv_grads(
     fuse_bwd: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
-) -> tuple[None, torch.Tensor]:
-    """IntegerConv2D backward: ``(None, grad_w)`` — the conv's grad_x is
-    not computed on this path (see the module docstring)."""
-    if z_star is not None and not fuse_bwd:
+    need_grad_x: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """IntegerConv2D backward: ``(grad_x, grad_w)``, both through the conv
+    dispatchers (streamed or materialised patches)."""
+    if z_star is not None and (
+        not fuse_bwd or conv_ops.resolve_conv_mode(conv_mode) == "materialise"
+    ):
         delta = masked_delta(delta, z_star, alpha_inv)
         z_star = None
-    return None, conv_ops.conv_grad_w(
+    grad_w = conv_ops.conv_grad_w(
         x, delta, kernel_size=w.shape[0], z_star=z_star, alpha_inv=alpha_inv,
         backend=backend, conv_mode=conv_mode,
     )
+    grad_x = None
+    if need_grad_x:
+        grad_x = conv_ops.conv_grad_x(
+            delta, w, z_star=z_star, alpha_inv=alpha_inv, backend=backend,
+            conv_mode=conv_mode,
+        )
+    return grad_x, grad_w
 
 
 def linear_weight_update(
@@ -98,23 +119,29 @@ def linear_weight_update(
     alpha_inv: int = 10,
     fuse_bwd: bool = True,
     backend: str = "auto",
+    need_grad_x: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """IntegerLinear backward + optimiser: ``(grad_x, w_new)``.
 
-    The fused path runs ``grad_w_opt_matmul`` and returns ``(None, W′)``;
+    The fused path runs ``grad_w_opt_matmul`` beside ``grad_x_matmul``;
     the escape hatches return ``linear_grads``' grad_x beside
     ``apply_update(w, grad_w)``.
     """
     if z_star is None or not fuse_bwd:
         grad_x, grad_w = linear_grads(
             x, w, delta, z_star=z_star, alpha_inv=alpha_inv,
-            fuse_bwd=fuse_bwd, backend=backend,
+            fuse_bwd=fuse_bwd, backend=backend, need_grad_x=need_grad_x,
         )
         return grad_x, opt.apply_update(w, grad_w, opt_state)
-    return None, mm_ops.grad_w_opt_matmul(
+    w_new = mm_ops.grad_w_opt_matmul(
         x, delta, z_star, w, opt_state.gamma_inv, opt_state.eta_inv,
         alpha_inv=alpha_inv, backend=backend,
     )
+    grad_x = None
+    if need_grad_x:
+        grad_x = mm_ops.grad_x_matmul(delta, z_star, w, alpha_inv=alpha_inv,
+                                      backend=backend)
+    return grad_x, w_new
 
 
 def conv_weight_update(
@@ -128,13 +155,14 @@ def conv_weight_update(
     fuse_bwd: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
-) -> tuple[None, torch.Tensor]:
-    """IntegerConv2D backward + optimiser: ``(None, w_new)``.
+    need_grad_x: bool = True,
+) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """IntegerConv2D backward + optimiser: ``(grad_x, w_new)``.
 
     Stream mode applies IntegerSGD in the grad_W kernel's flush
-    (``conv_grad_w_opt``); ``fuse_bwd=False``, ``z_star=None`` and
-    materialise mode (whose gradient has no flush) take the unfused
-    escape hatch.
+    (``conv_grad_w_opt``) beside ``conv_grad_x``; ``fuse_bwd=False``,
+    ``z_star=None`` and materialise mode (whose gradient has no flush)
+    take the unfused escape hatch.
     """
     if z_star is None or not fuse_bwd or (
         conv_ops.resolve_conv_mode(conv_mode) == "materialise"
@@ -142,10 +170,18 @@ def conv_weight_update(
         grad_x, grad_w = conv_grads(
             x, w, delta, z_star=z_star, alpha_inv=alpha_inv,
             fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
+            need_grad_x=need_grad_x,
         )
         return grad_x, opt.apply_update(w, grad_w, opt_state)
-    return None, conv_ops.conv_grad_w_opt(
+    w_new = conv_ops.conv_grad_w_opt(
         x, delta, w, opt_state.gamma_inv, opt_state.eta_inv,
         kernel_size=w.shape[0], z_star=z_star, alpha_inv=alpha_inv,
         backend=backend, conv_mode=conv_mode,
     )
+    grad_x = None
+    if need_grad_x:
+        grad_x = conv_ops.conv_grad_x(
+            delta, w, z_star=z_star, alpha_inv=alpha_inv, backend=backend,
+            conv_mode=conv_mode,
+        )
+    return grad_x, w_new

@@ -3,11 +3,13 @@ from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv_fwd,
     stream_conv_grad_w,
     stream_conv_grad_w_opt,
+    stream_conv_grad_x,
 )
 from repro_torch.kernels.nitro_conv.ops import (
     CONV_MODES,
     conv_grad_w,
     conv_grad_w_opt,
+    conv_grad_x,
     fused_conv,
     fused_conv_fwd,
     resolve_conv_mode,
@@ -15,9 +17,11 @@ from repro_torch.kernels.nitro_conv.ops import (
 from repro_torch.kernels.nitro_conv.ref import (
     DEFAULT_BH,
     conv_geometry,
+    rot180_swap,
     stream_conv_fwd_ref,
     stream_conv_grad_w_opt_ref,
     stream_conv_grad_w_ref,
+    stream_conv_grad_x_ref,
     stream_conv_ref,
 )
 
@@ -27,9 +31,11 @@ __all__ = [
     "conv_geometry",
     "conv_grad_w",
     "conv_grad_w_opt",
+    "conv_grad_x",
     "fused_conv",
     "fused_conv_fwd",
     "resolve_conv_mode",
+    "rot180_swap",
     "stream_conv",
     "stream_conv_fwd",
     "stream_conv_fwd_ref",
@@ -37,5 +43,7 @@ __all__ = [
     "stream_conv_grad_w_opt",
     "stream_conv_grad_w_opt_ref",
     "stream_conv_grad_w_ref",
+    "stream_conv_grad_x",
+    "stream_conv_grad_x_ref",
     "stream_conv_ref",
 ]

@@ -16,58 +16,16 @@
 // tiles), contraction = the patch columns m = (ki·K + kj)·C + c, the
 // repo's patch layout.  A is gathered straight from the NHWC input
 // (implicit im2col: each thread decomposes its four fixed pixels once
-// and its patch column once per step, the zero halo masked), so neither
-// the patch matrix nor a padded input is formed — the TPU kernel staged
-// row bands in VMEM instead.  B is the (K²C, F) weight.  The epilogue
-// applies the NITRO scale and ReLU to the accumulator registers.
-#include "int_gemm.cuh"
+// and its patch column once per step, the zero halo masked:
+// patch_rows.cuh), so neither the patch matrix nor a padded input is
+// formed — the TPU kernel staged row bands in VMEM instead.  B is the
+// (K²C, F) weight.  The epilogue applies the NITRO scale and ReLU to the
+// accumulator registers.
+#include "patch_rows.cuh"
 
 namespace {
 
 using namespace nitro::gemm;
-
-// A(p, m) for the tile's pixels: thread t stages patch column
-// m = k0 + t % BK of the pixels t / BK + 16 e (e = 0..3) of the tile, so
-// consecutive threads read consecutive channels of one pixel.
-struct PatchRowsA {
-  const int32_t* __restrict__ x;
-  int H, W, C, K;
-  int n[BM * BK / THREADS], h[BM * BK / THREADS], w[BM * BK / THREADS];
-  bool ok[BM * BK / THREADS];
-
-  __device__ PatchRowsA(const int32_t* x_, int H_, int W_, int C_, int K_,
-                        int P, int row0)
-      : x(x_), H(H_), W(W_), C(C_), K(K_) {
-#pragma unroll
-    for (int e = 0; e < BM * BK / THREADS; ++e) {
-      const int p = row0 + (int)threadIdx.x / BK + e * (THREADS / BK);
-      ok[e] = p < P;
-      const int q = ok[e] ? p : 0;
-      const int t = q / W;
-      w[e] = q - t * W;
-      n[e] = t / H;
-      h[e] = t - n[e] * H;
-    }
-  }
-
-  __device__ __forceinline__ void stage(int (&a)[BK][BM + 1], int k0,
-                                        int k_end) const {
-    const int kk = threadIdx.x % BK;
-    const int m = k0 + kk;
-    const bool m_ok = m < k_end;
-    const int seg = m_ok ? m / C : 0;
-    const int c = m - seg * C;
-    const int di = seg / K - K / 2, dj = seg % K - K / 2;
-#pragma unroll
-    for (int e = 0; e < BM * BK / THREADS; ++e) {
-      const int hh = h[e] + di, ww = w[e] + dj;
-      int v = 0;
-      if (m_ok && ok[e] && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v = x[(((size_t)n[e] * H + hh) * W + ww) * C + c];
-      a[kk][threadIdx.x / BK + e * (THREADS / BK)] = v;
-    }
-  }
-};
 
 __global__ void __launch_bounds__(THREADS)
 stream_conv_fwd_kernel(const int32_t* __restrict__ x,
@@ -77,7 +35,7 @@ stream_conv_fwd_kernel(const int32_t* __restrict__ x,
                        int F, int K, int P, nitro::Epilogue ep) {
   __shared__ Tiles t;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const PatchRowsA a(x, H, W, C, K, P, row0);
+  const PatchRowsA<false> a(x, nullptr, nitro::FastDiv(1), H, W, C, K, P, row0);
   const RowsB<false> b(w_flat, nullptr, F, nitro::FastDiv(1), col0);
   unsigned acc[TM][TN];
   mainloop(a, b, 0, K * K * C, t, acc);

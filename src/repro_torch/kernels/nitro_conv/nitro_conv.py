@@ -12,11 +12,16 @@
     weight gradient, δ masked by the NITRO-ReLU derivative when z* is given;
   * ``stream_conv_grad_w_opt`` replaces ``stream_conv_grad_w_opt``
     (``_stream_grad_w_opt_kernel``): that gradient with IntegerSGD in the
-    flush, returning W′ — the ``fuse_opt`` weight update.
+    flush, returning W′ — the ``fuse_opt`` weight update;
+  * ``stream_conv_grad_x`` replaces ``stream_conv_grad_x``
+    (``_stream_grad_x_kernel``): the input gradient, the 'full'
+    correlation of δ masked by the NITRO-ReLU derivative with
+    ``rot180_swap(w)``.
 
 Sources: ``csrc/stream_conv.cu``, ``csrc/stream_conv_fwd.cu``,
-``csrc/stream_conv_grad_w.cu`` and ``csrc/stream_conv_grad_w_opt.cu``,
-which note each kernel's bound and design.  The wrappers take CUDA tensors only; the dispatchers in
+``csrc/stream_conv_grad_w.cu``, ``csrc/stream_conv_grad_w_opt.cu`` and
+``csrc/stream_conv_grad_x.cu``, which note each kernel's bound and
+design.  The wrappers take CUDA tensors only; the dispatchers in
 ``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
@@ -29,7 +34,7 @@ import torch
 from repro_torch.core.activations import mu_int8
 from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH, conv_geometry
+from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH, conv_geometry, rot180_swap
 
 #: Shared-memory budget of the row ring (bytes).  Two blocks fit on an SM;
 #: channels are staged in chunks that fit it.
@@ -283,6 +288,51 @@ def stream_conv_grad_w_opt(
     return w_new
 
 
+def stream_conv_grad_x(
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Streaming conv input gradient on the card: the 'full' correlation
+    of ``relu_bwd(z_star, δ)`` with ``rot180_swap(w)``, unit scale, no
+    activation.
+
+    delta and z_star (N,H,W,F), w (K,K,C,F) → (N,H,W,C) int32.  δ is
+    masked as the kernel gathers it; the rotated weight is laid out on
+    the card beside the launch, (K·K·F, C).
+    """
+    if w.ndim != 4 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"stream_conv_grad_x: bad weight shape {tuple(w.shape)}")
+    k, c, f = w.shape[0], w.shape[2], w.shape[3]
+    _conv_shapes("stream_conv_grad_x", delta, k, f)
+    if z_star.shape != delta.shape:
+        raise ValueError("delta/z_star shape mismatch")
+    cuda_lib.require_cuda("stream_conv_grad_x", delta, z_star, w)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    delta, z_star, w = cuda_lib.as_int32("stream_conv_grad_x", delta, z_star, w)
+    n, h, w_sp, _ = delta.shape
+    out = torch.empty((n, h, w_sp, c), dtype=torch.int32, device=delta.device)
+    if out.numel() == 0:
+        return out
+    if out.numel() >= 2 ** 31 or c >= 65535 * cuda_lib.GEMM_TILE:
+        raise ValueError("stream_conv_grad_x: output exceeds the kernel's grid")
+    w_rot = rot180_swap(w).reshape(k * k * f, c).contiguous()
+    lib, launch = cuda_lib.entry("stream_conv_grad_x", "stream_conv_grad_x_launch", 4, 7)
+    with torch.cuda.device(delta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            delta.data_ptr(), z_star.data_ptr(), w_rot.data_ptr(), out.data_ptr(),
+            n, h, w_sp, f, c, k, int(alpha_inv), stream,
+        )
+    cuda_lib.check(lib, err, "stream_conv_grad_x")
+    stream_conv_grad_x.launches.add()
+    return out
+
+
 stream_conv_fwd.launches = cuda_lib.LaunchCounter()
 stream_conv_grad_w.launches = cuda_lib.LaunchCounter()
 stream_conv_grad_w_opt.launches = cuda_lib.LaunchCounter()
+stream_conv_grad_x.launches = cuda_lib.LaunchCounter()

@@ -1,8 +1,8 @@
 """Dispatch for the streaming conv kernels (port of
 ``repro.kernels.nitro_conv.ops``): ``fused_conv`` (inference),
 ``fused_conv_fwd`` (training forward), ``conv_grad_w`` (training
-weight gradient) and ``conv_grad_w_opt`` (the ``fuse_opt`` weight
-update).
+weight gradient), ``conv_grad_w_opt`` (the ``fuse_opt`` weight update)
+and ``conv_grad_x`` (training input gradient).
 
 ``conv_mode``
   * ``'stream'``      — implicit im2col: the CUDA kernel stages row bands
@@ -14,31 +14,36 @@ update).
 
 ``backend`` has ``nitro_matmul.ops``' vocabulary: ``auto | cuda |
 reference``.  Every (mode, backend) combination gives the same bits.
-The training entry points take ``conv_mode='stream'`` only; the
-materialised training route is not ported yet.  ``conv_grad_w_opt`` is
-stream-only by design, as in the JAX package: the materialised gradient
-has no kernel flush to fuse the optimiser into.
+The materialised training route is plain tensor code around the
+matmul dispatchers, as in the JAX package (its patches lie in device
+memory anyway, so there is no fusion site: it pre-masks δ).
+``conv_grad_w_opt`` is stream-only by design, as in the JAX package: the
+materialised gradient has no kernel flush to fuse the optimiser into.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.layers import conv_im2col_operands, window_view_2x2
+from repro_torch.core.layers import conv_im2col_operands, im2col, window_view_2x2
+from repro_torch.core.numerics import int_matmul
 from repro_torch.kernels.nitro_conv import ref as conv_ref
 from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
     stream_conv_fwd,
     stream_conv_grad_w,
     stream_conv_grad_w_opt,
+    stream_conv_grad_x,
 )
 from repro_torch.kernels.nitro_matmul.ops import (
     _guard_int8,
     check_alpha_inv,
     fused_matmul,
+    fused_matmul_fwd,
     resolve_backend,
     resolve_operand_dtype,
 )
+from repro_torch.kernels.nitro_matmul.ref import masked_delta
 
 CONV_MODES = ("stream", "materialise")
 
@@ -92,14 +97,6 @@ def fused_conv(
     )
 
 
-def _training_mode(conv_mode: str) -> None:
-    if resolve_conv_mode(conv_mode) != "stream":
-        raise NotImplementedError(
-            "conv_mode='materialise' for training is not ported yet (a later "
-            "slice of the port); use conv_mode='stream'"
-        )
-
-
 def fused_conv_fwd(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -109,10 +106,20 @@ def fused_conv_fwd(
     backend: str = "auto",
     conv_mode: str = "stream",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fused conv training forward: ``(a, z_star)``, both int32 (N,H,W,F)."""
+    """Fused conv training forward: ``(a, z_star)``, both int32 (N,H,W,F).
+
+    ``materialise`` runs the fused matmul forward on explicit im2col
+    patches (``nitro_matmul_fwd`` on CUDA tensors).
+    """
     alpha_inv = check_alpha_inv(alpha_inv, True)
     backend = resolve_backend(backend, x.device)
-    _training_mode(conv_mode)
+    if resolve_conv_mode(conv_mode) == "materialise":
+        n, h, w_sp, _ = x.shape
+        f = w.shape[-1]
+        patches, w_flat = conv_im2col_operands(w, x)
+        a2, z2 = fused_matmul_fwd(patches, w_flat, sf=sf, alpha_inv=alpha_inv,
+                                  backend=backend)
+        return a2.reshape(n, h, w_sp, f), z2.reshape(n, h, w_sp, f)
     fn = conv_ref.stream_conv_fwd_ref if backend == "reference" else stream_conv_fwd
     return fn(x, w, sf=sf, alpha_inv=alpha_inv)
 
@@ -129,13 +136,22 @@ def conv_grad_w(
 ) -> torch.Tensor:
     """Conv weight gradient: (N,H,W,C) × (N,H,W,F) → (K,K,C,F) int32.
 
-    ``z_star`` applies the NITRO-ReLU derivative to δ inside the kernel;
-    without it the caller has already applied the activation backward.
+    ``z_star`` applies the NITRO-ReLU derivative to δ inside the kernel
+    (``materialise``: as a pre-mask before ``im2colᵀ @ δ``); without it
+    the caller has already applied the activation backward.
     """
     backend = resolve_backend(backend, x.device)
     if z_star is not None:
         alpha_inv = check_alpha_inv(alpha_inv, True)
-    _training_mode(conv_mode)
+    if resolve_conv_mode(conv_mode) == "materialise":
+        if z_star is not None:
+            grad_out = masked_delta(grad_out, z_star, alpha_inv)
+        n, h, w_sp, c = x.shape
+        f = grad_out.shape[-1]
+        k = kernel_size
+        patches = im2col(x, k, k // 2).reshape(n * h * w_sp, k * k * c)
+        g_flat = grad_out.reshape(n * h * w_sp, f)
+        return int_matmul(patches.T, g_flat).reshape(k, k, c, f)
     fn = conv_ref.stream_conv_grad_w_ref if backend == "reference" else stream_conv_grad_w
     return fn(x, grad_out, kernel_size=kernel_size, z_star=z_star,
               alpha_inv=alpha_inv)
@@ -174,3 +190,40 @@ def conv_grad_w_opt(
           else stream_conv_grad_w_opt)
     return fn(x, grad_out, z_star, w, gamma_inv, eta_inv,
               kernel_size=kernel_size, alpha_inv=alpha_inv)
+
+
+def conv_grad_x(
+    grad_out: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+    conv_mode: str = "stream",
+) -> torch.Tensor:
+    """Conv input gradient: the 'full' correlation of ``grad_out`` with
+    ``rot180_swap(w)``, one more conv with unit scale and no activation.
+    (N,H,W,F) × (K,K,C,F) → (N,H,W,C) int32.
+
+    Stream mode with ``z_star`` runs ``stream_conv_grad_x``, which masks δ
+    by the NITRO-ReLU derivative as it gathers it; without ``z_star`` (δ
+    already masked) the inference kernel ``stream_conv`` at ``sf=1``
+    without ReLU.  ``reference`` is the band oracle; ``materialise``
+    pre-masks δ and multiplies explicit im2col patches.
+    """
+    backend = resolve_backend(backend, grad_out.device)
+    if z_star is not None:
+        alpha_inv = check_alpha_inv(alpha_inv, True)
+    if resolve_conv_mode(conv_mode) == "materialise":
+        if z_star is not None:
+            grad_out = masked_delta(grad_out, z_star, alpha_inv)
+        n, h, w_sp, _ = grad_out.shape
+        g_patches, w_rot_flat = conv_im2col_operands(conv_ref.rot180_swap(w), grad_out)
+        return int_matmul(g_patches, w_rot_flat).reshape(n, h, w_sp, w.shape[2])
+    if backend == "reference":
+        return conv_ref.stream_conv_grad_x_ref(grad_out, w, z_star=z_star,
+                                               alpha_inv=alpha_inv)
+    if z_star is not None:
+        return stream_conv_grad_x(grad_out, z_star, w, alpha_inv=alpha_inv)
+    return stream_conv(grad_out, conv_ref.rot180_swap(w), sf=1, apply_relu=False,
+                       pool=False)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the streaming implicit-im2col conv kernels
 (port of ``repro.kernels.nitro_conv.ref``): the inference step, the
-training forward ``(a, z*)``, the weight gradient and the weight update.
+training forward ``(a, z*)``, the weight gradient, the weight update and
+the input gradient.
 
 Each runs the algorithm in plain tensor ops: a loop over output-row
 bands, each forming a band-local patch block from K² overlapping row
@@ -56,6 +57,38 @@ def _band_patches(band: torch.Tensor, k: int, w_out: int) -> torch.Tensor:
     return torch.stack(shifts, dim=3).reshape(n * bh * w_out, k * k * c)
 
 
+def _stream_z_bands(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bh: int | None,
+    *,
+    pool: bool = False,
+    relu_bwd_z: torch.Tensor | None = None,
+    relu_bwd_alpha_inv: int = 10,
+):
+    """Yield the raw int32 pre-activation bands z, each (N, bh, W, F).
+
+    ``relu_bwd_z`` is the grad_x prologue: each row band of ``x`` (the
+    incoming δ) is masked by the NITRO-ReLU derivative against the same
+    band of ``z_star`` before its patches are formed, so the masked δ
+    exists one band at a time.  The zero halo stays zero:
+    relu_bwd(z*=0, δ=0) = 0.
+    """
+    n, h, w_sp, c = x.shape
+    k, f = w.shape[0], w.shape[-1]
+    bh, h_pad, p = conv_geometry(h, k, bh, pool=pool)
+    pad = (0, 0, p, p, p, p + h_pad - h)
+    xp = F.pad(x, pad)
+    zp = None if relu_bwd_z is None else F.pad(relu_bwd_z, pad)
+    w_flat = w.reshape(k * k * c, f)
+    for t in range(h_pad // bh):
+        band = xp[:, t * bh:t * bh + bh + 2 * p]
+        if zp is not None:
+            band = nitro_relu_backward(zp[:, t * bh:t * bh + bh + 2 * p], band,
+                                       relu_bwd_alpha_inv)
+        yield int_matmul(_band_patches(band, k, w_sp), w_flat).reshape(n, bh, w_sp, f)
+
+
 def stream_conv_ref(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -67,12 +100,16 @@ def stream_conv_ref(
     out_dtype: torch.dtype = torch.int32,
     bh: int | None = None,
     operand_dtype: str = "int32",
+    relu_bwd_z: torch.Tensor | None = None,
+    relu_bwd_alpha_inv: int = 10,
 ) -> torch.Tensor:
     """Streaming fused conv: scale(+relu)(+2×2 maxpool), activation only.
 
     (N,H,W,C) int × (K,K,C,F) int → (N,H,W,F), or (N,H//2,W//2,F) with
     ``pool=True``.  Products are lifted to int32 whatever
     ``operand_dtype`` says (``'int8'`` only checks the operand dtypes).
+    ``relu_bwd_z`` masks each streamed band of ``x`` by the NITRO-ReLU
+    derivative first (the grad_x prologue, see ``_stream_z_bands``).
     """
     if operand_dtype == "int8" and not (
         x.dtype == torch.int8 and w.dtype == torch.int8
@@ -81,16 +118,11 @@ def stream_conv_ref(
             f"operand_dtype='int8' requires int8 operands, got "
             f"{x.dtype}/{w.dtype}"
         )
-    n, h, w_sp, c = x.shape
-    k, f = w.shape[0], w.shape[-1]
-    bh, h_pad, p = conv_geometry(h, k, bh, pool=pool)
-    xp = F.pad(x, (0, 0, p, p, p, p + h_pad - h))
-    w_flat = w.reshape(k * k * c, f)
+    h = x.shape[1]
     outs = []
-    for t in range(h_pad // bh):
-        band = xp[:, t * bh:t * bh + bh + 2 * p]
-        z = int_matmul(_band_patches(band, k, w_sp), w_flat)
-        a = scale_forward(z.reshape(n, bh, w_sp, f), sf)
+    for z in _stream_z_bands(x, w, bh, pool=pool, relu_bwd_z=relu_bwd_z,
+                             relu_bwd_alpha_inv=relu_bwd_alpha_inv):
+        a = scale_forward(z, sf)
         if apply_relu:
             a = nitro_relu(a, alpha_inv)
         if pool:
@@ -98,18 +130,6 @@ def stream_conv_ref(
         outs.append(a.to(out_dtype))
     out = torch.cat(outs, dim=1)
     return out[:, : h // 2] if pool else out[:, :h]
-
-
-def _stream_z_bands(x: torch.Tensor, w: torch.Tensor, bh: int | None):
-    """Yield the raw int32 pre-activation bands z, each (N, bh, W, F)."""
-    n, h, w_sp, c = x.shape
-    k, f = w.shape[0], w.shape[-1]
-    bh, h_pad, p = conv_geometry(h, k, bh, pool=False)
-    xp = F.pad(x, (0, 0, p, p, p, p + h_pad - h))
-    w_flat = w.reshape(k * k * c, f)
-    for t in range(h_pad // bh):
-        band = xp[:, t * bh:t * bh + bh + 2 * p]
-        yield int_matmul(_band_patches(band, k, w_sp), w_flat).reshape(n, bh, w_sp, f)
 
 
 def stream_conv_fwd_ref(
@@ -178,3 +198,30 @@ def stream_conv_grad_w_opt_ref(
     grad_w = stream_conv_grad_w_ref(x, grad_out, kernel_size=kernel_size,
                                     z_star=z_star, alpha_inv=alpha_inv, bh=bh)
     return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)
+
+
+def rot180_swap(w: torch.Tensor) -> torch.Tensor:
+    """(K,K,C,F) → (K,K,F,C): the kernel rotated 180° with its channels
+    swapped — the weight of the 'full' correlation that computes grad_x."""
+    return torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2)
+
+
+def stream_conv_grad_x_ref(
+    grad_out: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+    bh: int | None = None,
+) -> torch.Tensor:
+    """Streaming input gradient: the 'full' correlation of δ with
+    ``rot180_swap(w)``, a unit-scale conv without activation.
+
+    (N,H,W,F) δ × (K,K,C,F) w → (N,H,W,C) int32.  With ``z_star`` each
+    streamed δ band is masked by the NITRO-ReLU derivative before its
+    patches are formed.
+    """
+    return stream_conv_ref(
+        grad_out, rot180_swap(w), sf=1, apply_relu=False, pool=False, bh=bh,
+        relu_bwd_z=z_star, relu_bwd_alpha_inv=alpha_inv,
+    )

@@ -11,11 +11,15 @@
     weight gradient;
   * ``nitro_matmul_grad_w_opt`` replaces ``nitro_matmul_grad_w_opt``
     (``_nitro_grad_w_opt_kernel``): that gradient with IntegerSGD in the
-    flush, returning W′ — the ``fuse_opt`` weight update.
+    flush, returning W′ — the ``fuse_opt`` weight update;
+  * ``nitro_matmul_grad_x`` replaces ``nitro_matmul_grad_x``
+    (``_nitro_grad_x_kernel``): ``relu_bwd(z*, δ) @ wᵀ`` with w read in
+    its natural layout — the training input gradient.
 
 Sources: ``csrc/nitro_matmul.cu`` (the first two),
-``csrc/nitro_matmul_grad_w.cu`` and ``csrc/nitro_matmul_grad_w_opt.cu``,
-which note each kernel's bound and design.  The wrappers take CUDA tensors only; the dispatchers in
+``csrc/nitro_matmul_grad_w.cu``, ``csrc/nitro_matmul_grad_w_opt.cu`` and
+``csrc/nitro_matmul_grad_x.cu``, which note each kernel's bound and
+design.  The wrappers take CUDA tensors only; the dispatchers in
 ``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
@@ -220,6 +224,48 @@ def nitro_matmul_grad_w_opt(
     return w_new
 
 
+def nitro_matmul_grad_x(
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Fused input gradient on the card: ``relu_bwd(z_star, δ) @ wᵀ``.
+
+    delta and z_star (B,N), w (M,N) as it lies (no transposed copy) →
+    (B,M) int32.  The contraction over the fan-out is split across blocks
+    whose partial sums are added with atomics (exact: int32 addition wraps
+    mod 2³² in any order).
+    """
+    _check_2d("nitro_matmul_grad_x", delta, w, 1, 1)
+    if z_star.shape != delta.shape:
+        raise ValueError(f"delta/z_star shape mismatch {tuple(delta.shape)} "
+                         f"vs {tuple(z_star.shape)}")
+    cuda_lib.require_cuda("nitro_matmul_grad_x", delta, z_star, w)
+    if alpha_inv < 1:
+        raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
+    delta, z_star, w = cuda_lib.as_int32("nitro_matmul_grad_x", delta, z_star, w)
+    b, n = delta.shape
+    m = w.shape[0]
+    if b >= 65535 * cuda_lib.GEMM_TILE:
+        raise ValueError("nitro_matmul_grad_x: batch exceeds the kernel's grid")
+    out = torch.zeros((b, m), dtype=torch.int32, device=delta.device)
+    if out.numel() == 0:
+        return out
+    lib, launch = cuda_lib.entry("nitro_matmul_grad_x", "nitro_matmul_grad_x_launch", 4, 5)
+    with torch.cuda.device(delta.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            delta.data_ptr(), z_star.data_ptr(), w.data_ptr(), out.data_ptr(),
+            b, m, n, alpha_inv, cuda_lib.sm_count(delta.device), stream,
+        )
+    cuda_lib.check(lib, err, "nitro_matmul_grad_x")
+    nitro_matmul_grad_x.launches.add()
+    return out
+
+
 nitro_matmul_fwd.launches = cuda_lib.LaunchCounter()
 nitro_matmul_grad_w.launches = cuda_lib.LaunchCounter()
 nitro_matmul_grad_w_opt.launches = cuda_lib.LaunchCounter()
+nitro_matmul_grad_x.launches = cuda_lib.LaunchCounter()

@@ -1,8 +1,8 @@
 """Dispatch for the NITRO matmul kernels (port of
 ``repro.kernels.nitro_matmul.ops``): ``fused_matmul`` (inference),
 ``fused_matmul_fwd`` (training forward), ``grad_w_matmul`` (training
-weight gradient) and ``grad_w_opt_matmul`` (the ``fuse_opt`` weight
-update).
+weight gradient), ``grad_w_opt_matmul`` (the ``fuse_opt`` weight
+update) and ``grad_x_matmul`` (training input gradient).
 
 Backends:
 
@@ -22,11 +22,13 @@ from repro_torch.kernels.nitro_matmul.nitro_matmul import (
     nitro_matmul_fwd,
     nitro_matmul_grad_w,
     nitro_matmul_grad_w_opt,
+    nitro_matmul_grad_x,
 )
 from repro_torch.kernels.nitro_matmul.ref import (
     nitro_matmul_fwd_ref,
     nitro_matmul_grad_w_opt_ref,
     nitro_matmul_grad_w_ref,
+    nitro_matmul_grad_x_ref,
     nitro_matmul_ref,
 )
 
@@ -181,3 +183,20 @@ def grad_w_opt_matmul(
     fn = (nitro_matmul_grad_w_opt_ref if backend == "reference"
           else nitro_matmul_grad_w_opt)
     return fn(x2, delta2, z_star2, w2, gamma_inv, eta_inv, alpha_inv=alpha_inv)
+
+
+def grad_x_matmul(
+    delta2: torch.Tensor,
+    z_star2: torch.Tensor,
+    w2: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """Fused input gradient ``relu_bwd(z*, δ) @ w2ᵀ`` on 2-D operands, the
+    NITRO-ReLU derivative applied to δ as the kernel loads it and w2 read
+    in its natural (fan_in, fan_out) layout."""
+    backend = resolve_backend(backend, delta2.device)
+    alpha_inv = check_alpha_inv(alpha_inv, True)
+    fn = nitro_matmul_grad_x_ref if backend == "reference" else nitro_matmul_grad_x
+    return fn(delta2, z_star2, w2, alpha_inv=alpha_inv)

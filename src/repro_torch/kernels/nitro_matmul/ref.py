@@ -2,9 +2,9 @@
 ``repro.kernels.nitro_matmul.ref``).
 
 Composes integer matmul → NITRO Scaling → NITRO-ReLU (forward),
-NITRO-ReLU derivative → integer matmul (weight gradient) and that
-gradient → IntegerSGD (weight update) exactly as ``repro_torch.core``
-defines them.  The CUDA kernels must match them bit
+NITRO-ReLU derivative → integer matmul (weight and input gradients) and
+the weight gradient → IntegerSGD (weight update) exactly as
+``repro_torch.core`` defines them.  The CUDA kernels must match them bit
 for bit; the CPU path of the dispatchers runs them.
 """
 
@@ -95,3 +95,16 @@ def nitro_matmul_grad_w_opt_ref(
     (M,N) int32."""
     grad_w = nitro_matmul_grad_w_ref(x, delta, z_star, alpha_inv=alpha_inv)
     return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)
+
+
+def nitro_matmul_grad_x_ref(
+    delta: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """Input gradient ``relu_bwd(z*, δ) @ wᵀ``: δ/z* (B,N), w (M,N) in its
+    natural layout → (B,M) int32."""
+    g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
+    return int_matmul(g, w.to(INT_DTYPE).T)

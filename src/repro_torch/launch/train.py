@@ -1,25 +1,34 @@
 """NITRO-D training launcher (port of ``repro.launch.train``, the paper
-CNNs): integer-only LES training of VGG8B / VGG11B.
+archs): integer-only LES training of the MLPs (mlp1–mlp4, on the
+flattened images) and the CNNs (VGG8B / VGG11B).
 
     # four steps of full-width VGG8B at batch 64 on the card, then evaluate:
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b --steps 4
 
-    # the plain PyTorch path on the CPU at a small width:
-    PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
-        --steps 20 --scale 0.0625 --device cpu
+    # full-width mlp4 (3072→3000×3→10) on the card:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mlp4 --steps 4
 
-The data, the init and the dropout key of step ``it`` (``PRNGKey(it)``)
-are those of the JAX launcher, so both give the same trajectory and the
-same test accuracy for the same arguments.  ``--fuse-opt`` takes the
-``fuse_opt`` step (IntegerSGD in the grad_W kernels' flush), bitwise the
-split step.  Not ported yet: the MLP archs, data parallelism, telemetry
-and health alerts, autotuning and checkpoints (so every run starts at
-step 0).
+    # the plain PyTorch path on the CPU at a small width, with checkpoints
+    # (a second run with the same --ckpt-dir resumes from LATEST):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
+        --steps 20 --scale 0.0625 --device cpu --ckpt-dir /tmp/ckpt
+
+The data, the init and the dropout key of step ``it`` are those of the
+JAX launcher, so both give the same trajectory and the same test accuracy
+for the same arguments.  ``--ckpt-dir`` saves every 200 steps and at the
+end in the JAX package's checkpoint format and resumes from its newest
+checkpoint, with the JAX launcher's semantics: after a resume from step
+S the keys are ``PRNGKey(S + it)`` while the batches are shuffled with
+``seed=it`` from ``it = 0``, and ``steps`` counts this call's steps.
+``--fuse-opt`` takes the ``fuse_opt`` step (IntegerSGD in the grad_W
+kernels' flush), bitwise the split step.  Not ported yet: data
+parallelism, telemetry and health alerts, autotuning, the LM trainer.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -28,27 +37,40 @@ from repro_torch.configs import get_paper_config
 from repro_torch.core import les, prng
 from repro_torch.data import synthetic
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.train import checkpoint as ckpt
 
-ARCHS = ("vgg8b", "vgg11b")
+ARCHS = ("mlp1", "mlp2", "mlp3", "mlp4", "vgg8b", "vgg11b")
+CKPT_EVERY = 200
 
 
 def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 dataset: str = "tiles32", scale: float = 1.0, seed: int = 0,
                 device=DEFAULT_DEVICE, backend: str = "auto",
-                fuse_opt: bool = False) -> dict:
+                fuse_opt: bool = False, ckpt_dir: str | None = None) -> dict:
     """Integer-only NITRO-D training, then test accuracy.
 
     Returns ``test_accuracy``, ``steps`` and ``scaled_loss`` (the keys of
     the JAX trainer's result) plus ``state`` (the final ``TrainState``),
-    ``step_metrics`` (one ``StepMetrics`` per step) and ``train_s`` (host
+    ``step_metrics`` (one ``StepMetrics`` per step), ``start_step`` (the
+    step resumed from, 0 without a checkpoint) and ``train_s`` (host
     seconds of the step loop, ending in a device synchronise).
     """
     if arch not in ARCHS:
         raise ValueError(f"arch {arch!r} is not ported; one of {ARCHS}")
     device = resolve_device(device)
     ds = synthetic.make_image_dataset(dataset, n_train=4096, n_test=512, seed=seed)
-    cfg = get_paper_config(arch, scale=scale, input_shape=ds.input_shape)
+    cfg = get_paper_config(arch, scale=scale,
+                           input_shape=ds.input_shape if arch.startswith("vgg") else None)
+    if arch.startswith("mlp"):
+        ds = synthetic.flatten_for_mlp(ds)
+        if cfg.input_shape != ds.input_shape:
+            cfg = dataclasses.replace(cfg, input_shape=ds.input_shape)
     state = les.create_train_state(prng.PRNGKey(seed), cfg, device=device)
+    start_step = 0
+    checkpointer = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        state, start_step = ckpt.restore(ckpt_dir, state)
+        print(f"[restore] resumed from step {start_step}")
 
     def sync():
         if device.type == "cuda":
@@ -65,7 +87,7 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 break
             state, metrics = les.train_step(
                 state, cfg, torch.from_numpy(x).to(device),
-                torch.from_numpy(y).to(device), prng.PRNGKey(it),
+                torch.from_numpy(y).to(device), prng.PRNGKey(start_step + it),
                 backend=backend, fuse_opt=fuse_opt,
             )
             step_metrics.append(metrics)
@@ -73,9 +95,14 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 print(f"step {it:5d}  loss={int(metrics.loss)}  "
                       f"scaled={metrics.scaled_loss(batch):.4f}  "
                       f"correct={int(metrics.correct)}/{batch}")
+            if checkpointer and it > 0 and it % CKPT_EVERY == 0:
+                checkpointer.save(start_step + it, state)
             it += 1
     sync()
     train_s = time.perf_counter() - t0
+    if checkpointer:
+        checkpointer.save(start_step + it, state)
+        checkpointer.wait()
 
     correct = 0
     for i in range(0, len(ds.x_test) - batch + 1, batch):
@@ -86,7 +113,8 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
     acc = correct / max(n_eval, 1)
     print(f"[done] test accuracy {acc:.4f} over {n_eval} samples")
     out = {"test_accuracy": acc, "steps": it, "state": state,
-           "step_metrics": step_metrics, "train_s": train_s}
+           "step_metrics": step_metrics, "start_step": start_step,
+           "train_s": train_s}
     if metrics is not None:
         out["scaled_loss"] = metrics.scaled_loss(batch)
     return out
@@ -107,6 +135,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--fuse-opt", action="store_true",
                     help="apply IntegerSGD in the grad_W kernels' flush "
                          "(bitwise the split step)")
+    ap.add_argument("--ckpt-dir",
+                    help="save checkpoints here (every 200 steps and at the "
+                         "end) and resume from its newest one")
     return ap
 
 
@@ -116,7 +147,7 @@ def main(argv=None) -> dict:
     return train_nitro(args.arch, steps=args.steps, batch=args.batch,
                        dataset=args.dataset, scale=args.scale, seed=args.seed,
                        device=args.device, backend=args.backend,
-                       fuse_opt=args.fuse_opt)
+                       fuse_opt=args.fuse_opt, ckpt_dir=args.ckpt_dir)
 
 
 if __name__ == "__main__":

@@ -1,1 +1,1 @@
-"""Training-side utilities (this slice: the checkpoint reader only)."""
+"""Training-side utilities: checkpoints in the JAX package's format."""

@@ -25,11 +25,14 @@ from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv_fwd,
     stream_conv_grad_w,
     stream_conv_grad_w_opt,
+    stream_conv_grad_x,
 )
+from repro_torch.kernels.nitro_conv.ops import conv_grad_x
 from repro_torch.kernels.nitro_conv.ref import (
     stream_conv_fwd_ref,
     stream_conv_grad_w_opt_ref,
     stream_conv_grad_w_ref,
+    stream_conv_grad_x_ref,
     stream_conv_ref,
 )
 from repro_torch.kernels.nitro_matmul.nitro_matmul import (
@@ -37,11 +40,13 @@ from repro_torch.kernels.nitro_matmul.nitro_matmul import (
     nitro_matmul_fwd,
     nitro_matmul_grad_w,
     nitro_matmul_grad_w_opt,
+    nitro_matmul_grad_x,
 )
 from repro_torch.kernels.nitro_matmul.ref import (
     nitro_matmul_fwd_ref,
     nitro_matmul_grad_w_opt_ref,
     nitro_matmul_grad_w_ref,
+    nitro_matmul_grad_x_ref,
     nitro_matmul_ref,
 )
 
@@ -290,3 +295,39 @@ def test_cuda_fuse_opt_steps_match_split_steps(cuda_device):
                 for part in ("fw", "lr"):
                     assert torch.equal(bs[part]["w"], bw[part]["w"])
             assert torch.equal(state.params["output"]["w"], split.params["output"]["w"])
+
+
+@pytest.mark.gpu
+def test_nitro_matmul_grad_x_matches_plain(cuda_device):
+    """Full-range int32 δ and w (the sum wraps), ragged shapes, VGG8B's
+    linear shape (a split fan-out) and α_inv 1, 2, 10."""
+    g = torch.Generator().manual_seed(12)
+    for b, m, n in ((5, 7, 3), (33, 300, 70), (64, 2048, 1024), (1000, 20, 10)):
+        delta = _wide(g, (b, n), 2 ** 31 - 1, cuda_device)
+        z = _wide(g, (b, n), 300, cuda_device)
+        w = _wide(g, (m, n), 2 ** 31 - 1, cuda_device)
+        for alpha_inv in (1, 2, 10):
+            got = nitro_matmul_grad_x(delta, z, w, alpha_inv=alpha_inv)
+            want = nitro_matmul_grad_x_ref(delta, z, w, alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_stream_conv_grad_x_matches_plain(cuda_device):
+    """The masked kernel (#10) and the unmasked route through stream_conv
+    at sf=1, on full-range int32 δ, C = 3 and K = 5 among the shapes."""
+    g = torch.Generator().manual_seed(13)
+    for n, h, w_sp, c, f, k, _ in _CONV_TRAIN:
+        delta = _wide(g, (n, h, w_sp, f), 2 ** 31 - 1, cuda_device)
+        z = _wide(g, (n, h, w_sp, f), 300, cuda_device)
+        w = _wide(g, (k, k, c, f), 2 ** 15, cuda_device)
+        for alpha_inv in (1, 10):
+            got = stream_conv_grad_x(delta, z, w, alpha_inv=alpha_inv)
+            want = stream_conv_grad_x_ref(delta, w, z_star=z, alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want)
+        got = conv_grad_x(delta, w, backend="cuda")
+        want = stream_conv_grad_x_ref(delta, w)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)

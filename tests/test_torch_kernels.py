@@ -353,7 +353,8 @@ def test_conv_grad_w_plain_matches_pallas(n, h, w_sp, c, f, k, bh, sf, alpha_inv
 
 @pytest.mark.parametrize("fuse_bwd", [True, False])
 def test_grad_ops_grad_w_matches_jax(fuse_bwd):
-    """The grad_W half of grad_ops (fused and the escape hatch) ≡ JAX's."""
+    """grad_ops' gradients (fused and the escape hatch) ≡ JAX's, grad_x
+    included."""
     rng = np.random.default_rng(5)
     x = rng.integers(-127, 128, (6, 20)).astype(np.int32)
     w = rng.integers(-50, 50, (20, 9)).astype(np.int32)
@@ -361,9 +362,9 @@ def test_grad_ops_grad_w_matches_jax(fuse_bwd):
     args = [torch.from_numpy(a) for a in (x, w, delta)]
     gx, gw = tgrad_ops.linear_grads(*args, z_star=torch.from_numpy(z), alpha_inv=3,
                                     fuse_bwd=fuse_bwd)
-    _, jgw = jgrad_ops.linear_grads(*[jnp.asarray(a) for a in (x, w, delta)],
-                                    z_star=jnp.asarray(z), alpha_inv=3, fuse_bwd=fuse_bwd)
-    assert gx is None
+    jgx, jgw = jgrad_ops.linear_grads(*[jnp.asarray(a) for a in (x, w, delta)],
+                                      z_star=jnp.asarray(z), alpha_inv=3, fuse_bwd=fuse_bwd)
+    _eq(gx, jgx)
     _eq(gw, jgw)
     # no z*: the learning/output layers' two plain matmuls
     gx, gw = tgrad_ops.linear_grads(*args)
@@ -375,15 +376,16 @@ def test_grad_ops_grad_w_matches_jax(fuse_bwd):
     dc, zc = _train_grad_operands(rng, (2, 6, 5, 7))
     gx, gw = tgrad_ops.conv_grads(*[torch.from_numpy(a) for a in (xc, wc, dc)],
                                   z_star=torch.from_numpy(zc), fuse_bwd=fuse_bwd)
-    _, jgw = jgrad_ops.conv_grads(*[jnp.asarray(a) for a in (xc, wc, dc)],
-                                  z_star=jnp.asarray(zc), fuse_bwd=fuse_bwd)
-    assert gx is None
+    jgx, jgw = jgrad_ops.conv_grads(*[jnp.asarray(a) for a in (xc, wc, dc)],
+                                    z_star=jnp.asarray(zc), fuse_bwd=fuse_bwd)
+    _eq(gx, jgx)
     _eq(gw, jgw)
 
 
 def test_training_kernels_no_cpu_fallback():
     """CPU tensors never reach a kernel: the wrappers and backend='cuda'
-    raise; materialise training is not ported and says so."""
+    raise; materialise training runs its plain tensor code on the CPU,
+    launching nothing."""
     x = torch.zeros((2, 4, 4, 3), dtype=torch.int32)
     w = torch.zeros((3, 3, 3, 5), dtype=torch.int32)
     g = torch.zeros((2, 4, 4, 5), dtype=torch.int32)
@@ -407,10 +409,10 @@ def test_training_kernels_no_cpu_fallback():
         tmm_ops.fused_matmul_fwd(x2, w2, sf=256, backend="cuda")
     with pytest.raises(ValueError, match=cuda_only):
         tmm_ops.grad_w_matmul(x2, g2, g2, backend="cuda")
-    with pytest.raises(NotImplementedError, match="materialise"):
-        tconv_ops.fused_conv_fwd(x, w, sf=256, conv_mode="materialise")
-    with pytest.raises(NotImplementedError, match="materialise"):
-        tconv_ops.conv_grad_w(x, g, kernel_size=3, conv_mode="materialise")
+    a, z = tconv_ops.fused_conv_fwd(x, w, sf=256, conv_mode="materialise")
+    assert a.shape == z.shape == (2, 4, 4, 5)
+    assert tconv_ops.conv_grad_w(x, g, kernel_size=3, conv_mode="materialise").shape \
+        == (3, 3, 3, 5)
     with pytest.raises(ValueError, match="alpha_inv"):
         tmm_ops.fused_matmul_fwd(x2, w2, sf=256, alpha_inv=0)
     assert t_stream_conv_fwd.launches.value == 0
