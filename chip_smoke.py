@@ -13,7 +13,12 @@ Phases, each fatal on failure:
      kernels at every VGG8B training shape at batch 64 (the update kernels
      at several optimiser states), the input-gradient kernels at every
      VGG8B training shape and mlp4's linear shapes (3d), and all at ragged
-     shapes;
+     shapes; the conv grad_W kernels (int8 tensor cores over exact digits)
+     also on every digit path at every VGG8B conv shape and the ragged
+     ones — δ needing one and two digits, full-range int32 x and δ with
+     INT32_MIN/MAX — with and without z*, the update twice per case with
+     its workspace and arrival counters left zero and
+     nitro_matmul_grad_w_opt, which shares them, bitwise after;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
      full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
      with the launch counts reset just before and read just after; every
@@ -160,6 +165,9 @@ MLP4_SHAPES = [("linear", (TRAIN_BATCH, 3072), (3072, 3000)),
                ("linear", (TRAIN_BATCH, 3000), (3000, 3000))]
 #: parity cases held bitwise, by kernel
 PARITY_CASES: Counter = Counter()
+#: dynamic shared memory of the conv digit GEMM (SMEM in digit_gemm.cuh)
+DIGIT_GEMM_SMEM = 184320
+I32 = (-(2 ** 31), 2 ** 31)
 
 
 
@@ -205,6 +213,14 @@ def build() -> None:
         if regs:
             print(f"[ptxas] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
                   f"registers, spill stores up to {max(spills, default=0)} B")
+        for entry in log.split("Compiling entry function")[1:]:  # the digit GEMM
+            if "digit_gemm_kernel" in entry:
+                r = re.search(r"Used (\d+) registers", entry)
+                sp = re.search(r"(\d+) bytes spill stores", entry)
+                sm = re.search(r"(\d+) bytes smem", entry)
+                print(f"[ptxas] {name}: digit_gemm_kernel {r and r.group(1)} registers, "
+                      f"{sm.group(1) if sm else 0} B static smem + "
+                      f"{DIGIT_GEMM_SMEM} B dynamic, spill stores {sp and sp.group(1)} B")
 
 
 def run_step(meta, a, w, backend: str):
@@ -431,6 +447,40 @@ def train_operands(xs, ws, g):
             ints(out_shape, -(2 ** 20), 2 ** 20), ints(out_shape, -300, 301))
 
 
+def digit_operands(xs, ws, g):
+    """(tag, x, δ, z*) sets that drive each digit path of the conv grad_W
+    kernels beside ``train_operands``' (int8-range x, δ of ±2²⁰: three
+    digits): δ needing one and two digits, and full-range int32 x and δ
+    with INT32_MIN/MAX planted (x wide: the ten products i + j ≤ 3)."""
+    import torch
+
+    out_shape = (*xs[:-1], ws[-1])
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int64).to(
+            torch.int32).to("cuda")
+
+    x8, z = ints(xs, -127, 128), ints(out_shape, -300, 301)
+    xw, dw = ints(xs, *I32), ints(out_shape, *I32)
+    xw.view(-1)[:2] = torch.tensor([I32[0], I32[1] - 1], dtype=torch.int32, device="cuda")
+    dw.view(-1)[:4] = torch.tensor([I32[0], I32[1] - 1] * 2, dtype=torch.int32, device="cuda")
+    return [("delta 1 digit", x8, ints(out_shape, -100, 101), z),
+            ("delta 2 digits", x8, ints(out_shape, -20000, 20001), z),
+            ("full-range x and delta", xw, dw, z)]
+
+
+def digits_run(x, delta, z, alpha_inv) -> str:
+    """The digit products the conv grad_W kernels run on these operands
+    (their pre-passes' rule, read here on the host for the report)."""
+    from repro_torch.core.activations import nitro_relu_backward
+    from repro_torch.kernels.nitro_conv.ref import digits_needed, x_fits_s8
+
+    d = delta if z is None else nitro_relu_backward(z, delta, alpha_inv)
+    nd, wide = digits_needed(d), not x_fits_s8(x)
+    pairs = sum(1 for i in range(4 if wide else 1) for j in range(nd) if i + j < 4)
+    return f"x {'4 digits' if wide else '1 digit'}, delta {nd} digits: {pairs} products"
+
+
 def train_calls(kind, x, w, delta, z, sf, alpha_inv, backend):
     """(fwd, grad_w, grad_w without z*) of one training shape through the
     dispatchers with an explicit backend; no z*-free call for linear."""
@@ -468,6 +518,7 @@ def train_parity(shapes, errs: dict) -> None:
     every VGG8B training shape (α_inv 10 and 1; conv grad_W with and
     without z*) and at ragged shapes."""
     import torch
+    from repro_torch.kernels.nitro_conv.ops import conv_grad_w
 
     names = {"conv": ("stream_conv_fwd", "stream_conv_grad_w"),
              "linear": ("nitro_matmul_fwd", "nitro_matmul_grad_w")}
@@ -486,6 +537,16 @@ def train_parity(shapes, errs: dict) -> None:
         _pair(f"{gw} {what} z*", cuda[1], plain[1], errs)
         if cuda[2] is not None:
             _pair(f"{gw} {what} no z*", cuda[2], plain[2], errs)
+    for tag, kind, xs, ws, _, ai in cases:  # every digit path of #8
+        if kind != "conv" or ai == 1:
+            continue
+        for what, x, delta, z in digit_operands(xs, ws, g):
+            for zz, zt in ((z, "z*"), (None, "no z*")):
+                call = [lambda b=b, x=x, d=delta, zz=zz: conv_grad_w(
+                    x, d, kernel_size=ws[0], z_star=zz, alpha_inv=ai, backend=b)
+                    for b in ("cuda", "reference")]
+                _pair(f"stream_conv_grad_w {tag} x{xs} w{ws} {what} {zt} "
+                      f"({digits_run(x, delta, zz, ai)})", *call, errs)
     wide = (-(2 ** 31), 2 ** 31)  # int32 wrap in the grad_W accumulators
     x = torch.randint(*wide, (300, 40), generator=g).to(torch.int32).cuda()
     d = torch.randint(*wide, (300, 30), generator=g).to(torch.int32).cuda()
@@ -542,6 +603,35 @@ def opt_parity(shapes, cfg, params, errs: dict) -> None:
                     f"eta_inv={int(state.eta_inv)} alpha_inv={ai}")
             _pair(what, opt_call(kind, x, w, delta, z, state, ai, "cuda"),
                   opt_call(kind, x, w, delta, z, state, ai, "reference"), errs)
+    # #9 on every digit path, each call twice: the workspace and the
+    # arrival counters (shared with #4) must come back zero, and #4 must
+    # stay bitwise after #9's calls
+    from repro_torch.kernels import cuda_lib
+    for tag, kind, xs, ws in cases:
+        if kind != "conv":
+            continue
+        _, w, _, _ = train_operands(xs, ws, g)
+        for what, x, delta, z in digit_operands(xs, ws, g):
+            for state, ai in (states[0], states[2]):
+                for rep in (1, 2):
+                    _pair(f"stream_conv_grad_w_opt {tag} x{xs} w{ws} {what} "
+                          f"gamma_inv={int(state.gamma_inv)} alpha_inv={ai} call {rep} "
+                          f"({digits_run(x, delta, z, ai)})",
+                          opt_call(kind, x, w, delta, z, state, ai, "cuda"),
+                          opt_call(kind, x, w, delta, z, state, ai, "reference"), errs)
+        ws_sum, arrivals = cuda_lib.split_workspace(
+            w.device, ws[0] * ws[1] * ws[2], ws[3], cuda_lib.DIGIT_TILE)
+        if bool(ws_sum.any()) or bool(arrivals.any()):
+            die(f"stream_conv_grad_w_opt {tag}: workspace or arrival counters "
+                f"not left zero")
+    x, w, delta, z = train_operands((4096, 300), (300, 70), g)
+    for state, ai in states:
+        _pair(f"nitro_matmul_grad_w_opt deep x(4096, 300) after stream_conv_grad_w_opt "
+              f"calls gamma_inv={int(state.gamma_inv)} alpha_inv={ai}",
+              opt_call("linear", x, w, delta, z, state, ai, "cuda"),
+              opt_call("linear", x, w, delta, z, state, ai, "reference"), errs)
+    print("[parity] stream_conv_grad_w_opt left its workspace and arrival counters "
+          "zero after every digit path, twice each")
     wide = (-(2 ** 31), 2 ** 31)  # int32 wrap in the accumulator and the update
     for kind, xs, ws in (("linear", (300, 40), (40, 30)), ("linear", (2000, 40), (40, 30)),
                          ("conv", (2, 9, 7, 6), (3, 3, 6, 33))):
@@ -1006,6 +1096,8 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
             bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
             dev = (f" (device, profiler: {device_ms(fn, 'grad_w_kernel', 20):.4f} ms)"
                    if kernel == "nitro_matmul_grad_w" else "")
+            if kernel == "stream_conv_grad_w":
+                dev = f" ({digits_run(x, delta, z, ai)}; delta +-2^20)"
             print(f"[time] {card} | train step {i} {kernel} x{xs} w{ws} int32 | "
                   f"kernel {ms:.4f} ms{dev} | plain {plain_ms:.4f} ms | bound "
                   f"{bound:.5f} ms ({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) "
@@ -1014,6 +1106,25 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
             ms = time_cuda(cuda[2], iters=20, warmup=3)
             print(f"[time] {card} | train step {i} stream_conv_grad_w without z* "
                   f"(no mask on load) | kernel {ms:.4f} ms")
+            int_mm_yardstick(xs, ws, card, i)
+
+
+def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
+    """A yardstick the port never calls: ``torch._int_mm`` at the int8
+    GEMM shape of one digit product of conv grad_W, (K²C × N·H·W) ·
+    (N·H·W × F)."""
+    import torch
+
+    n, h, w, c = xs
+    m, p, f = ws[0] * ws[1] * c, n * h * w, ws[-1]
+    try:
+        a = torch.randint(-128, 128, (m, p), dtype=torch.int8, device="cuda")
+        b = torch.randint(-128, 128, (f, p), dtype=torch.int8, device="cuda").t()
+        ms = time_cuda(lambda: torch._int_mm(a, b), iters=20, warmup=3)
+        print(f"[yardstick] {card} | train step {i} torch._int_mm ({m}x{p}) . ({p}x{f}) "
+              f"int8 -> int32, one digit product: {ms:.4f} ms")
+    except RuntimeError as e:  # a yardstick only: report, not fatal
+        print(f"[yardstick] {card} | train step {i} torch._int_mm: not measured ({e})")
 
 
 def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
@@ -1034,7 +1145,7 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
         ms = time_cuda(opt_call(kind, x, w, delta, z, state, ai, "cuda"), iters=20, warmup=3)
         plain_ms = time_cuda(opt_call(kind, x, w, delta, z, state, ai, "reference"),
                              iters=3, warmup=1)
-        how = ""
+        how = f" ({digits_run(x, delta, z, ai)}; delta +-2^20)" if kind == "conv" else ""
         if kind == "linear":  # shorter than its wrapper's host path
             events, ms = ms, device_ms(opt_call(kind, x, w, delta, z, state, ai, "cuda"),
                                        "grad_w_opt_kernel", 20)

@@ -8,13 +8,12 @@
 //   * stream_conv_fwd: r = output pixel (n, h, w), k = patch column
 //     (ki, kj, c), A gathered from the NHWC input (implicit im2col), B the
 //     (K²C, F) weight; flush = NITRO scale + ReLU, writing a and z*;
-//   * stream_conv_grad_w / nitro_matmul_grad_w: r = patch column (or
-//     input feature), k = the batch (every pixel, or every sample),
-//     B = δ masked by the NITRO-ReLU derivative as it is loaded; the
-//     contraction is split across blocks and each split's tile is added
-//     into the zeroed output with atomicAdd on unsigned (exact: addition
-//     mod 2^32 gives the same bits in any order);
-//   * stream_conv_grad_w_opt / nitro_matmul_grad_w_opt: the same GEMM,
+//   * nitro_matmul_grad_w: r = input feature, k = the batch (every
+//     sample), B = δ masked by the NITRO-ReLU derivative as it is loaded;
+//     the contraction is split across blocks and each split's tile is
+//     added into the zeroed output with atomicAdd on unsigned (exact:
+//     addition mod 2^32 gives the same bits in any order);
+//   * nitro_matmul_grad_w_opt: the same GEMM,
 //     whose flush applies IntegerSGD to the whole sum and writes W′
 //     (flush_sgd; with more than one split, through a workspace and a
 //     per-tile arrival counter — see grad_w_opt_kernel);
@@ -23,6 +22,9 @@
 //     flush that stores the int32 sum as it is;
 //   * nitro_matmul_grad_x: r = sample, k = fan-out, A = masked δ, B = wᵀ
 //     read from w's natural layout; split and flushed like grad_w.
+//
+// (The conv grad_W kernels, stream_conv_grad_w and stream_conv_grad_w_opt,
+// run the int8 tensor-core digit GEMM of digit_gemm.cuh instead.)
 //
 // Design (simple and exact; wgmma/TMA are later work): 256 threads, each
 // a 4×4 micro-tile at stride 16 (shared-memory reads are broadcasts or

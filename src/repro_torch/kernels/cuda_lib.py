@@ -29,6 +29,7 @@ COMMON_HEADERS = (
     _HERE / "csrc_common" / "int_gemm.cuh",
     _HERE / "csrc_common" / "grad_w_stage.cuh",
     _HERE / "csrc_common" / "patch_rows.cuh",
+    _HERE / "csrc_common" / "digit_gemm.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,8 +56,11 @@ SOURCES = {
 }
 
 #: Output tile of the grad_W GEMM core (``BM``/``BN`` in int_gemm.cuh):
-#: the ``*_grad_w_opt`` kernels keep one arrival counter per tile.
+#: ``nitro_matmul_grad_w_opt`` keeps one arrival counter per tile.
 GEMM_TILE = 64
+#: Output tile (rows, cols) of the conv digit GEMM (``BM``/``BN`` in
+#: digit_gemm.cuh): ``stream_conv_grad_w_opt`` keeps one counter per tile.
+DIGIT_TILE = (128, 64)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -191,17 +195,20 @@ def sm_count(device: torch.device) -> int:
     return _sm_count(index)
 
 
-def split_workspace(device: torch.device, m: int, n: int
+def split_workspace(device: torch.device, m: int, n: int,
+                    tile: tuple[int, int] = (GEMM_TILE, GEMM_TILE),
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(ws, arrivals)`` for a ``*_grad_w_opt`` launch with an M×N output
     on ``device``'s current stream: int32 split sums (≥ M·N) and one
-    arrival counter per 64×64 output tile, both zero.
+    arrival counter per ``tile`` of the output (the launching kernel's
+    own tile), both zero.
 
     Each launch leaves them zero again, so one pair per (device, stream)
-    serves every call in stream order; it grows to the largest output
-    seen (9.4 MB at VGG8B's conv 6) and is zeroed once, when allocated.
+    serves every call in stream order, whichever kernel makes it; it
+    grows to the largest output and tile count seen (9.4 MB at VGG8B's
+    conv 6) and is zeroed once, when allocated.
     """
-    tiles = -(-m // GEMM_TILE) * -(-n // GEMM_TILE)
+    tiles = -(-m // tile[0]) * -(-n // tile[1])
     stream = torch.cuda.current_stream(device)
     key = (device, stream.cuda_stream)
     with _lock:

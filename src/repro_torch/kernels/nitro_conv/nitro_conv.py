@@ -9,7 +9,8 @@
     training forward, an implicit-im2col GEMM over all N·H·W pixels;
   * ``stream_conv_grad_w`` replaces ``stream_conv_grad_w``
     (``_stream_grad_w_fused_kernel`` / ``_stream_grad_w_kernel``): the
-    weight gradient, δ masked by the NITRO-ReLU derivative when z* is given;
+    weight gradient, δ masked by the NITRO-ReLU derivative when z* is
+    given, on the int8 tensor cores over exact signed base-256 digits;
   * ``stream_conv_grad_w_opt`` replaces ``stream_conv_grad_w_opt``
     (``_stream_grad_w_opt_kernel``): that gradient with IntegerSGD in the
     flush, returning W′ — the ``fuse_opt`` weight update;
@@ -177,6 +178,27 @@ def stream_conv_fwd(
     return a, z_star
 
 
+def _digit_limits(name: str, h: int, w_sp: int, m: int, f: int) -> None:
+    """Raise on shapes the conv digit GEMM cannot take: its grid (one
+    block row per 128 patch columns, one column per 64 filters) and the
+    16-bit (h, w) it keeps per pixel."""
+    bm, bn = cuda_lib.DIGIT_TILE
+    if -(-m // bm) > 65535 or -(-f // bn) > 65535 or max(h, w_sp) >= 2 ** 15:
+        raise ValueError(f"{name}: shape exceeds the kernel's grid")
+
+
+def _digit_scratch(lib: ctypes.CDLL, name: str, device: torch.device,
+                   *shape: int) -> torch.Tensor:
+    """The call's scratch for the conv digit GEMM (flags, x's patch digit
+    planes, δ's digit planes), sized by the library; its contents need no
+    zeroing (the pre-passes write every byte the GEMM reads)."""
+    fn = getattr(lib, f"{name}_scratch_bytes")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 6
+        fn.restype = ctypes.c_longlong
+    return torch.empty(fn(*shape), dtype=torch.uint8, device=device)
+
+
 def stream_conv_grad_w(
     x: torch.Tensor,
     grad_out: torch.Tensor,
@@ -189,10 +211,14 @@ def stream_conv_grad_w(
     (N,H,W,F) grad → (K,K,C,F) int32.
 
     With ``z_star`` (the shape of ``grad_out``) each δ is masked by the
-    NITRO-ReLU derivative as the kernel loads it; without it δ is taken
-    as it is.  The contraction over N·H·W is split across blocks whose
-    partial sums are added with atomics (exact: int32 addition wraps mod
-    2³² in any order).
+    NITRO-ReLU derivative as the kernel's pre-pass reads it; without it δ
+    is taken as it is.  The products run on the int8 tensor cores over
+    exact signed base-256 digits of x and δ (``digit_gemm.cuh``; the
+    plain model is ``ref.stream_conv_grad_w_digits``), only as many as the
+    data needs, decided on the card.  The contraction over N·H·W is split
+    across blocks whose partial sums are added with atomics (exact: int32
+    addition wraps mod 2³² in any order).  Four device launches per call
+    (x's range, δ's digits, x's patch digits, the GEMM) after a memset.
     """
     k = int(kernel_size)
     _conv_shapes("stream_conv_grad_w", x, k, x.shape[-1] if x.ndim == 4 else -1)
@@ -210,17 +236,17 @@ def stream_conv_grad_w(
     z_ptr = operands[2].data_ptr() if z_star is not None else None
     n, h, w_sp, c = x.shape
     f = grad_out.shape[-1]
-    if max(k * k * c, f) >= 65535 * 64:
-        raise ValueError("stream_conv_grad_w: output exceeds the kernel's grid")
+    _digit_limits("stream_conv_grad_w", h, w_sp, k * k * c, f)
     out = torch.zeros((k * k * c, f), dtype=torch.int32, device=x.device)
     if out.numel() == 0 or n * h * w_sp == 0:
         return out.reshape(k, k, c, f)
-    lib, launch = cuda_lib.entry("stream_conv_grad_w", "stream_conv_grad_w_launch", 4, 8)
+    lib, launch = cuda_lib.entry("stream_conv_grad_w", "stream_conv_grad_w_launch", 5, 8)
+    scratch = _digit_scratch(lib, "stream_conv_grad_w", x.device, n, h, w_sp, c, f, k)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             x.data_ptr(), grad_out.data_ptr(), z_ptr, out.data_ptr(),
-            n, h, w_sp, c, f, k, max(int(alpha_inv), 1),
+            scratch.data_ptr(), n, h, w_sp, c, f, k, max(int(alpha_inv), 1),
             cuda_lib.sm_count(x.device), stream,
         )
     cuda_lib.check(lib, err, "stream_conv_grad_w")
@@ -245,7 +271,10 @@ def stream_conv_grad_w_opt(
 
     x (N,H,W,C), grad_out and z_star (N,H,W,F), w (K,K,C,F) → W′ (K,K,C,F)
     int32.  ``gamma_inv``/``eta_inv`` are the optimiser state's 0-d int32
-    tensors on the card (read there: no host sync) or ints.
+    tensors on the card (read there: no host sync) or ints.  The gradient
+    runs as in ``stream_conv_grad_w`` (int8 digit products on the tensor
+    cores; four device launches after a memset), its split sums meeting
+    in the workspace shared with ``nitro_matmul_grad_w_opt``.
     """
     k = int(kernel_size)
     _conv_shapes("stream_conv_grad_w_opt", x, k, x.shape[-1] if x.ndim == 4 else -1)
@@ -267,21 +296,21 @@ def stream_conv_grad_w_opt(
     gamma = cuda_lib.sgd_scalar("gamma_inv", gamma_inv, x.device)
     eta = cuda_lib.sgd_scalar("eta_inv", eta_inv, x.device)
     m = k * k * c
-    if max(m, f) >= 65535 * cuda_lib.GEMM_TILE:
-        raise ValueError("stream_conv_grad_w_opt: output exceeds the kernel's grid")
+    _digit_limits("stream_conv_grad_w_opt", h, w_sp, m, f)
     w_new = torch.empty_like(w)
     if w.numel() == 0:
         return w_new
     lib, launch = cuda_lib.entry(
-        "stream_conv_grad_w_opt", "stream_conv_grad_w_opt_launch", 9, 8)
-    ws, arrivals = cuda_lib.split_workspace(x.device, m, f)
+        "stream_conv_grad_w_opt", "stream_conv_grad_w_opt_launch", 10, 8)
+    ws, arrivals = cuda_lib.split_workspace(x.device, m, f, cuda_lib.DIGIT_TILE)
+    scratch = _digit_scratch(lib, "stream_conv_grad_w_opt", x.device, n, h, w_sp, c, f, k)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             x.data_ptr(), grad_out.data_ptr(), z_star.data_ptr(), w.data_ptr(),
             w_new.data_ptr(), gamma.data_ptr(), eta.data_ptr(), ws.data_ptr(),
-            arrivals.data_ptr(), n, h, w_sp, c, f, k, int(alpha_inv),
-            cuda_lib.sm_count(x.device), stream,
+            arrivals.data_ptr(), scratch.data_ptr(), n, h, w_sp, c, f, k,
+            int(alpha_inv), cuda_lib.sm_count(x.device), stream,
         )
     cuda_lib.check(lib, err, "stream_conv_grad_w_opt")
     stream_conv_grad_w_opt.launches.add()

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the streaming implicit-im2col conv kernels
 (port of ``repro.kernels.nitro_conv.ref``): the inference step, the
 training forward ``(a, z*)``, the weight gradient, the weight update and
-the input gradient.
+the input gradient; and a plain model of the conv grad_W kernels'
+arithmetic on the card, exact int8 digit products (``s8_digits`` to
+``stream_conv_grad_w_opt_digits``).
 
 Each runs the algorithm in plain tensor ops: a loop over output-row
 bands, each forming a band-local patch block from K² overlapping row
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.activations import nitro_relu, nitro_relu_backward
-from repro_torch.core.layers import window_view_2x2
+from repro_torch.core.layers import im2col, window_view_2x2
 from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_forward
 from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
@@ -225,3 +227,128 @@ def stream_conv_grad_x_ref(
         grad_out, rot180_swap(w), sf=1, apply_relu=False, pool=False, bh=bh,
         relu_bwd_z=z_star, relu_bwd_alpha_inv=alpha_inv,
     )
+
+
+# ---------------------------------------------------------------------------
+# The conv grad_W kernels' arithmetic (csrc_common/digit_gemm.cuh), in
+# plain tensor ops: int32 operands as signed base-256 digits, int8 digit
+# planes laid out pixel-contiguous, and only the digit products the data
+# needs.  Bitwise the same function as stream_conv_grad_w_ref.
+# ---------------------------------------------------------------------------
+
+#: Digits of an int32 and the pixel tile the planes are padded to.
+N_DIGITS = 4
+PIXEL_TILE = 64
+
+
+def s8_digits(v: torch.Tensor) -> torch.Tensor:
+    """(4, *v.shape) int8: the balanced base-256 digits d0..d3 of int32 v,
+    each in [−128, 127], with v ≡ Σ_i 2^(8i)·d_i (mod 2^32).
+
+    d0 = ((v + 128) mod 256) − 128, then v ← (v − d0) / 256, and so on,
+    worked mod 2^32; the top digit keeps what is left and wraps mod 256.
+    """
+    u = v.to(torch.int64) & 0xFFFFFFFF
+    out = []
+    for _ in range(N_DIGITS - 1):
+        d = ((u + 128) & 255) - 128
+        out.append(d)
+        u = ((u - d) & 0xFFFFFFFF) >> 8
+    out.append(((u + 128) & 255) - 128)
+    return torch.stack(out).to(torch.int8)
+
+
+def digits_needed(v: torch.Tensor) -> int:
+    """What the kernel's δ pre-pass records: 1 + the index of the highest
+    nonzero digit of any element (1 when every element is 0)."""
+    nonzero = s8_digits(v).reshape(N_DIGITS, -1).ne(0).any(dim=1)
+    return 1 + max((i for i in range(N_DIGITS) if bool(nonzero[i])), default=0)
+
+
+def x_fits_s8(x: torch.Tensor) -> bool:
+    """What the kernel's x pre-pass records: every x in [−128, 127], so x
+    is its own digit 0 and needs no other plane."""
+    return x.numel() == 0 or bool(((x >= -128) & (x <= 127)).all())
+
+
+def _pixel_planes(rows: torch.Tensor, digits: int) -> torch.Tensor:
+    """(R, P) int32 → (digits, R, Pp) int8 digit planes, P zero-padded to
+    a multiple of the pixel tile."""
+    r, p = rows.shape
+    pp = -(-p // PIXEL_TILE) * PIXEL_TILE
+    planes = torch.zeros((digits, r, pp), dtype=torch.int8, device=rows.device)
+    planes[:, :, :p] = s8_digits(rows)[:digits]
+    return planes
+
+
+def patch_digit_planes(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
+    """The x pre-pass: the im2col patch matrix of x (N,H,W,C), transposed
+    to (K·K·C, N·H·W) rows m = (ki·K + kj)·C + c, as digit planes
+    (nx, M, Pp): one plane when ``x_fits_s8``, else four."""
+    n, h, w_sp, c = x.shape
+    k = kernel_size
+    patches = im2col(x.to(INT_DTYPE), k, k // 2).reshape(n * h * w_sp, k * k * c)
+    return _pixel_planes(patches.T, 1 if x_fits_s8(x) else N_DIGITS)
+
+
+def delta_digit_planes(grad_out: torch.Tensor, z_star: torch.Tensor | None = None,
+                       alpha_inv: int = 10) -> tuple[torch.Tensor, int]:
+    """The δ pre-pass: δ (N,H,W,F), masked by the NITRO-ReLU derivative
+    when ``z_star`` is given, as four digit planes (4, F, Pp), and the
+    digits it needs."""
+    g = grad_out.to(INT_DTYPE)
+    if z_star is not None:
+        g = nitro_relu_backward(z_star, g, alpha_inv)
+    rows = g.reshape(-1, g.shape[-1]).T
+    return _pixel_planes(rows, N_DIGITS), digits_needed(g)
+
+
+def digit_grad_w(xa: torch.Tensor, db: torch.Tensor, nd: int) -> torch.Tensor:
+    """The GEMM: Σ_{i+j ≤ 3, j < nd} 2^(8(i+j)) · XA_i · DB_jᵀ (mod 2^32)
+    over the (nx, M, Pp) and (4, F, Pp) digit planes → (M, F) int32.
+
+    Each digit product is an s8×s8 sum (exact in int32 here: |Σ| ≤ 2^14
+    per pixel); the shifted sums combine in int64 and wrap to int32.
+    """
+    acc = torch.zeros((xa.shape[1], db.shape[1]), dtype=torch.int64, device=xa.device)
+    for i in range(xa.shape[0]):
+        for j in range(nd):
+            if i + j < N_DIGITS:
+                prod = int_matmul(xa[i].to(INT_DTYPE), db[j].to(INT_DTYPE).T)
+                acc += prod.to(torch.int64) << (8 * (i + j))
+    return (((acc + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
+
+
+def stream_conv_grad_w_digits(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    *,
+    kernel_size: int,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """``stream_conv_grad_w_ref`` computed as the CUDA kernel computes it:
+    digit planes of x's patches and of masked δ, then only the digit
+    products the data needs → (K,K,C,F) int32."""
+    n, h, w_sp, c = x.shape
+    k, f = kernel_size, grad_out.shape[-1]
+    db, nd = delta_digit_planes(grad_out, z_star, alpha_inv)
+    return digit_grad_w(patch_digit_planes(x, k), db, nd).reshape(k, k, c, f)
+
+
+def stream_conv_grad_w_opt_digits(
+    x: torch.Tensor,
+    grad_out: torch.Tensor,
+    z_star: torch.Tensor,
+    w: torch.Tensor,
+    gamma_inv,
+    eta_inv,
+    *,
+    kernel_size: int,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """``stream_conv_grad_w_opt_ref`` as the CUDA kernel computes it: the
+    digit-product gradient, then IntegerSGD on the whole sum → W′."""
+    grad_w = stream_conv_grad_w_digits(x, grad_out, kernel_size=kernel_size,
+                                       z_star=z_star, alpha_inv=alpha_inv)
+    return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)

@@ -19,6 +19,7 @@ from repro_torch.core import prng
 from repro_torch.infer import compile_plan, freeze
 from repro_torch.core import les
 from repro_torch.core import optimizer as opt
+from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.integer_sgd import integer_sgd_ref, integer_sgd_update
 from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
@@ -167,20 +168,44 @@ def test_stream_conv_fwd_matches_plain(cuda_device):
                 assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
 
 
+#: x bounds of the conv grad_W cases: int8 (one digit plane) and the
+#: whole int32 range (four: the ten digit products i + j ≤ 3)
+_X_LIMS = (128, 2 ** 31 - 1)
+#: δ bounds: one, two, three and four digits (the last with the extremes)
+_D_LIMS = (100, 20000, 2 ** 20, 2 ** 31 - 1)
+
+
+def _digit_operands(g, shape, x_lim, d_lim, device):
+    """x and δ within ±lim; at the full int32 range INT32_MIN/MAX planted."""
+    n, h, w_sp, c, f = shape
+    x = _wide(g, (n, h, w_sp, c), x_lim, device)
+    delta = _wide(g, (n, h, w_sp, f), d_lim, device)
+    ext = torch.tensor([-(2 ** 31), 2 ** 31 - 1], dtype=torch.int32, device=device)
+    for t, lim in ((x, x_lim), (delta, d_lim)):
+        if lim == 2 ** 31 - 1:
+            t.view(-1)[:2] = ext[:t.numel()]
+    return x, delta
+
+
 @pytest.mark.gpu
 def test_stream_conv_grad_w_matches_plain(cuda_device):
+    """Every digit path of the tensor-core kernel: x in int8 and full-range,
+    δ needing one to four digits, with z* at α_inv 1 and 10 and without;
+    ragged P, C = 3, 5, 6 and 150, F = 10–70, K = 3 and 5."""
     g = torch.Generator().manual_seed(6)
     for n, h, w_sp, c, f, k, _ in _CONV_TRAIN:
-        x = _ints(g, (n, h, w_sp, c), torch.int32, cuda_device)
-        delta = _wide(g, (n, h, w_sp, f), 2 ** 20, cuda_device)
         z = _wide(g, (n, h, w_sp, f), 300, cuda_device)
-        for z_star, alpha_inv in ((z, 1), (z, 10), (None, 10)):
-            got = stream_conv_grad_w(x, delta, kernel_size=k, z_star=z_star,
-                                     alpha_inv=alpha_inv)
-            want = stream_conv_grad_w_ref(x, delta, kernel_size=k, z_star=z_star,
-                                          alpha_inv=alpha_inv)
-            torch.cuda.synchronize()
-            assert got.dtype == want.dtype and torch.equal(got, want)
+        for x_lim in _X_LIMS:
+            for d_lim in _D_LIMS:
+                x, delta = _digit_operands(g, (n, h, w_sp, c, f), x_lim, d_lim, cuda_device)
+                for z_star, alpha_inv in ((z, 1), (z, 10), (None, 10)):
+                    got = stream_conv_grad_w(x, delta, kernel_size=k, z_star=z_star,
+                                             alpha_inv=alpha_inv)
+                    want = stream_conv_grad_w_ref(x, delta, kernel_size=k, z_star=z_star,
+                                                  alpha_inv=alpha_inv)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), \
+                        (n, h, w_sp, c, f, k, x_lim, d_lim, z_star is None, alpha_inv)
 
 
 @pytest.mark.gpu
@@ -257,20 +282,36 @@ def test_nitro_matmul_grad_w_opt_matches_plain(cuda_device):
 
 @pytest.mark.gpu
 def test_stream_conv_grad_w_opt_matches_plain(cuda_device):
+    """Each optimiser state, each call twice (a second call proves the
+    workspace and counters were left zero), over the digit paths; then
+    the shared workspace is zero and #4, which shares it, still bitwise."""
     g = torch.Generator().manual_seed(10)
     for n, h, w_sp, c, f, k, _ in _CONV_TRAIN:
-        x = _ints(g, (n, h, w_sp, c), torch.int32, cuda_device)
-        delta = _wide(g, (n, h, w_sp, f), 2 ** 20, cuda_device)
         z = _wide(g, (n, h, w_sp, f), 300, cuda_device)
         w = _wide(g, (k, k, c, f), 2 ** 31 - 1, cuda_device)
-        for (gamma, eta), alpha_inv in zip(_SGD_STATES, (10, 1, 2, 10, 3)):
-            for _ in range(2):
-                got = stream_conv_grad_w_opt(x, delta, z, w, gamma, eta,
-                                             kernel_size=k, alpha_inv=alpha_inv)
-                want = stream_conv_grad_w_opt_ref(x, delta, z, w, gamma, eta,
-                                                  kernel_size=k, alpha_inv=alpha_inv)
-                torch.cuda.synchronize()
-                assert got.dtype == want.dtype and torch.equal(got, want)
+        for x_lim, d_lim in ((128, 2 ** 20), (128, 100), (2 ** 31 - 1, 2 ** 31 - 1)):
+            x, delta = _digit_operands(g, (n, h, w_sp, c, f), x_lim, d_lim, cuda_device)
+            for (gamma, eta), alpha_inv in zip(_SGD_STATES, (10, 1, 2, 10, 3)):
+                for _ in range(2):
+                    got = stream_conv_grad_w_opt(x, delta, z, w, gamma, eta,
+                                                 kernel_size=k, alpha_inv=alpha_inv)
+                    want = stream_conv_grad_w_opt_ref(x, delta, z, w, gamma, eta,
+                                                      kernel_size=k, alpha_inv=alpha_inv)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want)
+        ws, arrivals = cuda_lib.split_workspace(x.device, k * k * c, f, cuda_lib.DIGIT_TILE)
+        assert not ws.any() and not arrivals.any()
+    x, delta = _digit_operands(g, (0, 5, 7, 3, 9), 128, 100, cuda_device)  # P = 0
+    w = _wide(g, (3, 3, 3, 9), 2 ** 31 - 1, cuda_device)
+    got = stream_conv_grad_w_opt(x, delta, delta, w, 7, 3, kernel_size=3)
+    assert torch.equal(got, stream_conv_grad_w_opt_ref(x, delta, delta, w, 7, 3, kernel_size=3))
+    x = _wide(g, (4096, 300), 2 ** 31 - 1, cuda_device)
+    delta, z = _wide(g, (4096, 70), 2 ** 20, cuda_device), _wide(g, (4096, 70), 300, cuda_device)
+    w = _wide(g, (300, 70), 2 ** 31 - 1, cuda_device)
+    got = nitro_matmul_grad_w_opt(x, delta, z, w, 512, 12000)
+    want = nitro_matmul_grad_w_opt_ref(x, delta, z, w, 512, 12000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu

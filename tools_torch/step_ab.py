@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Compare the full-width VGG8B training step of two checkouts of the port
+on one CUDA card, in turns (A, B, B, A), each turn in a fresh process.
+
+    git archive PARENT | tar -x -C .chip_checkout/parent   # a git-ignored dir
+    python3 tools_torch/step_ab.py .chip_checkout/parent .
+
+For each turn it builds the kernels the step runs (from that tree's
+sources), then prints one ``[ab]`` line: the split step's and the
+``fuse_opt`` step's host-to-host time at batch 64 (best of three turns of
+10 steps, ``torch.cuda.synchronize`` at the end) and their device busy
+time per step from ``torch.profiler`` over 3 steps (the idle share is of
+that profiled window, whose host time the profiler lengthens).  The card's
+name and power limit come first.  Needs one card; no network.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+TRAIN_LIBS = ["stream_conv_fwd", "nitro_matmul", "stream_conv_grad_w",
+              "stream_conv_grad_w_opt", "nitro_matmul_grad_w", "nitro_matmul_grad_w_opt"]
+
+
+def turn(root: str) -> None:
+    """One tree's measurement, in this process."""
+    sys.path.insert(0, str(Path(root) / "src"))
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import les, prng
+    from repro_torch.kernels import cuda_lib
+
+    if Path(root).resolve() not in Path(cuda_lib.__file__).resolve().parents:
+        raise SystemExit(f"imported {cuda_lib.__file__}, not the tree at {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("step_ab needs a CUDA card")
+    cuda_lib.build_all(TRAIN_LIBS)
+    cfg = get_paper_config("vgg8b", scale=1.0)
+    state = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda")
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-127, 128, (64, *cfg.input_shape))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, 64).astype(np.int32)).cuda()
+    key = prng.PRNGKey(4)
+    steps = {"split": lambda: les.train_step(state, cfg, x, y, key),
+             "fuse_opt": lambda: les.train_step(state, cfg, x, y, key, fuse_opt=True)}
+
+    def host_ms(fn, iters: int = 10) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    ms: dict[str, float] = {}
+    for name in ("split", "fuse_opt", "fuse_opt", "split", "split", "fuse_opt"):
+        t = host_ms(steps[name])
+        ms[name] = min(ms.get(name, t), t)
+    parts = []
+    for name in ("split", "fuse_opt"):
+        steps[name]()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                steps[name]()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.self_device_time_total > 0) / 1e3
+        parts.append(f"{name}: host to host {ms[name]:.3f} ms ({64e3 / ms[name]:.1f} img/s), "
+                     f"device busy {busy / 3:.3f} ms/step, idle {100 - 100 * busy / wall:.1f}% "
+                     f"of the profiled 3 steps")
+    print(f"[ab] {root}: " + " | ".join(parts), flush=True)
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 3 and argv[1] == "--turn":
+        turn(argv[2])
+        return 0
+    if len(argv) != 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+    print(card, flush=True)
+    a, b = argv[1], argv[2]
+    for root in (a, b, b, a):
+        subprocess.run([sys.executable, __file__, "--turn", root], check=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
