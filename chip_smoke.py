@@ -18,7 +18,15 @@ Phases, each fatal on failure:
      ones — δ needing one and two digits, full-range int32 x and δ with
      INT32_MIN/MAX — with and without z*, the update twice per case with
      its workspace and arrival counters left zero and
-     nitro_matmul_grad_w_opt, which shares them, bitwise after;
+     nitro_matmul_grad_w_opt, which shares them, bitwise after; the
+     forward conv kernels (int8 tensor cores over exact digits of x and w)
+     on every digit path — x and w each of one to four digits, 16 variants,
+     INT32_MIN/MAX planted at four — at every VGG8B serving (#6) and
+     training (#7) conv shape and the ragged ones, and #7 on int8 x and w;
+  3e. each forward conv kernel called once per VGG8B shape under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
+     wrapper: the digit counts are decided on the card), then held against
+     its plain version;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
      full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
      with the launch counts reset just before and read just after; every
@@ -165,9 +173,13 @@ MLP4_SHAPES = [("linear", (TRAIN_BATCH, 3072), (3072, 3000)),
                ("linear", (TRAIN_BATCH, 3000), (3000, 3000))]
 #: parity cases held bitwise, by kernel
 PARITY_CASES: Counter = Counter()
-#: dynamic shared memory of the conv digit GEMM (SMEM in digit_gemm.cuh)
-DIGIT_GEMM_SMEM = 184320
+#: dynamic shared memory of the conv digit GEMMs: SMEM in digit_gemm.cuh
+#: (grad_W) and in conv_digits.cuh (the forward convs)
+DIGIT_GEMM_SMEM = {"digit_gemm_kernel": 184320, "conv_digit_gemm_kernel": 217088}
 I32 = (-(2 ** 31), 2 ** 31)
+#: bounds of x and w whose values need one to four base-256 digits (the
+#: last with INT32_MIN/MAX planted)
+DIGIT_LIMS = {1: 100, 2: 20000, 3: 2 ** 20, 4: 2 ** 31 - 1}
 
 
 
@@ -213,14 +225,22 @@ def build() -> None:
         if regs:
             print(f"[ptxas] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
                   f"registers, spill stores up to {max(spills, default=0)} B")
-        for entry in log.split("Compiling entry function")[1:]:  # the digit GEMM
-            if "digit_gemm_kernel" in entry:
-                r = re.search(r"Used (\d+) registers", entry)
-                sp = re.search(r"(\d+) bytes spill stores", entry)
-                sm = re.search(r"(\d+) bytes smem", entry)
-                print(f"[ptxas] {name}: digit_gemm_kernel {r and r.group(1)} registers, "
-                      f"{sm.group(1) if sm else 0} B static smem + "
-                      f"{DIGIT_GEMM_SMEM} B dynamic, spill stores {sp and sp.group(1)} B")
+        for entry in log.split("Compiling entry function")[1:]:
+            kernel = next((k for k in ("conv_digit_gemm_kernel", "digit_gemm_kernel",
+                                       "x_digits_kernel", "patch_digits_kernelIa",
+                                       "patch_digits_kernelIi")
+                           if k in entry.split("\n")[0]), None)
+            if kernel is None:
+                continue  # the digit GEMMs and the forward convs' own pre-passes
+            r = re.search(r"Used (\d+) registers", entry)
+            sp = re.search(r"(\d+) bytes spill stores", entry)
+            sm = re.search(r"(\d+) bytes smem", entry)
+            dyn = DIGIT_GEMM_SMEM.get(kernel, 0)
+            kernel = {"patch_digits_kernelIa": "patch_digits_kernel<int8>",
+                      "patch_digits_kernelIi": "patch_digits_kernel<int32>"}.get(kernel, kernel)
+            print(f"[ptxas] {name}: {kernel} {r and r.group(1)} registers, "
+                  f"{sm.group(1) if sm else 0} B static smem + {dyn} B dynamic, "
+                  f"spill stores {sp and sp.group(1)} B")
 
 
 def run_step(meta, a, w, backend: str):
@@ -334,6 +354,51 @@ def parity(steps, errs: dict) -> None:
         torch.cuda.synchronize()
         compare(f"stream_conv ragged ({n},{h},{wd},{c})*K{k}->{f} {dt} "
                 f"pool={pool} bh={bh}", got, want, errs)
+
+    # every digit path (x and w of one to four digits) at every VGG8B
+    # serving conv shape and the ragged ones; the ReLU and out dtype vary
+    # with the path
+    cases = [("step", tuple(a.shape), tuple(w.shape), meta.sf, meta.pool)
+             for meta, a, w in steps if meta.kind == "conv"]
+    cases += [("ragged", (n, h, wd, c), (k, k, c, f), sf, pool)
+              for n, h, wd, c, f, k, pool, _, _, _, sf in conv_cases]
+    for tag, xs, ws, sf, pool in cases:
+        for i, (x, w) in enumerate(fwd_digit_operands(xs, ws, g)):
+            relu = i % 2 == 0
+            kw = dict(sf=sf, pool=pool, apply_relu=relu,
+                      out_dtype=torch.int8 if relu else torch.int32)
+            got, want = stream_conv(x, w, **kw), stream_conv_ref(x, w, **kw)
+            torch.cuda.synchronize()
+            compare(f"stream_conv {tag} x{xs} w{ws} pool={pool} relu={relu} "
+                    f"({fwd_digits_run(x, w)})", got, want, errs)
+
+
+def fwd_digit_operands(xs, ws, g):
+    """(x, w) int32 pairs on the card whose values need each of one to four
+    digits (16 pairs: every variant of the forward conv digit GEMM)."""
+    import torch
+
+    def ints(shape, nd):
+        lim = DIGIT_LIMS[nd]
+        t = torch.randint(-lim, lim, shape, generator=g, dtype=torch.int64).to(
+            torch.int32).cuda()
+        if nd == 4:
+            t.view(-1)[:2] = torch.tensor([I32[0], I32[1] - 1], dtype=torch.int32)
+        return t
+
+    return [(ints(xs, nx), ints(ws, nw)) for nx in DIGIT_LIMS for nw in DIGIT_LIMS]
+
+
+def fwd_digits_run(x, w) -> str:
+    """The digit products the forward conv kernels run on x and w (their
+    pre-passes' rule, read here on the host for the report)."""
+    import torch
+    from repro_torch.kernels.nitro_conv.ref import digits_needed
+
+    nx = 1 if x.dtype == torch.int8 else digits_needed(x)
+    nw = 1 if w.dtype == torch.int8 else digits_needed(w)
+    pairs = sum(1 for i in range(nx) for j in range(nw) if i + j < 4)
+    return f"x {nx} digits, w {nw} digits: {pairs} products"
 
 
 def main_path():
@@ -547,6 +612,18 @@ def train_parity(shapes, errs: dict) -> None:
                     for b in ("cuda", "reference")]
                 _pair(f"stream_conv_grad_w {tag} x{xs} w{ws} {what} {zt} "
                       f"({digits_run(x, delta, zz, ai)})", *call, errs)
+    from repro_torch.kernels.nitro_conv.ops import fused_conv_fwd
+    for tag, kind, xs, ws, sf, ai in cases:  # every digit path of #7, and int8 x and w
+        if kind != "conv" or tag.endswith("alpha_inv=1"):
+            continue
+        pairs = fwd_digit_operands(xs, ws, g)
+        pairs.append(tuple(torch.randint(-128, 128, sh, generator=g).to(torch.int8).cuda()
+                           for sh in (xs, ws)))
+        for x, w in pairs:
+            call = [lambda b=b, x=x, w=w: fused_conv_fwd(x, w, sf=sf, alpha_inv=ai, backend=b)
+                    for b in ("cuda", "reference")]
+            _pair(f"stream_conv_fwd {tag} x{xs} w{ws} {x.dtype}/{w.dtype} "
+                  f"({fwd_digits_run(x, w)})", *call, errs)
     wide = (-(2 ** 31), 2 ** 31)  # int32 wrap in the grad_W accumulators
     x = torch.randint(*wide, (300, 40), generator=g).to(torch.int32).cuda()
     d = torch.randint(*wide, (300, 30), generator=g).to(torch.int32).cuda()
@@ -713,6 +790,50 @@ def grad_x_parity(shapes, errs: dict) -> None:
             _pair(f"stream_conv sf=1 grad_x without z* {tag} x{xs} w{ws}",
                   grad_x_call(kind, full[0], full[1], None, 1, "cuda"),
                   grad_x_call(kind, full[0], full[1], None, 1, "reference"), errs)
+
+
+def no_sync_phase(steps, shapes, errs: dict) -> None:
+    """Phase 3e: each forward conv kernel called once at each VGG8B shape
+    (#6 at the serving steps' inputs, #7 at int32 training operands) with
+    ``torch.cuda.set_sync_debug_mode("error")``: its wrapper must not
+    synchronise with the host (the digit counts are read on the card).
+    The outputs are then held against the plain versions."""
+    import torch
+    from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv, stream_conv_fwd
+    from repro_torch.kernels.nitro_conv.ref import stream_conv_fwd_ref, stream_conv_ref
+
+    g = torch.Generator().manual_seed(9)
+    calls = []
+    for meta, x, w in steps:
+        if meta.kind == "conv":
+            kw = dict(sf=meta.sf, alpha_inv=meta.alpha_inv, apply_relu=meta.apply_relu,
+                      pool=meta.pool, operand_dtype=meta.operand_dtype,
+                      out_dtype=torch.int8 if meta.out_dtype == "int8" else torch.int32)
+            calls.append((f"stream_conv x{tuple(x.shape)} {x.dtype}",
+                          lambda x=x, w=w, kw=kw: stream_conv(x, w, **kw),
+                          lambda x=x, w=w, kw=kw: stream_conv_ref(x, w, **kw)))
+    for kind, xs, ws, sf, ai in shapes:
+        if kind == "conv":
+            x, w, _, _ = train_operands(xs, ws, g)
+            calls.append((f"stream_conv_fwd x{xs} int32",
+                          lambda x=x, w=w, sf=sf, ai=ai: stream_conv_fwd(x, w, sf=sf, alpha_inv=ai),
+                          lambda x=x, w=w, sf=sf, ai=ai: stream_conv_fwd_ref(x, w, sf=sf,
+                                                                              alpha_inv=ai)))
+    torch.cuda.synchronize()
+    outs = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for what, kernel_fn, _ in calls:
+            outs.append(kernel_fn())
+    except RuntimeError as e:
+        die(f"{what}: the wrapper synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for (what, _, plain_fn), got in zip(calls, outs):
+        _pair(f"{what} (called under sync debug mode 'error')", lambda got=got: got,
+              plain_fn, errs)
+    print(f"[no-sync] {len(calls)} calls of stream_conv / stream_conv_fwd ran under "
+          f"torch.cuda.set_sync_debug_mode('error') without a host sync")
 
 
 def _trees(state, metrics):
@@ -975,40 +1096,46 @@ def time_cuda(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, calls: int):
+def device_profile(fn, calls: int, tries: int = 3):
     """Run ``fn`` ``calls`` times under ``torch.profiler`` (CUDA activity);
     returns (host-to-host ms over the calls, {kernel name: (device ms in
-    all, launches)})."""
+    all, launches)}).  A session now and then comes back with no device
+    event at all; it is run again, up to ``tries`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us > 0:
-            kernels[e.key] = (us / 1e3, e.count)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        kernels = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us > 0:
+                kernels[e.key] = (us / 1e3, e.count)
+        if kernels:
+            break
     return wall, kernels
 
 
-def device_ms(fn, kernel: str, calls: int) -> float:
+def device_ms(fn, kernel: str, calls: int, tries: int = 3) -> float:
     """Mean device time (ms) of one launch of ``kernel`` by ``fn``, from
     the profiler: for a kernel shorter than its wrapper's host path, where
-    back-to-back CUDA events time the host."""
-    _, kernels = device_profile(fn, calls)
-    hits = [(ms, n) for name, (ms, n) in kernels.items() if kernel in name]
-    if not hits or sum(n for _, n in hits) != calls:
-        die(f"profiler saw {hits} launches of {kernel}, expected {calls}")
-    return sum(ms for ms, _ in hits) / calls
+    back-to-back CUDA events time the host.  A session that misses some of
+    the launches is run again, up to ``tries`` sessions."""
+    for _ in range(tries):
+        _, kernels = device_profile(fn, calls)
+        hits = [(ms, n) for name, (ms, n) in kernels.items() if kernel in name]
+        if hits and sum(n for _, n in hits) == calls:
+            return sum(ms for ms, _ in hits) / calls
+    die(f"profiler saw {hits} launches of {kernel}, expected {calls}")
 
 
 def add_time(per_kernel: dict, kernel: str, ms: float, plain_ms: float,
@@ -1041,7 +1168,10 @@ def work(meta, a, w, out_elems: int, out_itemsize: int):
 
 
 def timing(steps, card: str) -> dict:
-    """Phase 5: per-step kernel / plain / bound times."""
+    """Phase 6: per-step kernel / plain / bound times of the serving
+    kernels, with the forward conv's digit products and device time."""
+    import torch
+
     per_kernel: dict[str, dict] = {}
     for i, (meta, a, w) in enumerate(steps, 1):
         kernel = "stream_conv" if meta.kind == "conv" else "nitro_matmul"
@@ -1050,12 +1180,51 @@ def timing(steps, card: str) -> dict:
         plain = time_cuda(lambda: run_step(meta, a, w, "reference"), iters=5, warmup=1)
         ops, nbytes = work(meta, a, w, out.numel(), out.element_size())
         bound, by = add_time(per_kernel, kernel, ms, plain, ops, nbytes)
+        how = ""
+        if kernel == "stream_conv":
+            x = a.to(torch.int8) if meta.operand_dtype == "int8" else a
+            how = (f" ({fwd_digits_run(x, w)}; "
+                   f"{conv_device_split(lambda: run_step(meta, a, w, 'cuda'))})")
         print(f"[time] {card} | step {i} {kernel} in{tuple(a.shape)} "
               f"w{tuple(w.shape)} operands={meta.operand_dtype} | kernel "
-              f"{ms:.4f} ms | plain {plain:.4f} ms | bound {bound:.5f} ms "
+              f"{ms:.4f} ms{how} | plain {plain:.4f} ms | bound {bound:.5f} ms "
               f"({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | "
               f"{100 * bound / ms:.2f}% of bound | library none")
+        if kernel == "stream_conv":
+            fwd_int_mm_yardstick(tuple(a.shape), tuple(w.shape), card, f"step {i}")
     return per_kernel
+
+
+def conv_device_split(fn, calls: int = 10, tries: int = 3) -> str:
+    """Device time of one forward conv call from the profiler, split into
+    the digit GEMM and the rest (the pre-passes and the memset), from a
+    session that saw every GEMM launch."""
+    for _ in range(tries):
+        _, kernels = device_profile(fn, calls)
+        hits = [(ms, n) for k, (ms, n) in kernels.items() if "conv_digit_gemm" in k]
+        if sum(n for _, n in hits) == calls:
+            gemm = sum(ms for ms, _ in hits) / calls
+            total = sum(ms for ms, _ in kernels.values()) / calls
+            return f"device {total:.4f} ms: GEMM {gemm:.4f}, pre-passes {total - gemm:.4f}"
+    die(f"profiler saw {hits} launches of conv_digit_gemm, expected {calls}")
+
+
+def fwd_int_mm_yardstick(xs, ws, card: str, tag: str) -> None:
+    """A yardstick the port never calls: ``torch._int_mm`` at a forward
+    conv's int8 GEMM shape, (N·H·W × K²C) · (K²C × F), K²C rounded up to a
+    multiple of 8 as ``_int_mm`` requires (conv 1: 27 → 32)."""
+    import torch
+
+    n, h, w, c = xs
+    p, m, f = n * h * w, -(-ws[0] * ws[1] * c // 8) * 8, ws[-1]
+    try:
+        a = torch.randint(-128, 128, (p, m), dtype=torch.int8, device="cuda")
+        b = torch.randint(-128, 128, (f, m), dtype=torch.int8, device="cuda").t()
+        ms = time_cuda(lambda: torch._int_mm(a, b), iters=20, warmup=3)
+        print(f"[yardstick] {card} | {tag} torch._int_mm ({p}x{m}) . ({m}x{f}) int8 -> "
+              f"int32, one digit product of the forward conv: {ms:.4f} ms")
+    except RuntimeError as e:  # a yardstick only: report, not fatal
+        print(f"[yardstick] {card} | {tag} torch._int_mm: not measured ({e})")
 
 
 def train_work(kind, kernel, xs, ws):
@@ -1077,18 +1246,43 @@ def train_work(kind, kernel, xs, ws):
     return 2 * macs, nbytes
 
 
+def main_path_conv_operands() -> list:
+    """(x, w) of each conv of the phase 5 CLI run's first step: the
+    preprocessed first batch through the seeded init's forward."""
+    from repro_torch.core import les, prng
+    from repro_torch.core import model as M
+
+    cfg, steps = cli_batches()
+    x, _, key = steps[0]
+    params = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda").params
+    _, _, caches, _ = M.forward(params, cfg, x, train=True, key=key)
+    return [(cache["conv"].x, p["fw"]["w"])
+            for spec, p, cache in zip(cfg.blocks, params["blocks"], caches)
+            if spec.kind == "conv"]
+
+
 def train_timing(shapes, card: str, per_kernel: dict) -> None:
     """Phase 6b: per-shape kernel / plain / bound times of the training
-    kernels (one step = one launch at each shape)."""
+    kernels (one step = one launch at each shape).  #7 runs on the main
+    path's own operands (the CLI's first batch and the seeded init, whose
+    digits decide its products), and beside them on w of ±2^15."""
     import torch
 
     g = torch.Generator().manual_seed(3)
+    convs = iter(main_path_conv_operands())
     for i, (kind, xs, ws, sf, ai) in enumerate(shapes, 1):
         x, w, delta, z = train_operands(xs, ws, g)
         cuda = train_calls(kind, x, w, delta, z, sf, ai, "cuda")
         plain = train_calls(kind, x, w, delta, z, sf, ai, "reference")
         names = (("stream_conv_fwd", "stream_conv_grad_w") if kind == "conv"
                  else ("nitro_matmul_fwd", "nitro_matmul_grad_w"))
+        if kind == "conv":
+            wide = time_cuda(cuda[0], iters=20, warmup=3)
+            print(f"[time] {card} | train step {i} stream_conv_fwd on w +-2^15 "
+                  f"({fwd_digits_run(x, w)}) | kernel {wide:.4f} ms")
+            xm, wm = next(convs)
+            cuda = (train_calls(kind, xm, wm, delta, z, sf, ai, "cuda")[0], *cuda[1:])
+            plain = (train_calls(kind, xm, wm, delta, z, sf, ai, "reference")[0], *plain[1:])
         for kernel, fn, pfn in zip(names, cuda[:2], plain[:2]):
             ms = time_cuda(fn, iters=20, warmup=3)
             plain_ms = time_cuda(pfn, iters=3, warmup=1)
@@ -1098,6 +1292,9 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
                    if kernel == "nitro_matmul_grad_w" else "")
             if kernel == "stream_conv_grad_w":
                 dev = f" ({digits_run(x, delta, z, ai)}; delta +-2^20)"
+            if kernel == "stream_conv_fwd":
+                dev = (f" (main path's x and w: {fwd_digits_run(xm, wm)}; "
+                       f"{conv_device_split(fn)})")
             print(f"[time] {card} | train step {i} {kernel} x{xs} w{ws} int32 | "
                   f"kernel {ms:.4f} ms{dev} | plain {plain_ms:.4f} ms | bound "
                   f"{bound:.5f} ms ({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) "
@@ -1107,6 +1304,7 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
             print(f"[time] {card} | train step {i} stream_conv_grad_w without z* "
                   f"(no mask on load) | kernel {ms:.4f} ms")
             int_mm_yardstick(xs, ws, card, i)
+            fwd_int_mm_yardstick(xs, ws, card, f"train step {i}")
 
 
 def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
@@ -1353,6 +1551,7 @@ def main() -> int:
     train_parity(shapes, errs)
     opt_parity(shapes, cfg, params, errs)
     grad_x_parity(shapes, errs)
+    no_sync_phase(steps, shapes, errs)
     res, launches = main_path()
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})

@@ -1,5 +1,7 @@
 // Exact int32 conv weight-gradient GEMM on Hopper's int8 tensor cores,
-// shared by stream_conv_grad_w and stream_conv_grad_w_opt:
+// shared by stream_conv_grad_w and stream_conv_grad_w_opt (its digits,
+// digit-plane transpose and per-stage MMA step also serve the forward
+// convs' GEMM, conv_digits.cuh):
 //
 //   grad_W[m, f] = Σ_p A(m, p) · B(p, f)   (mod 2^32)
 //
@@ -128,13 +130,16 @@ __global__ void x_range_kernel(const int32_t* __restrict__ x, long long n,
 // One block: 64 pixels × 64 filters.  Each thread masks four consecutive
 // pixels of one filter (loads along f are coalesced), packs their digit
 // bytes into one word per digit in shared memory, then the block writes
-// each (digit, filter) row of 64 bytes as four 16-byte stores.
-template <bool MASK>
+// each (digit, filter) row of 64 bytes as four 16-byte stores.  `need`
+// gets the most digits any (masked) value needs.  The forward conv
+// kernels run it unmasked on the (K²C, F) weight (P = K²C, T int32 or
+// int8), which it writes as the (F, K²C) digit planes their GEMM reads.
+template <bool MASK, typename T = int32_t>
 __global__ void __launch_bounds__(256)
-delta_digits_kernel(const int32_t* __restrict__ delta,
+delta_digits_kernel(const T* __restrict__ delta,
                     const int32_t* __restrict__ z, int8_t* __restrict__ db,
                     int P, int F, long long Pp, long long plane,
-                    FastDiv alpha_inv, Flags* flags) {
+                    FastDiv alpha_inv, int* need_out) {
   __shared__ unsigned s[MAXD][64][PT / 4 + 1];
   const int p0 = blockIdx.x * PT, f0 = blockIdx.y * 64;
   const int fl = threadIdx.x % 64, f = f0 + fl;
@@ -148,7 +153,7 @@ delta_digits_kernel(const int32_t* __restrict__ delta,
       const int p = p0 + 4 * pw + q;
       const bool ok = p < P && f < F;
       const size_t idx = (size_t)p * F + f;
-      v[q] = ok ? __ldg(delta + idx) : 0;
+      v[q] = ok ? (int)__ldg(delta + idx) : 0;
       zv[q] = (MASK && ok) ? __ldg(z + idx) : 0;
     }
     unsigned w[MAXD] = {0u, 0u, 0u, 0u};
@@ -163,7 +168,7 @@ delta_digits_kernel(const int32_t* __restrict__ delta,
     for (int j = 0; j < MAXD; ++j) s[j][fl][pw] = w[j];
   }
   need = __reduce_max_sync(0xffffffffu, need);
-  if (threadIdx.x % 32 == 0) atomicMax(&flags->delta_digits, (int)need);
+  if (threadIdx.x % 32 == 0) atomicMax(need_out, (int)need);
   __syncthreads();
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -326,17 +331,52 @@ __device__ __forceinline__ void load_stage(const GemmArgs& g, int8_t* smem, int 
   }
 }
 
-// The split's digit products, combined mod 2^32 into tot: rows
-// row0 + 32·(warp % 4) + 16·mt + lane/4 (+8), cols
-// col0 + 32·(warp / 4) + 8·nt + 2·(lane % 4) (+1), the mma C layout.
-template <int NX, int ND>
-__device__ __forceinline__ void run(const GemmArgs& g, int8_t* smem, int row0, int col0,
-                                    long long k_begin, int nk,
-                                    unsigned (&tot)[2][4][4]) {
-  constexpr int G = NX + ND - 1 < MAXD ? NX + ND - 1 : MAXD;  // shifts 0..G−1
+// ldmatrix offsets (bytes into a plane's tile) of this lane: A takes
+// (rows 0–7, bytes 0–15), (8–15, 0–15), (0–7, 16–31), (8–15, 16–31) of a
+// 16×32 tile; B takes (cols 0–7, bytes 0–15), (0–7, 16–31), then 8–15
+// the same.  Warp w owns rows 32·(w % 4) and cols 32·(w / 4) of the tile.
+__device__ __forceinline__ void lane_offsets(int& a_off, int& b_off) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wm = warp % 4, wn = warp / 4;
-  int acc[G][2][4][4];
+  a_off = ((warp % 4) * 32 + lane % 8 + 8 * ((lane / 8) % 2)) * ROW + 16 * (lane / 16);
+  b_off = ((warp / 4) * 32 + lane % 8 + 8 * (lane / 16)) * ROW + 16 * ((lane / 8) % 2);
+}
+
+// One staged BK-deep slice: every digit pair i + j < MAXD of the NX A
+// planes (BM rows each, from `as`) and ND B planes (BN rows each, from
+// `bs`), added into the accumulator set of its shift i + j.
+template <int NX, int ND, int G>
+__device__ __forceinline__ void stage_mma(const int8_t* as, const int8_t* bs, int a_off,
+                                          int b_off, int (&acc)[G][2][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 32) {
+    unsigned b[ND][4][2];
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldsm_x4(bs + j * BN * ROW + b_off + np * 16 * ROW + kk, b[j][2 * np][0],
+                b[j][2 * np][1], b[j][2 * np + 1][0], b[j][2 * np + 1][1]);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4(as + i * BM * ROW + a_off + mt * 16 * ROW + kk, a[mt][0], a[mt][1],
+                a[mt][2], a[mt][3]);
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        if (i + j >= MAXD) continue;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_s8(acc[i + j][mt][nt], a[mt], b[j][nt]);
+      }
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void zero(int (&acc)[G][2][4][4]) {
 #pragma unroll
   for (int s = 0; s < G; ++s)
 #pragma unroll
@@ -345,11 +385,30 @@ __device__ __forceinline__ void run(const GemmArgs& g, int8_t* smem, int row0, i
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[s][mt][nt][e] = 0;
-  // ldmatrix row/byte offsets of this lane: A takes (rows 0–7, bytes
-  // 0–15), (8–15, 0–15), (0–7, 16–31), (8–15, 16–31) of a 16×32 tile; B
-  // takes (filters 0–7, bytes 0–15), (0–7, 16–31), then 8–15 the same.
-  const int a_off = (wm * 32 + lane % 8 + 8 * ((lane / 8) % 2)) * ROW + 16 * (lane / 16);
-  const int b_off = (wn * 32 + lane % 8 + 8 * (lane / 16)) * ROW + 16 * ((lane / 8) % 2);
+}
+
+// The accumulator sets combined mod 2^32: Σ_s acc[s] · 2^(8s), unsigned.
+template <int G>
+__device__ __forceinline__ unsigned combined(const int (&acc)[G][2][4][4], int mt, int nt,
+                                             int e) {
+  unsigned t = 0u;
+#pragma unroll
+  for (int s = 0; s < G; ++s) t += (unsigned)acc[s][mt][nt][e] << (8 * s);
+  return t;
+}
+
+// The split's digit products, combined mod 2^32 into tot: rows
+// row0 + 32·(warp % 4) + 16·mt + lane/4 (+8), cols
+// col0 + 32·(warp / 4) + 8·nt + 2·(lane % 4) (+1), the mma C layout.
+template <int NX, int ND>
+__device__ __forceinline__ void run(const GemmArgs& g, int8_t* smem, int row0, int col0,
+                                    long long k_begin, int nk,
+                                    unsigned (&tot)[2][4][4]) {
+  constexpr int G = NX + ND - 1 < MAXD ? NX + ND - 1 : MAXD;  // shifts 0..G−1
+  int acc[G][2][4][4];
+  zero(acc);
+  int a_off, b_off;
+  lane_offsets(a_off, b_off);
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) load_stage<NX, ND>(g, smem, s, row0, col0, k_begin + s * BK);
@@ -362,33 +421,7 @@ __device__ __forceinline__ void run(const GemmArgs& g, int8_t* smem, int row0, i
     if (nxt < nk) load_stage<NX, ND>(g, smem, nxt % STAGES, row0, col0, k_begin + nxt * BK);
     cp_commit();
     const int8_t* as = smem + (kt % STAGES) * STAGE_BYTES;
-    const int8_t* bs = as + MAXD * BM * ROW;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      unsigned b[ND][4][2];
-#pragma unroll
-      for (int j = 0; j < ND; ++j)
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldsm_x4(bs + j * BN * ROW + b_off + np * 16 * ROW + kk, b[j][2 * np][0],
-                  b[j][2 * np][1], b[j][2 * np + 1][0], b[j][2 * np + 1][1]);
-#pragma unroll
-      for (int i = 0; i < NX; ++i) {
-        unsigned a[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldsm_x4(as + i * BM * ROW + a_off + mt * 16 * ROW + kk, a[mt][0], a[mt][1],
-                  a[mt][2], a[mt][3]);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          if (i + j >= MAXD) continue;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) mma_s8(acc[i + j][mt][nt], a[mt], b[j][nt]);
-        }
-      }
-    }
+    stage_mma<NX, ND>(as, as + MAXD * BM * ROW, a_off, b_off, acc);
   }
   cp_wait<0>();
 #pragma unroll
@@ -396,12 +429,7 @@ __device__ __forceinline__ void run(const GemmArgs& g, int8_t* smem, int row0, i
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        unsigned t = 0u;
-#pragma unroll
-        for (int s = 0; s < G; ++s) t += (unsigned)acc[s][mt][nt][e] << (8 * s);
-        tot[mt][nt][e] = t;
-      }
+      for (int e = 0; e < 4; ++e) tot[mt][nt][e] = combined(acc, mt, nt, e);
 }
 
 // fn(index into the M×F output, mt, nt, e) for each of the thread's
@@ -568,7 +596,8 @@ inline int prepare(const Layout& L, const void* x, const void* delta, const void
   const dim3 dgrid((unsigned)(L.Pp / PT), (unsigned)((L.F + 63) / 64));
   auto dk = z ? delta_digits_kernel<true> : delta_digits_kernel<false>;
   dk<<<dgrid, 256, 0, st>>>((const int32_t*)delta, (const int32_t*)z, s + L.db_off, L.P,
-                            L.F, L.Pp, L.db_plane, FastDiv((unsigned)alpha_inv), flags);
+                            L.F, L.Pp, L.db_plane, FastDiv((unsigned)alpha_inv),
+                            &flags->delta_digits);
   if (win > 48 * 1024) {
     err = cudaFuncSetAttribute(patch_digits_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)win);

@@ -5,9 +5,6 @@
 // over one BM×BN output tile and a range of the contraction k.  The
 // kernels differ only in how they stage A and B and in how they flush:
 //
-//   * stream_conv_fwd: r = output pixel (n, h, w), k = patch column
-//     (ki, kj, c), A gathered from the NHWC input (implicit im2col), B the
-//     (K²C, F) weight; flush = NITRO scale + ReLU, writing a and z*;
 //   * nitro_matmul_grad_w: r = input feature, k = the batch (every
 //     sample), B = δ masked by the NITRO-ReLU derivative as it is loaded;
 //     the contraction is split across blocks and each split's tile is
@@ -17,14 +14,16 @@
 //     whose flush applies IntegerSGD to the whole sum and writes W′
 //     (flush_sgd; with more than one split, through a workspace and a
 //     per-tile arrival counter — see grad_w_opt_kernel);
-//   * stream_conv_grad_x: stream_conv_fwd's GEMM with A = δ masked by the
-//     NITRO-ReLU derivative as it is gathered, B = rot180_swap(w), and a
-//     flush that stores the int32 sum as it is;
+//   * stream_conv_grad_x: r = output pixel (n, h, w), k = patch column
+//     (ki, kj, f), A = δ gathered from the NHWC tensor (implicit im2col)
+//     and masked by the NITRO-ReLU derivative as it is gathered,
+//     B = rot180_swap(w), and a flush that stores the int32 sum as it is;
 //   * nitro_matmul_grad_x: r = sample, k = fan-out, A = masked δ, B = wᵀ
 //     read from w's natural layout; split and flushed like grad_w.
 //
 // (The conv grad_W kernels, stream_conv_grad_w and stream_conv_grad_w_opt,
-// run the int8 tensor-core digit GEMM of digit_gemm.cuh instead.)
+// run the int8 tensor-core digit GEMM of digit_gemm.cuh instead, and the
+// forward convs, stream_conv and stream_conv_fwd, that of conv_digits.cuh.)
 //
 // Design (simple and exact; wgmma/TMA are later work): 256 threads, each
 // a 4×4 micro-tile at stride 16 (shared-memory reads are broadcasts or

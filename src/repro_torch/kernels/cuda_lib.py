@@ -30,6 +30,7 @@ COMMON_HEADERS = (
     _HERE / "csrc_common" / "grad_w_stage.cuh",
     _HERE / "csrc_common" / "patch_rows.cuh",
     _HERE / "csrc_common" / "digit_gemm.cuh",
+    _HERE / "csrc_common" / "conv_digits.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -257,12 +258,14 @@ def as_int32(name: str, *tensors: torch.Tensor) -> list[torch.Tensor]:
 
 def check_inputs(name: str, x: torch.Tensor, w: torch.Tensor, *,
                  operand_dtype: str, out_dtype: torch.dtype, apply_relu: bool,
-                 alpha_inv: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+                 alpha_inv: int, lift: bool = True,
+                 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Shared wrapper checks: one CUDA device, integer operands, output dtype.
 
     Returns the operands as the kernel takes them — int8 as they are for
-    ``operand_dtype='int8'``, lifted to int32 for ``'int32'`` — and the
-    α_inv to pass (1 when the ReLU is off and α_inv is unused).
+    ``operand_dtype='int8'``, lifted to int32 for ``'int32'`` (left as they
+    are with ``lift=False``, for a kernel that reads each dtype itself) —
+    and the α_inv to pass (1 when the ReLU is off and α_inv is unused).
     """
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(
@@ -281,7 +284,8 @@ def check_inputs(name: str, x: torch.Tensor, w: torch.Tensor, *,
         for t in (x, w):
             if t.dtype not in (torch.int8, torch.int16, torch.int32):
                 raise ValueError(f"integer operands expected, got {t.dtype}")
-        x, w = x.to(torch.int32), w.to(torch.int32)
+        if lift:
+            x, w = x.to(torch.int32), w.to(torch.int32)
     else:
         raise ValueError(
             f"operand_dtype must be 'int8' or 'int32', got {operand_dtype!r}")

@@ -8,69 +8,64 @@
 // Bound on an H100 at VGG8B's six convs (batch 64, int32): bytes.  The
 // int32 input, weight and the two int32 outputs are ≈428 MB per step
 // (0.128 ms at 3.35 TB/s) against 60.65 G multiply-adds (0.061 ms at the
-// 1,979 TOP/s int8 peak).  This kernel multiplies on the CUDA cores, far
-// from either floor.
+// 1,979 TOP/s int8 peak as one digit product; conv 1's two x digits add
+// 0.9 G).
 //
-// Design: the tile GEMM of int_gemm.cuh with rows = output pixels, all of
-// N·H·W as one dimension (so the 8² and 4² layers still fill 64-row
-// tiles), contraction = the patch columns m = (ki·K + kj)·C + c, the
-// repo's patch layout.  A is gathered straight from the NHWC input
-// (implicit im2col: each thread decomposes its four fixed pixels once
-// and its patch column once per step, the zero halo masked:
-// patch_rows.cuh), so neither the patch matrix nor a padded input is
-// formed — the TPU kernel staged row bands in VMEM instead.  B is the
-// (K²C, F) weight.  The epilogue applies the NITRO scale and ReLU to the
-// accumulator registers.
-#include "patch_rows.cuh"
+// Design: the exact digit GEMM of conv_digits.cuh on the int8 tensor
+// cores.  Rows are all N·H·W output pixels as one dimension (so the 8² and
+// 4² layers still fill 128-row tiles), the contraction is the patch
+// column m = (ki·K + kj)·C + c.  Pre-passes write x's digit planes (NHWC,
+// or the patch matrix at conv 1's C = 3) and w's, transposed once per
+// call to (F, K²C), and record how many digits each needs; the GEMM runs
+// only those products, gathering its A stages straight from the planes
+// with zero-filled 16-byte copies.  The epilogue applies the NITRO scale
+// (the pow2 split of SF, then one floor divide by multiply-high) to the
+// combined registers, stages z* in shared memory and writes z* and its
+// ReLU as whole rows of 16-byte stores.  Per call a memset and three
+// device launches.
+#include "conv_digits.cuh"
+
+using namespace nitro::conv;
 
 namespace {
 
-using namespace nitro::gemm;
+struct FwdOut {
+  int32_t* a;
+  int32_t* z;
+  FastEpilogue ep;
 
-__global__ void __launch_bounds__(THREADS)
-stream_conv_fwd_kernel(const int32_t* __restrict__ x,
-                       const int32_t* __restrict__ w_flat,
-                       int32_t* __restrict__ a_out,
-                       int32_t* __restrict__ z_out, int H, int W, int C,
-                       int F, int K, int P, nitro::Epilogue ep) {
-  __shared__ Tiles t;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const PatchRowsA<false> a(x, nullptr, nitro::FastDiv(1), H, W, C, K, P, row0);
-  const RowsB<false> b(w_flat, nullptr, F, nitro::FastDiv(1), col0);
-  unsigned acc[TM][TN];
-  mainloop(a, b, 0, K * K * C, t, acc);
-
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int p = row0 + ty + 16 * i;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int f = col0 + tx + 16 * j;
-      if (f >= F) continue;
-      const size_t o = (size_t)p * F + f;
-      const int zs = ep.scale((int)acc[i][j]);
-      z_out[o] = zs;
-      a_out[o] = ep.relu(zs);
-    }
+  __device__ void operator()(const ConvArgs& g, const unsigned (&tot)[2][4][4], int row0,
+                             int col0, int* tile) const {
+    stage_tile(tile, tot, [&](int v) { return ep.scale(v); });
+    __syncthreads();
+    write_tile(tile, BM, row0, g.R, g.F, col0, z, [](int v) { return v; });
+    write_tile(tile, BM, row0, g.R, g.F, col0, a, [&](int v) { return ep.relu(v); });
   }
-}
+};
 
 }  // namespace
 
-// x (N,H,W,C) and w_flat (K·K·C, F) int32; a and z_star (N,H,W,F) int32,
-// all contiguous.  Launches on `stream`; returns cudaGetLastError().
-extern "C" int stream_conv_fwd_launch(const void* x, const void* w, void* a,
-                                      void* z_star, int N, int H, int W,
-                                      int C, int F, int K, int shift,
-                                      int residual, int alpha_inv, int mu,
+// Bytes of the scratch a launch with these shapes needs.
+extern "C" long long stream_conv_fwd_scratch_bytes(int N, int H, int W, int C, int F,
+                                                   int K, int x_int8) {
+  return (long long)Layout(N, H, W, C, F, K, false, x_int8 != 0).bytes;
+}
+
+// x (N,H,W,C) int8 or int32 (x_int8), 16-byte aligned; w_flat (K·K·C, F)
+// int8 or int32 (w_int8); a and z_star (N,H,W,F) int32; all contiguous;
+// scratch of stream_conv_fwd_scratch_bytes, 256-byte aligned, any
+// contents.  sms: the card's SM count (sizes the pre-passes).  Launches on
+// `stream`; returns the CUDA error code.
+extern "C" int stream_conv_fwd_launch(const void* x, const void* w, void* a, void* z_star,
+                                      void* scratch, int N, int H, int W, int C, int F,
+                                      int K, int x_int8, int w_int8, int shift,
+                                      int residual, int alpha_inv, int mu, int sms,
                                       void* stream) {
-  const int P = N * H * W;
-  nitro::Epilogue ep{shift, residual, alpha_inv, mu, 1};
-  dim3 grid((P + BM - 1) / BM, (F + BN - 1) / BN);
-  stream_conv_fwd_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (const int32_t*)w, (int32_t*)a, (int32_t*)z_star, H,
-      W, C, F, K, P, ep);
-  return (int)cudaGetLastError();
+  const Layout L(N, H, W, C, F, K, false, x_int8 != 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = prepare(L, x, x_int8 != 0, w, w_int8 != 0, scratch, sms, st);
+  if (err) return err;
+  const FwdOut out{(int32_t*)a, (int32_t*)z_star,
+                   FastEpilogue(shift, residual, alpha_inv, mu, 1)};
+  return launch_gemm(L, x, scratch, false, out, st);
 }

@@ -16,11 +16,10 @@
 // the forward's volume.  This kernel multiplies on the CUDA cores, far
 // from either floor.
 //
-// Design: stream_conv_fwd's implicit-im2col GEMM over all N·H·W pixels
-// with another stager and flush.  A gathers a step's patch values of δ
-// and of z* at the same indices, all loads issued before the first is
-// masked, then masks each by the NITRO-ReLU derivative (patch_rows.cuh,
-// MASK): 0 where z* saturates, ⌊δ/α_inv⌋ (a floor) where z* < 0, δ
+// Design: an implicit-im2col GEMM over all N·H·W pixels on int_gemm.cuh.
+// A gathers a step's patch values of δ and of z* at the same indices, all
+// loads issued before the first is masked, then masks each by the
+// NITRO-ReLU derivative (patch_rows.cuh): 0 where z* saturates, ⌊δ/α_inv⌋ (a floor) where z* < 0, δ
 // elsewhere — the masked δ is never written, as on the TPU, where each δ
 // band was masked in VMEM.  The 'same' halo is 0
 // without reading z*: relu_bwd(0, 0) = 0.  B is rot180_swap(w) flattened
@@ -42,7 +41,7 @@ stream_conv_grad_x_kernel(const int32_t* __restrict__ delta,
                           int C, int K, int P, nitro::FastDiv alpha_inv) {
   __shared__ Tiles t;
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const PatchRowsA<true> a(delta, zstar, alpha_inv, H, W, F, K, P, row0);
+  const PatchRowsA a(delta, zstar, alpha_inv, H, W, F, K, P, row0);
   const RowsB<false> b(w_rot, nullptr, C, nitro::FastDiv(1), col0);
   unsigned acc[TM][TN];
   mainloop(a, b, 0, K * K * F, t, acc);

@@ -7,6 +7,8 @@
   * ``stream_conv_fwd`` replaces ``stream_conv_fwd``
     (``_stream_conv_fwd_kernel``): the conv writing ``(a, z*)`` — the
     training forward, an implicit-im2col GEMM over all N·H·W pixels;
+    both forward convs run on the int8 tensor cores over exact signed
+    base-256 digits of x and w;
   * ``stream_conv_grad_w`` replaces ``stream_conv_grad_w``
     (``_stream_grad_w_fused_kernel`` / ``_stream_grad_w_kernel``): the
     weight gradient, δ masked by the NITRO-ReLU derivative when z* is
@@ -35,38 +37,48 @@ import torch
 from repro_torch.core.activations import mu_int8
 from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH, conv_geometry, rot180_swap
-
-#: Shared-memory budget of the row ring (bytes).  Two blocks fit on an SM;
-#: channels are staged in chunks that fit it.
-RING_BYTES = 96 * 1024
+from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH, rot180_swap
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.stream_conv_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.stream_conv_units_per_block.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.stream_conv_units_per_block.restype = ctypes.c_int
-    return lib
+def _conv_shapes(name: str, x: torch.Tensor, k: int, c_w: int) -> None:
+    if x.ndim != 4 or x.shape[3] != c_w or k % 2 == 0:
+        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)}, K={k}, C={c_w}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: input must have fewer than 2^31 elements")
 
 
-def ring_channels(bh: int, k: int, w_sp: int, c: int, itemsize: int) -> int:
-    """Channels per staged chunk so the (bh+K−1)×(W+K−1) ring fits; a
-    multiple of 4 for int8 with 4 | C, so every chunk takes the __dp4a path."""
-    per_channel = (bh + k - 1) * (w_sp + k - 1) * itemsize
-    cc = min(c, RING_BYTES // per_channel)
-    if itemsize == 1 and c % 4 == 0 and cc >= 4:
-        cc -= cc % 4
-    if cc < 1:
-        raise ValueError(
-            f"stream_conv: one channel of the (bh+K-1)x(W+K-1) = "
-            f"{bh + k - 1}x{w_sp + k - 1} row ring needs {per_channel} B, "
-            f"over the {RING_BYTES} B budget; use a smaller bh or "
-            f"conv_mode='materialise'"
+def _digit_operand(t: torch.Tensor) -> torch.Tensor:
+    """x or w as the forward conv digit kernels read it: int8 or int32 as
+    it is (int16 lifted to int32), contiguous, 16-byte aligned."""
+    if t.dtype == torch.int16:
+        t = t.to(torch.int32)
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _forward_digit_call(name: str, x: torch.Tensor, w: torch.Tensor, outs, rows: int,
+                        *args: int) -> None:
+    """Launch the forward conv digit GEMM ``name`` (conv_digits.cuh) of
+    ``rows`` GEMM rows: x (N,H,W,C) and w (K,K,C,F), int8 or int32 each,
+    into ``outs``; ``args`` are the entry point's ints after the shapes and
+    dtypes.  Raises on shapes beyond its grid (one block row per 128 GEMM
+    rows) or outputs of 2^31 elements or more."""
+    n, h, w_sp, c = x.shape
+    k, f = w.shape[0], w.shape[-1]
+    if -(-rows // cuda_lib.DIGIT_TILE[0]) > 65535 or outs[0].numel() >= 2 ** 31:
+        raise ValueError(f"{name}: shape exceeds the kernel's grid")
+    x, w = _digit_operand(x), _digit_operand(w)
+    x_int8 = int(x.dtype == torch.int8)
+    lib, launch = cuda_lib.entry(name, f"{name}_launch", 3 + len(outs), 9 + len(args))
+    scratch = _digit_scratch(lib, name, x.device, n, h, w_sp, c, f, k, x_int8)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
+            n, h, w_sp, c, f, k, x_int8, int(w.dtype == torch.int8), *args,
+            cuda_lib.sm_count(x.device), stream,
         )
-    return cc
+    cuda_lib.check(lib, err, name)
 
 
 def stream_conv(
@@ -83,61 +95,43 @@ def stream_conv(
 ) -> torch.Tensor:
     """Streaming fused 'same' conv on the card: ``relu(⌊conv(x, w)/sf⌋)``
     (+2×2 pool).  x (N,H,W,C), w (K,K,C,F), K odd → (N,H,W,F), or
-    (N,H//2,W//2,F) with ``pool=True``.
+    (N,H//2,W//2,F) with ``pool=True`` (odd H or W cropped).
 
-    ``operand_dtype='int8'`` stages int8 rows and weights as they are;
-    ``'int32'`` lifts int8/int16/int32 operands to int32.
+    ``operand_dtype='int8'`` requires int8 operands; ``'int32'`` takes
+    int8/int16/int32.  The kernel reads int8 and int32 operands as they
+    are, and runs on the int8 tensor cores over exact signed base-256
+    digits (``conv_digits.cuh``; the plain model is
+    ``ref.stream_conv_digits``), only as many products as the data needs,
+    decided on the card: one for an int8 x and w.  ``bh`` (the plain
+    version's band height) does not change the kernel.  A memset and at
+    most three device launches per call.
     """
     if x.ndim != 4 or w.ndim != 4 or w.shape[0] != w.shape[1] or w.shape[2] != x.shape[3]:
         raise ValueError(f"bad shapes x{tuple(x.shape)} * w{tuple(w.shape)}")
     x, w, alpha_inv = cuda_lib.check_inputs(
         "stream_conv", x, w, operand_dtype=operand_dtype, out_dtype=out_dtype,
-        apply_relu=apply_relu, alpha_inv=alpha_inv)
-    n, h, w_sp, c = x.shape
-    k, f = w.shape[0], w.shape[-1]
+        apply_relu=apply_relu, alpha_inv=alpha_inv, lift=False)
+    _conv_shapes("stream_conv", x, w.shape[0], w.shape[2])
+    n, h, w_sp, _ = x.shape
+    f = w.shape[-1]
     if pool and (h < 2 or w_sp < 2):
         raise ValueError(f"2x2 pool epilogue needs H,W >= 2, got {h}x{w_sp}")
-    if n > 65535:
-        raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
-    bh_, h_pad, _ = conv_geometry(h, k, bh, pool=pool)
-    cc = ring_channels(bh_, k, w_sp, c, x.element_size())
     out_shape = (n, h // 2, w_sp // 2, f) if pool else (n, h, w_sp, f)
     out = torch.empty(out_shape, dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _bind(cuda_lib.load("stream_conv"))
-    units = (bh_ // 2) * (w_sp // 2) if pool else bh_ * w_sp
-    per_block = lib.stream_conv_units_per_block(int(pool), units)
-    n_ptiles = -(-units // per_block)
-    n_bands = h_pad // bh_
-    if n_bands * n_ptiles > 65535:
-        raise ValueError(f"{n_bands} bands x {n_ptiles} tiles exceed the grid")
-    w_flat = w.reshape(k * k * c, f)
     shift, residual = pow2_split(sf)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.stream_conv_launch(
-            x.data_ptr(), w_flat.data_ptr(), out.data_ptr(),
-            n, h, w_sp, c, f, k, bh_, n_bands, n_ptiles, cc,
-            shift, residual, alpha_inv,
-            mu_int8(alpha_inv) if apply_relu else 0, int(apply_relu),
-            int(pool), int(operand_dtype == "int8"),
-            int(out_dtype == torch.int8), stream,
-        )
-    cuda_lib.check(lib, err, "stream_conv")
+    rows = 4 * out.numel() // f if pool else out.numel() // f  # 4 per pool window
+    _forward_digit_call(
+        "stream_conv", x, w, (out,), rows, shift, residual, alpha_inv,
+        mu_int8(alpha_inv) if apply_relu else 0, int(apply_relu), int(pool),
+        int(out_dtype == torch.int8))
     stream_conv.launches.add()
     return out
 
 
 #: launches of the CUDA kernel (the wrapper adds one per launch)
 stream_conv.launches = cuda_lib.LaunchCounter()
-
-
-def _conv_shapes(name: str, x: torch.Tensor, k: int, c_w: int) -> None:
-    if x.ndim != 4 or x.shape[3] != c_w or k % 2 == 0:
-        raise ValueError(f"{name}: bad shapes x{tuple(x.shape)}, K={k}, C={c_w}")
-    if x.numel() >= 2 ** 31:
-        raise ValueError(f"{name}: input must have fewer than 2^31 elements")
 
 
 def stream_conv_fwd(
@@ -148,32 +142,30 @@ def stream_conv_fwd(
     alpha_inv: int = 10,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Streaming training forward on the card: ``(a, z_star)``, both int32
-    (N,H,W,F).  x (N,H,W,C) and w (K,K,C,F) are lifted to int32."""
+    (N,H,W,F).  x (N,H,W,C) and w (K,K,C,F), integer.
+
+    The products run as in ``stream_conv`` (int8 digit products on the
+    tensor cores, only those the data needs, decided on the card; the
+    plain model is ``ref.stream_conv_fwd_digits``); a memset and at most
+    three device launches per call.
+    """
     if w.ndim != 4 or w.shape[0] != w.shape[1]:
         raise ValueError(f"stream_conv_fwd: bad weight shape {tuple(w.shape)}")
     _conv_shapes("stream_conv_fwd", x, w.shape[0], w.shape[2])
     cuda_lib.require_cuda("stream_conv_fwd", x, w)
     if alpha_inv < 1:
         raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
-    x, w = cuda_lib.as_int32("stream_conv_fwd", x, w)
-    n, h, w_sp, c = x.shape
-    k, f = w.shape[0], w.shape[-1]
-    a = torch.empty((n, h, w_sp, f), dtype=torch.int32, device=x.device)
+    for t in (x, w):
+        if t.dtype not in (torch.int8, torch.int16, torch.int32):
+            raise ValueError(f"stream_conv_fwd: integer operands expected, got {t.dtype}")
+    n, h, w_sp, _ = x.shape
+    a = torch.empty((n, h, w_sp, w.shape[-1]), dtype=torch.int32, device=x.device)
     z_star = torch.empty_like(a)
     if a.numel() == 0:
         return a, z_star
-    if a.numel() >= 2 ** 31:
-        raise ValueError("stream_conv_fwd: output must have fewer than 2^31 elements")
-    lib, launch = cuda_lib.entry("stream_conv_fwd", "stream_conv_fwd_launch", 4, 10)
     shift, residual = pow2_split(sf)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            x.data_ptr(), w.reshape(k * k * c, f).data_ptr(), a.data_ptr(),
-            z_star.data_ptr(), n, h, w_sp, c, f, k, shift, residual, alpha_inv,
-            mu_int8(alpha_inv), stream,
-        )
-    cuda_lib.check(lib, err, "stream_conv_fwd")
+    _forward_digit_call("stream_conv_fwd", x, w, (a, z_star), n * h * w_sp, shift,
+                        residual, int(alpha_inv), mu_int8(alpha_inv))
     stream_conv_fwd.launches.add()
     return a, z_star
 
@@ -189,12 +181,12 @@ def _digit_limits(name: str, h: int, w_sp: int, m: int, f: int) -> None:
 
 def _digit_scratch(lib: ctypes.CDLL, name: str, device: torch.device,
                    *shape: int) -> torch.Tensor:
-    """The call's scratch for the conv digit GEMM (flags, x's patch digit
-    planes, δ's digit planes), sized by the library; its contents need no
-    zeroing (the pre-passes write every byte the GEMM reads)."""
+    """The call's scratch for a conv digit GEMM (flags and the operands'
+    digit planes), sized by the library; its contents need no zeroing (the
+    pre-passes write every byte the GEMM reads)."""
     fn = getattr(lib, f"{name}_scratch_bytes")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 6
+        fn.argtypes = [ctypes.c_int] * len(shape)
         fn.restype = ctypes.c_longlong
     return torch.empty(fn(*shape), dtype=torch.uint8, device=device)
 

@@ -352,3 +352,132 @@ def stream_conv_grad_w_opt_digits(
     grad_w = stream_conv_grad_w_digits(x, grad_out, kernel_size=kernel_size,
                                        z_star=z_star, alpha_inv=alpha_inv)
     return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)
+
+
+# ---------------------------------------------------------------------------
+# The forward conv kernels' arithmetic (csrc_common/conv_digits.cuh): x and
+# w as int8 digit planes, the GEMM rows in pool-window order when the pool
+# is fused, only the digit products the data needs, s32 sums folded every
+# 16,384 columns.  Bitwise the same functions as stream_conv_ref and
+# stream_conv_fwd_ref.
+# ---------------------------------------------------------------------------
+
+#: Patch columns the forward digit GEMM stages at once (its planes are
+#: padded to a multiple), and the most it sums in s32 before a fold.
+STAGE_COLS = 64
+FOLD_COLS = 16384
+
+
+def _pad_cols(rows: torch.Tensor) -> torch.Tensor:
+    """(..., M) → (..., Mp) with zero columns up to a multiple of 64."""
+    m = rows.shape[-1]
+    return F.pad(rows, (0, -(-m // STAGE_COLS) * STAGE_COLS - m))
+
+
+def x_digit_planes(x: torch.Tensor, kernel_size: int) -> tuple[torch.Tensor, int, bool]:
+    """The x pre-pass: ``(planes, digits x needs, patch)``.
+
+    With 16 | C the NHWC planes (4, N·H·W, C) — for an int8 tensor just x
+    itself as its one plane, with no pre-pass; else (``patch``) the
+    im2col patch matrix's planes (4, N·H·W, Mp), K²C padded to 64 columns,
+    which the GEMM reads as a 1×1 conv.
+    """
+    n, h, w_sp, c = x.shape
+    if c % 16 == 0:
+        if x.dtype == torch.int8:
+            return x.reshape(1, n * h * w_sp, c), 1, False
+        v = x.to(INT_DTYPE).reshape(n * h * w_sp, c)
+        return s8_digits(v), digits_needed(v), False
+    k = kernel_size
+    patches = im2col(x.to(INT_DTYPE), k, k // 2).reshape(n * h * w_sp, k * k * c)
+    return s8_digits(_pad_cols(patches)), digits_needed(patches), True
+
+
+def w_digit_planes(w: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The w pre-pass: w (K,K,C,F) as (K²C, F), transposed to four digit
+    planes (4, F, Mp), and the digits it needs."""
+    k, _, c, f = w.shape
+    flat = w.to(INT_DTYPE).reshape(k * k * c, f)
+    return _pixel_planes(flat.T, N_DIGITS), digits_needed(flat)
+
+
+def conv_digit_rows(n: int, h: int, w_sp: int, *, pool: bool) -> torch.Tensor:
+    """The GEMM's row order, as flat pixel indices: every pixel in order,
+    or with the pool each 2×2 window's four pixels (dy, dx) in window
+    order (n, h/2, w/2) — the pixels an odd H or W crops have no row."""
+    idx = torch.arange(n * h * w_sp)
+    if not pool:
+        return idx
+    return window_view_2x2(idx.reshape(n, h, w_sp, 1)).reshape(-1)
+
+
+def digit_conv(x: torch.Tensor, w: torch.Tensor, *, pool: bool = False) -> torch.Tensor:
+    """The forward conv GEMM: z (R, F) int32, R rows in
+    ``conv_digit_rows`` order, as Σ_{i+j ≤ 3, i < nx, j < nw}
+    2^(8(i+j)) · A_i · B_jᵀ (mod 2^32) over the x and w digit planes.
+
+    The contraction runs in slices of at most 16,384 columns; within a
+    slice each shift's s32 sum (≤ 4 pairs of s8 products) stays below
+    2^31, which is checked, and the slices combine mod 2^32.
+    """
+    n, h, w_sp, c = x.shape
+    k, f = w.shape[0], w.shape[-1]
+    xa, nx, patch = x_digit_planes(x, k)
+    wb, nw = w_digit_planes(w)
+    rows = conv_digit_rows(n, h, w_sp, pool=pool)
+    if patch:  # a 1×1 conv over the patch planes
+        a = xa[:nx][:, rows]
+    else:  # implicit im2col of each plane, zero halo
+        planes = xa[:nx].reshape(nx * n, h, w_sp, c)
+        a = im2col(planes, k, k // 2).reshape(nx, n * h * w_sp, k * k * c)
+        a = _pad_cols(a)[:, rows]
+    total = torch.zeros((len(rows), f), dtype=torch.int64)
+    for c0 in range(0, a.shape[-1], FOLD_COLS):
+        sets = [torch.zeros((len(rows), f), dtype=torch.int64) for _ in range(N_DIGITS)]
+        for i in range(nx):
+            for j in range(nw):
+                if i + j < N_DIGITS:
+                    sets[i + j] += (a[i, :, c0:c0 + FOLD_COLS].to(torch.int64)
+                                    @ wb[j, :, c0:c0 + FOLD_COLS].to(torch.int64).T)
+        for s, acc in enumerate(sets):
+            if acc.numel() and int(acc.abs().max()) >= 2 ** 31:
+                raise AssertionError(f"shift {s}: s32 digit sum {int(acc.abs().max())}")
+            total += acc << (8 * s)
+    return (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
+
+
+def stream_conv_digits(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    pool: bool = False,
+    out_dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """``stream_conv_ref`` computed as the CUDA kernel computes it: the
+    digit GEMM, scale (+ReLU) on each row, then the max over each window's
+    four rows → (N,H,W,F) or (N,H//2,W//2,F) in ``out_dtype``."""
+    n, h, w_sp, _ = x.shape
+    f = w.shape[-1]
+    a = scale_forward(digit_conv(x, w, pool=pool), sf)
+    if apply_relu:
+        a = nitro_relu(a, alpha_inv)
+    if pool:
+        return a.reshape(n, h // 2, w_sp // 2, 4, f).amax(dim=3).to(out_dtype)
+    return a.reshape(n, h, w_sp, f).to(out_dtype)
+
+
+def stream_conv_fwd_digits(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``stream_conv_fwd_ref`` computed as the CUDA kernel computes it:
+    ``(a, z*)``, both int32 (N,H,W,F)."""
+    n, h, w_sp, _ = x.shape
+    z_star = scale_forward(digit_conv(x, w), sf).reshape(n, h, w_sp, w.shape[-1])
+    return nitro_relu(z_star, alpha_inv), z_star

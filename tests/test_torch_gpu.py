@@ -88,8 +88,30 @@ def test_nitro_matmul_matches_plain(cuda_device):
                 assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+#: bounds of x and w on the forward conv kernels' digit paths: one, two,
+#: three and four digits (the last with INT32_MIN/MAX planted)
+_LIMS = (100, 20000, 2 ** 20, 2 ** 31 - 1)
+#: (N, H, W, C, F, K): C = 5 (patch planes), 16 with odd W and 64 with K = 5
+#: and odd H and W (NHWC planes)
+_DIGIT_SHAPES = [(2, 7, 9, 5, 12, 3), (2, 6, 5, 16, 20, 3), (1, 9, 7, 64, 70, 5)]
+#: K²C = 18,432: the GEMM folds its s32 sums once
+_FOLD_SHAPE = (1, 4, 5, 2048, 8, 3)
+
+
+def _lim_ints(g, shape, lim, device):
+    t = _wide(g, shape, lim, device)
+    if lim == 2 ** 31 - 1:
+        t.view(-1)[:2] = torch.tensor([-(2 ** 31), 2 ** 31 - 1], dtype=torch.int32)[:t.numel()]
+    return t
+
+
 @pytest.mark.gpu
 def test_stream_conv_matches_plain(cuda_device):
+    """int8 and int32 operands at ragged shapes; then every digit path of
+    the tensor-core kernel — x and w of one to four digits, the pool with
+    odd H or W, int8 and int32 out, with and without the ReLU — the fold,
+    an empty batch and the grad_x route without z* (sf = 1, full-range δ
+    and w)."""
     g = torch.Generator().manual_seed(1)
     for n, h, w_sp, c, f, k, pool, od, bh, sf in _CONV_CASES:
         x = _ints(g, (n, h, w_sp, c), _T[od], cuda_device)
@@ -99,6 +121,36 @@ def test_stream_conv_matches_plain(cuda_device):
         want = stream_conv_ref(x, w, **kw)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+    for n, h, w_sp, c, f, k in _DIGIT_SHAPES:
+        for x_lim in _LIMS:
+            for w_lim in _LIMS:
+                x = _lim_ints(g, (n, h, w_sp, c), x_lim, cuda_device)
+                w = _lim_ints(g, (k, k, c, f), w_lim, cuda_device)
+                for pool, out, relu in ((True, torch.int8, True), (False, torch.int32, False)):
+                    kw = dict(sf=3 << 9, pool=pool, out_dtype=out, apply_relu=relu)
+                    got = stream_conv(x, w, **kw)
+                    want = stream_conv_ref(x, w, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), \
+                        (n, h, w_sp, c, f, k, x_lim, w_lim, pool)
+    x = _lim_ints(g, _FOLD_SHAPE[:4], 2 ** 31 - 1, cuda_device)
+    w = _lim_ints(g, (3, 3, 2048, 8), 2 ** 31 - 1, cuda_device)
+    for pool in (False, True):
+        got = stream_conv(x, w, sf=27 << 8, pool=pool, apply_relu=False)
+        assert torch.equal(got, stream_conv_ref(x, w, sf=27 << 8, pool=pool, apply_relu=False))
+    x = _lim_ints(g, (0, 5, 7, 16), 100, cuda_device)
+    w = _lim_ints(g, (3, 3, 16, 4), 100, cuda_device)
+    got = stream_conv(x, w, sf=3, pool=True, out_dtype=torch.int8)
+    assert got.shape == (0, 2, 3, 4) and got.dtype == torch.int8
+    before = stream_conv.launches.value
+    for n, h, w_sp, c, f, k in _DIGIT_SHAPES:
+        delta = _lim_ints(g, (n, h, w_sp, f), 2 ** 31 - 1, cuda_device)
+        w = _lim_ints(g, (k, k, c, f), 2 ** 31 - 1, cuda_device)
+        got = conv_grad_x(delta, w, backend="cuda")
+        want = stream_conv_grad_x_ref(delta, w)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert stream_conv.launches.value == before + len(_DIGIT_SHAPES)
 
 
 @pytest.mark.gpu
@@ -156,6 +208,9 @@ _CONV_TRAIN = [  # (N, H, W, C, F, K, sf)
 
 @pytest.mark.gpu
 def test_stream_conv_fwd_matches_plain(cuda_device):
+    """The training shapes at α_inv 1 and 10; then every digit path — x
+    and w of one to four digits, int8-dtype x with int8 and int32 w — the
+    fold and an empty batch."""
     g = torch.Generator().manual_seed(5)
     for n, h, w_sp, c, f, k, sf in _CONV_TRAIN:
         x = _ints(g, (n, h, w_sp, c), torch.int32, cuda_device)
@@ -166,6 +221,27 @@ def test_stream_conv_fwd_matches_plain(cuda_device):
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+    cases = []
+    for n, h, w_sp, c, f, k in _DIGIT_SHAPES:
+        for x_lim in _LIMS:
+            for w_lim in _LIMS:
+                cases.append((_lim_ints(g, (n, h, w_sp, c), x_lim, cuda_device),
+                              _lim_ints(g, (k, k, c, f), w_lim, cuda_device)))
+        cases.append((_ints(g, (n, h, w_sp, c), torch.int8, cuda_device),
+                      _ints(g, (k, k, c, f), torch.int8, cuda_device)))
+        cases.append((_ints(g, (n, h, w_sp, c), torch.int8, cuda_device),
+                      _lim_ints(g, (k, k, c, f), 20000, cuda_device)))
+    cases.append((_lim_ints(g, _FOLD_SHAPE[:4], 2 ** 31 - 1, cuda_device),
+                  _lim_ints(g, (3, 3, 2048, 8), 2 ** 31 - 1, cuda_device)))
+    cases.append((_lim_ints(g, (0, 5, 7, 16), 100, cuda_device),
+                  _lim_ints(g, (3, 3, 16, 4), 100, cuda_device)))
+    for x, w in cases:
+        got = stream_conv_fwd(x, w, sf=3 << 9, alpha_inv=10)
+        want = stream_conv_fwd_ref(x, w, sf=3 << 9, alpha_inv=10)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b), \
+                (tuple(x.shape), x.dtype, w.dtype)
 
 
 #: x bounds of the conv grad_W cases: int8 (one digit plane) and the

@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
-"""What bounds the conv grad_W digit GEMM on the card: its device time with
-the tensor-core MMAs, or the staging copies, taken out.
+"""What bounds the conv digit GEMMs on the card: their device time with the
+tensor-core MMAs, the staging copies or the stores taken out.
 
     python3 tools_torch/digit_gemm_variants.py     # from a checkout, one CUDA card
 
-Builds ``stream_conv_grad_w`` from copies of ``csrc_common/digit_gemm.cuh``
-(under a temporary directory; the checkout is not touched), one per
-variant, and times ``digit_gemm_kernel`` alone (``torch.profiler`` device
-time, best of two runs of 10 calls) at VGG8B's conv 2 and conv 4 shapes
-(batch 64, int8 x, δ of ±2²⁰: three digit products) and at conv 4 with δ
-of ±100 (one product):
+Builds ``stream_conv_grad_w`` and ``stream_conv_fwd`` from copies of their
+sources and ``csrc_common/`` (under a temporary directory; the checkout is
+not touched), one per variant, and times the digit GEMM alone
+(``torch.profiler`` device time, best of two runs of 10 calls):
 
+  * grad_W (``digit_gemm_kernel``) at VGG8B's conv 2 and conv 4 shapes
+    (batch 64, int8 x, δ of ±2²⁰: three digit products) and at conv 4 with
+    δ of ±100 (one product);
+  * the training forward (``conv_digit_gemm_kernel``) at VGG8B's conv 2,
+    conv 4 and conv 6 shapes (batch 64, int32 x of the NITRO-ReLU range,
+    w of the paper's init range: one product).
+
+Variants:
   * ``base``: the kernel as it is;
   * ``no_mma``: every mma.sync replaced by one xor (copies and ldmatrix
     stay): the time the staging takes alone;
   * ``no_copy``: no cp.async (the MMAs run on whatever shared memory
     holds): the time the fragment loads and MMAs take alone;
-  * ``no_copy_B``: only the δ planes' copies taken out.
+  * ``no_copy_B``: only the second operand's copies taken out (δ's planes
+    in grad_W, w's in the forward);
+  * ``no_store`` (forward only): the epilogue's writes of a and z* taken
+    out (the tile is still staged in shared memory);
+  * ``ring_3`` (forward only): the ring cut from up to six stages to three.
 
 The variants' results are garbage; only their times are read.  Prints the
 card's name and power limit, each variant's ptxas registers, then one line
@@ -26,63 +36,87 @@ per shape.
 from __future__ import annotations
 
 import ctypes
+import shutil
 import subprocess
 import sys
 import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-MMA = "for (int nt = 0; nt < 4; ++nt) mma_s8(acc[i + j][mt][nt], a[mt], b[j][nt]);"
-COPY_A = "      cp16(as + (i * BM + r) * ROW + 16 * c, src, ok);"
-COPY_B = "    cp16(bs + (j * BN + r) * ROW + 16 * c, src, ok);"
-VARIANTS = {
-    "base": [],
-    "no_mma": [(MMA, "for (int nt = 0; nt < 4; ++nt) "
-                     "acc[i + j][mt][nt][0] ^= a[mt][0] ^ b[j][nt][0];")],
-    "no_copy": [(COPY_A, ""), (COPY_B, "")],
-    "no_copy_B": [(COPY_B, "")],
+KERNELS = ROOT / "src" / "repro_torch" / "kernels"
+MMA = ("digit_gemm.cuh",
+       "for (int nt = 0; nt < 4; ++nt) mma_s8(acc[i + j][mt][nt], a[mt], b[j][nt]);",
+       "for (int nt = 0; nt < 4; ++nt) acc[i + j][mt][nt][0] ^= a[mt][0] ^ b[j][nt][0];")
+#: per GEMM: library, kernel name, variant → [(file, old, new)]
+TARGETS = {
+    "grad_w": ("stream_conv_grad_w", "digit_gemm_kernel", {
+        "base": [],
+        "no_mma": [MMA],
+        "no_copy": [("digit_gemm.cuh", "      cp16(as + (i * BM + r) * ROW + 16 * c, src, ok);", ""),
+                    ("digit_gemm.cuh", "    cp16(bs + (j * BN + r) * ROW + 16 * c, src, ok);", "")],
+        "no_copy_B": [("digit_gemm.cuh",
+                       "    cp16(bs + (j * BN + r) * ROW + 16 * c, src, ok);", "")],
+    }),
+    "fwd": ("stream_conv_fwd", "conv_digit_gemm", {
+        "base": [],
+        "no_mma": [MMA],
+        "no_copy": [
+            ("conv_digits.cuh", "      digits::cp16(as + (i * BM + r + 64 * e) * ROW + 16 * c, "
+                                "g.xa + i * g.xa_plane + off, ok);", ";"),
+            ("conv_digits.cuh", "    digits::cp16(bs + (j * BN + r) * ROW + 16 * c, "
+                                "g.wb + j * g.wb_plane + boff, okb);", ";")],
+        "no_copy_B": [
+            ("conv_digits.cuh", "    digits::cp16(bs + (j * BN + r) * ROW + 16 * c, "
+                                "g.wb + j * g.wb_plane + boff, okb);", ";")],
+        "no_store": [("stream_conv_fwd.cu",
+                      "    write_tile(tile, BM, row0, g.R, g.F, col0, z, [](int v) { return v; });\n"
+                      "    write_tile(tile, BM, row0, g.R, g.F, col0, a, "
+                      "[&](int v) { return ep.relu(v); });",
+                      "    if (tile[threadIdx.x] == 0x7fffffff) z[threadIdx.x] = tile[0];")],
+        "ring_3": [("conv_digits.cuh", "(FIT > 6 ? 6 : FIT)", "(FIT > 3 ? 3 : FIT)")],
+    }),
 }
-SHAPES = [((64, 32, 32, 128, 256), 2 ** 20), ((64, 16, 16, 256, 512), 2 ** 20),
-          ((64, 16, 16, 256, 512), 100)]
+GRAD_W_SHAPES = [((64, 32, 32, 128, 256), 2 ** 20), ((64, 16, 16, 256, 512), 2 ** 20),
+                 ((64, 16, 16, 256, 512), 100)]
+FWD_SHAPES = [(64, 32, 32, 128, 256), (64, 16, 16, 256, 512), (64, 4, 4, 512, 512)]
 
 
-def build(tmp: Path) -> dict[str, ctypes.CDLL]:
-    """One stream_conv_grad_w library per variant, built in parallel."""
+def build(tmp: Path, target: str) -> dict[str, ctypes.CDLL]:
+    """One library per variant of ``target``, built in parallel."""
     from repro_torch.kernels import cuda_lib
 
-    common = ROOT / "src" / "repro_torch" / "kernels" / "csrc_common"
-    header = (common / "digit_gemm.cuh").read_text()
+    lib_name, kernel, variants = TARGETS[target]
+    source = cuda_lib.SOURCES[lib_name]
     jobs = []
-    for name, edits in VARIANTS.items():
-        text = header
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name}: the header no longer has {old!r}")
-            text = text.replace(old, new)
-        d = tmp / name
+    for name, edits in variants.items():
+        d = tmp / f"{target}_{name}"
         d.mkdir()
-        for h in common.glob("*.cuh"):
-            (d / h.name).write_text(h.read_text())
-        (d / "digit_gemm.cuh").write_text(text)
-        flags = [str(d) if a == str(common) else a for a in cuda_lib.NVCC_FLAGS]
+        for f in [*(KERNELS / "csrc_common").glob("*.cuh"), source]:
+            shutil.copy(f, d / f.name)
+        for fname, old, new in edits:
+            text = (d / fname).read_text()
+            if old not in text:
+                raise SystemExit(f"variant {target}/{name}: {fname} no longer has {old!r}")
+            (d / fname).write_text(text.replace(old, new))
+        flags = [str(d) if a == str(KERNELS / "csrc_common") else a for a in cuda_lib.NVCC_FLAGS]
         out = d / "lib.so"
-        cmd = [cuda_lib.nvcc_path(), *flags, "-o", str(out),
-               str(cuda_lib.SOURCES["stream_conv_grad_w"])]
+        cmd = [cuda_lib.nvcc_path(), *flags, "-o", str(out), str(d / source.name)]
         jobs.append((name, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True)))
     libs = {}
     for name, out, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        regs = [line.strip() for line in log.splitlines()
-                if "registers" in line][:1]
-        print(f"[variant] {name}: digit_gemm_kernel {regs[0] if regs else ''}")
+            raise SystemExit(f"nvcc failed for {target}/{name}:\n{log}")
+        entry = next((e for e in log.split("Compiling entry function")[1:]
+                      if kernel in e.split("\n")[0]), "")
+        regs = [line.strip() for line in entry.splitlines() if "registers" in line][:1]
+        print(f"[variant] {target}/{name}: {kernel} {regs[0] if regs else ''}")
         libs[name] = ctypes.CDLL(str(out))
     return libs
 
 
-def gemm_ms(call) -> float:
+def gemm_ms(call, kernel: str) -> float:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -92,10 +126,18 @@ def gemm_ms(call) -> float:
             for _ in range(10):
                 call()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if "digit_gemm" in e.key)
+        us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
         best = min(best, us / 10 / 1e3)
     return best
+
+
+def bind(lib, name: str, n_ptrs: int, n_ints: int, n_shape: int):
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    nbytes = getattr(lib, f"{name}_scratch_bytes")
+    nbytes.argtypes, nbytes.restype = [ctypes.c_int] * n_shape, ctypes.c_longlong
+    return launch, nbytes
 
 
 def main() -> int:
@@ -107,32 +149,45 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
+    g = torch.Generator().manual_seed(0)
+
+    def ints(shape, lim):
+        return torch.randint(-lim, lim, shape, generator=g).to(torch.int32).cuda()
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp))
-        g = torch.Generator().manual_seed(0)
-
-        def ints(shape, lim):
-            return torch.randint(-lim, lim, shape, generator=g).to(torch.int32).cuda()
-
-        stream = torch.cuda.current_stream().cuda_stream
-        for (n, h, w, c, f), lim in SHAPES:
+        libs = build(Path(tmp), "grad_w")
+        for (n, h, w, c, f), lim in GRAD_W_SHAPES:
             x, d, z = ints((n, h, w, c), 128), ints((n, h, w, f), lim), ints((n, h, w, f), 300)
             times = []
             for name, lib in libs.items():
-                launch = lib.stream_conv_grad_w_launch
-                launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-                launch.restype = ctypes.c_int
-                nbytes = lib.stream_conv_grad_w_scratch_bytes
-                nbytes.argtypes, nbytes.restype = [ctypes.c_int] * 6, ctypes.c_longlong
+                launch, nbytes = bind(lib, "stream_conv_grad_w", 5, 8, 6)
                 scratch = torch.empty(nbytes(n, h, w, c, f, 3), dtype=torch.uint8, device="cuda")
                 out = torch.zeros((9 * c, f), dtype=torch.int32, device="cuda")
-                sms = torch.cuda.get_device_properties(0).multi_processor_count
                 args = (x.data_ptr(), d.data_ptr(), z.data_ptr(), out.data_ptr(),
                         scratch.data_ptr(), n, h, w, c, f, 3, 10, sms, stream)
                 if launch(*args):
                     raise SystemExit(f"variant {name}: launch failed")
-                times.append(f"{name} {gemm_ms(lambda: launch(*args)):.4f}")
+                times.append(f"{name} {gemm_ms(lambda: launch(*args), 'digit_gemm'):.4f}")
             print(f"[variant] x{(n, h, w, c)} delta +-{lim} F={f}: digit_gemm_kernel ms "
+                  + " | ".join(times))
+        libs = build(Path(tmp), "fwd")
+        for n, h, w, c, f in FWD_SHAPES:
+            x, wt = ints((n, h, w, c), 128), ints((3, 3, c, f), 6)
+            a = torch.empty((n, h, w, f), dtype=torch.int32, device="cuda")
+            z = torch.empty_like(a)
+            times = []
+            for name, lib in libs.items():
+                launch, nbytes = bind(lib, "stream_conv_fwd", 5, 13, 7)
+                scratch = torch.empty(nbytes(n, h, w, c, f, 3, 0), dtype=torch.uint8,
+                                      device="cuda")
+                args = (x.data_ptr(), wt.data_ptr(), a.data_ptr(), z.data_ptr(),
+                        scratch.data_ptr(), n, h, w, c, f, 3, 0, 0, 9, 1, 10, 0, sms, stream)
+                if launch(*args):
+                    raise SystemExit(f"variant {name}: launch failed")
+                times.append(f"{name} {gemm_ms(lambda: launch(*args), 'conv_digit_gemm'):.4f}")
+            print(f"[variant] fwd x{(n, h, w, c)} w +-6 F={f}: conv_digit_gemm_kernel ms "
                   + " | ".join(times))
     return 0
 
