@@ -23,10 +23,17 @@ Phases, each fatal on failure:
      on every digit path — x and w each of one to four digits, 16 variants,
      INT32_MIN/MAX planted at four — at every VGG8B serving (#6) and
      training (#7) conv shape and the ragged ones, and #7 on int8 x and w;
-  3e. each forward conv kernel called once per VGG8B shape under
-     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
+  3e. each forward conv and matmul kernel called once per main-path shape
+     under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
      wrapper: the digit counts are decided on the card), then held against
      its plain version;
+  3f. the matmul kernels (split-K over exact digits on the int8 tensor
+     cores) on every digit path — x and w of one to four digits, 16
+     variants — at every main-path shape (the served linear and output
+     layer, VGG8B's training linear, mlp4's layers) and ragged ones (M of 1
+     to 1,000, K deep enough for three splits), each case twice; #1 also on
+     int8 operands, aligned and not; #2 on w with one 64×64 tile of four
+     digits; the arrival counters must be left zero;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
      full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
      with the launch counts reset just before and read just after; every
@@ -66,18 +73,22 @@ Phases, each fatal on failure:
      ``--backend reference``; a save → restore of the card's TrainState
      is bitwise;
   6. time each kernel per step shape with CUDA events beside its bound and
-     its plain version, the serving batch latency, the split and
-     ``fuse_opt`` training steps host to host in turns, and the mlp4 step.
+     its plain version (#1 and #2 by their device time, with the
+     ``torch._int_mm`` yardstick at their int8 GEMM shapes), the serving
+     batch latency, the split and ``fuse_opt`` training steps host to host
+     in turns, and the mlp4 step.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
 the kernel summed over its step shapes and ``launches`` is its path's
 count; then, last, ``{"ok": true, "device": {...}}``.  ``ms`` is CUDA-event
-time over back-to-back launches, except for nitro_matmul_grad_w_opt and
-integer_sgd_update, whose launches are shorter than their wrappers' host
-path: there it is the device time ``torch.profiler`` reports (the
-back-to-back time is printed beside it, and nitro_matmul_grad_w's and
-nitro_matmul_grad_x's device times beside their own).  The grad_x
+time over back-to-back launches, except for nitro_matmul, nitro_matmul_fwd,
+nitro_matmul_grad_w_opt and integer_sgd_update, whose launches are shorter
+than their wrappers' host path: there it is the device time
+``torch.profiler`` reports (for the matmuls every device operation of the
+call: the memset, the pre-passes and the GEMM; the back-to-back time is
+printed beside it, and nitro_matmul_grad_w's and nitro_matmul_grad_x's
+device times beside their own).  The grad_x
 kernels' ``launches`` are phase 5d's (two passes).  Exits non-zero,
 without that line, when CUDA is absent or the script is not inside a
 checkout.
@@ -173,9 +184,11 @@ MLP4_SHAPES = [("linear", (TRAIN_BATCH, 3072), (3072, 3000)),
                ("linear", (TRAIN_BATCH, 3000), (3000, 3000))]
 #: parity cases held bitwise, by kernel
 PARITY_CASES: Counter = Counter()
-#: dynamic shared memory of the conv digit GEMMs: SMEM in digit_gemm.cuh
-#: (grad_W) and in conv_digits.cuh (the forward convs)
-DIGIT_GEMM_SMEM = {"digit_gemm_kernel": 184320, "conv_digit_gemm_kernel": 217088}
+#: dynamic shared memory of the digit GEMMs: SMEM in digit_gemm.cuh
+#: (grad_W) and in conv_digits.cuh (the forward convs), RING in
+#: nitro_matmul.cu (the matmuls)
+DIGIT_GEMM_SMEM = {"digit_gemm_kernel": 184320, "conv_digit_gemm_kernel": 217088,
+                   "matmul_digit_kernelILb0": 102400, "matmul_digit_kernelILb1": 102400}
 I32 = (-(2 ** 31), 2 ** 31)
 #: bounds of x and w whose values need one to four base-256 digits (the
 #: last with INT32_MIN/MAX planted)
@@ -226,9 +239,11 @@ def build() -> None:
             print(f"[ptxas] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
                   f"registers, spill stores up to {max(spills, default=0)} B")
         for entry in log.split("Compiling entry function")[1:]:
-            kernel = next((k for k in ("conv_digit_gemm_kernel", "digit_gemm_kernel",
+            kernel = next((k for k in ("conv_digit_gemm_kernel", "matmul_digit_kernelILb0",
+                                       "matmul_digit_kernelILb1", "digit_gemm_kernel",
                                        "x_digits_kernel", "patch_digits_kernelIa",
-                                       "patch_digits_kernelIi")
+                                       "patch_digits_kernelIi", "row_digits_kernelIa",
+                                       "row_digits_kernelIi")
                            if k in entry.split("\n")[0]), None)
             if kernel is None:
                 continue  # the digit GEMMs and the forward convs' own pre-passes
@@ -237,7 +252,12 @@ def build() -> None:
             sm = re.search(r"(\d+) bytes smem", entry)
             dyn = DIGIT_GEMM_SMEM.get(kernel, 0)
             kernel = {"patch_digits_kernelIa": "patch_digits_kernel<int8>",
-                      "patch_digits_kernelIi": "patch_digits_kernel<int32>"}.get(kernel, kernel)
+                      "patch_digits_kernelIi": "patch_digits_kernel<int32>",
+                      "row_digits_kernelIa": "row_digits_kernel<int8>",
+                      "row_digits_kernelIi": "row_digits_kernel<int32>",
+                      "matmul_digit_kernelILb0": "matmul_digit_kernel<int8 only>",
+                      "matmul_digit_kernelILb1": "matmul_digit_kernel<16 variants>",
+                      }.get(kernel, kernel)
             print(f"[ptxas] {name}: {kernel} {r and r.group(1)} registers, "
                   f"{sm.group(1) if sm else 0} B static smem + {dyn} B dynamic, "
                   f"spill stores {sp and sp.group(1)} B")
@@ -793,14 +813,18 @@ def grad_x_parity(shapes, errs: dict) -> None:
 
 
 def no_sync_phase(steps, shapes, errs: dict) -> None:
-    """Phase 3e: each forward conv kernel called once at each VGG8B shape
-    (#6 at the serving steps' inputs, #7 at int32 training operands) with
+    """Phase 3e: each forward conv and matmul kernel called once at each
+    main-path shape (#6 and #1 at the serving steps' inputs, #7 and #2 at
+    int32 training operands, #2 also at mlp4's shapes) with
     ``torch.cuda.set_sync_debug_mode("error")``: its wrapper must not
     synchronise with the host (the digit counts are read on the card).
     The outputs are then held against the plain versions."""
     import torch
+    from repro_torch.core.scaling import linear_scale_factor
     from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv, stream_conv_fwd
     from repro_torch.kernels.nitro_conv.ref import stream_conv_fwd_ref, stream_conv_ref
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul, nitro_matmul_fwd
+    from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_fwd_ref, nitro_matmul_ref
 
     g = torch.Generator().manual_seed(9)
     calls = []
@@ -812,6 +836,17 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
             calls.append((f"stream_conv x{tuple(x.shape)} {x.dtype}",
                           lambda x=x, w=w, kw=kw: stream_conv(x, w, **kw),
                           lambda x=x, w=w, kw=kw: stream_conv_ref(x, w, **kw)))
+        else:  # the served linears: #1 on int8 operands
+            kw = dict(sf=meta.sf, alpha_inv=meta.alpha_inv, apply_relu=meta.apply_relu,
+                      operand_dtype=meta.operand_dtype,
+                      out_dtype=torch.int8 if meta.out_dtype == "int8" else torch.int32)
+            xm, wm = (x.to(torch.int8), w.to(torch.int8)) if meta.operand_dtype == "int8" \
+                else (x, w)
+            calls.append((f"nitro_matmul x{tuple(x.shape)} {xm.dtype}",
+                          lambda x=xm, w=wm, kw=kw: nitro_matmul(x, w, **kw),
+                          lambda x=xm, w=wm, kw=kw: nitro_matmul_ref(x, w, **kw)))
+    linears = [(xs, ws, sf, ai) for kind, xs, ws, sf, ai in shapes if kind == "linear"]
+    linears += [(xs, ws, linear_scale_factor(xs[1]), 10) for _, xs, ws in MLP4_SHAPES]
     for kind, xs, ws, sf, ai in shapes:
         if kind == "conv":
             x, w, _, _ = train_operands(xs, ws, g)
@@ -819,6 +854,12 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
                           lambda x=x, w=w, sf=sf, ai=ai: stream_conv_fwd(x, w, sf=sf, alpha_inv=ai),
                           lambda x=x, w=w, sf=sf, ai=ai: stream_conv_fwd_ref(x, w, sf=sf,
                                                                               alpha_inv=ai)))
+    for xs, ws, sf, ai in linears:  # #2 at VGG8B's linear and mlp4's layers
+        x, w, _, _ = train_operands(xs, ws, g)
+        calls.append((f"nitro_matmul_fwd x{xs} int32",
+                      lambda x=x, w=w, sf=sf, ai=ai: nitro_matmul_fwd(x, w, sf=sf, alpha_inv=ai),
+                      lambda x=x, w=w, sf=sf, ai=ai: nitro_matmul_fwd_ref(x, w, sf=sf,
+                                                                           alpha_inv=ai)))
     torch.cuda.synchronize()
     outs = []
     torch.cuda.set_sync_debug_mode("error")
@@ -832,8 +873,95 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
     for (what, _, plain_fn), got in zip(calls, outs):
         _pair(f"{what} (called under sync debug mode 'error')", lambda got=got: got,
               plain_fn, errs)
-    print(f"[no-sync] {len(calls)} calls of stream_conv / stream_conv_fwd ran under "
-          f"torch.cuda.set_sync_debug_mode('error') without a host sync")
+    print(f"[no-sync] {len(calls)} calls of stream_conv / stream_conv_fwd / nitro_matmul / "
+          f"nitro_matmul_fwd ran under torch.cuda.set_sync_debug_mode('error') without a "
+          f"host sync")
+
+
+#: the matmul kernels' main-path shapes (M, K, N): the served linear and
+#: output layer (int8 operands, batch 32), VGG8B's training linear and
+#: mlp4's two layer shapes (int32 operands, batch 64)
+MATMUL_SHAPES = [((BATCH, 2048, 1024), "int8"), ((BATCH, 1024, 10), "int8"),
+                 ((TRAIN_BATCH, 2048, 1024), "int32"), ((TRAIN_BATCH, 3072, 3000), "int32"),
+                 ((TRAIN_BATCH, 3000, 3000), "int32")]
+#: ragged matmul shapes: M ∈ {1, 3, 33, 65, 1000}, K not a multiple of 16
+#: or deep enough for three splits of at most 16,384, N = 10 and ragged
+RAGGED_MATMUL = [(1, 7, 10), (3, 100, 10), (33, 300, 70), (65, 130, 67), (1000, 20, 10),
+                 (3, 40000, 10), (33, 2050, 130)]
+
+
+def matmul_digits_run(x, w) -> str:
+    """The digit products the matmul kernels run on x and w (their
+    pre-passes' rule, read here on the host for the report)."""
+    return fwd_digits_run(x, w)
+
+
+def matmul_digit_parity(errs: dict) -> None:
+    """Phase 3f: #1 and #2 (split-K over exact digits) vs their plain
+    versions, bitwise, on every digit path — x and w of one to four digits,
+    16 variants, INT32_MIN/MAX planted at four — at every main-path shape
+    and the ragged ones, each case called twice (a slot, map or arrival
+    counter left wrong would show on the second call); #1 on int8 operands
+    at every shape, also with an int8 x whose rows are not 16-byte aligned
+    (the x pre-pass) and with a K that is not a multiple of 16; #2 on w
+    with one 64×64 tile of four digits among one-digit tiles (the tile
+    map's zero-filled planes); then the arrival counters must be zero."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul, nitro_matmul_fwd
+    from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_fwd_ref, nitro_matmul_ref
+
+    g = torch.Generator().manual_seed(10)
+
+    def ints(shape, nd):
+        lim = DIGIT_LIMS[nd]
+        t = torch.randint(-lim, lim, shape, generator=g, dtype=torch.int64).to(torch.int32)
+        if nd == 4 and t.numel() >= 2:
+            t.view(-1)[:2] = torch.tensor([I32[0], I32[1] - 1], dtype=torch.int32)
+        return t.cuda()
+
+    def int8s(shape):
+        return torch.randint(-128, 128, shape, generator=g).to(torch.int8).cuda()
+
+    cases = [("step", sh) for sh, _ in MATMUL_SHAPES] + [("ragged", sh) for sh in RAGGED_MATMUL]
+    for tag, (m, k, n) in cases:
+        sf = 3 << 9
+        for nx, nw in [(nx, nw) for nx in DIGIT_LIMS for nw in DIGIT_LIMS]:
+            x, w = ints((m, k), nx), ints((k, n), nw)
+            relu = (nx + nw) % 2 == 0  # the ReLU and the out dtype vary with the path
+            kw = dict(sf=sf, apply_relu=relu, out_dtype=torch.int8 if relu else torch.int32)
+            what = f"{tag} ({m},{k},{n}) ({matmul_digits_run(x, w)})"
+            for rep in (1, 2):
+                _pair(f"nitro_matmul_fwd {what} call {rep}",
+                      lambda: nitro_matmul_fwd(x, w, sf=sf), lambda: nitro_matmul_fwd_ref(x, w, sf=sf),
+                      errs)
+                _pair(f"nitro_matmul int32 operands {what} relu={relu} call {rep}",
+                      lambda: nitro_matmul(x, w, **kw), lambda: nitro_matmul_ref(x, w, **kw), errs)
+        x8, w8 = int8s((m, k)), int8s((k, n))
+        for relu, out in ((True, torch.int8), (False, torch.int32)):
+            kw = dict(sf=sf, apply_relu=relu, out_dtype=out, operand_dtype="int8")
+            for rep in (1, 2):
+                _pair(f"nitro_matmul int8 operands {tag} ({m},{k},{n}) relu={relu} call {rep}",
+                      lambda: nitro_matmul(x8, w8, **kw), lambda: nitro_matmul_ref(x8, w8, **kw),
+                      errs)
+        buf = int8s((m * k + 1,))
+        xo = buf[1:].view(m, k)  # rows 1 byte off 16-byte alignment
+        kw = dict(sf=sf, out_dtype=torch.int8, operand_dtype="int8")
+        _pair(f"nitro_matmul int8 operands {tag} ({m},{k},{n}) x misaligned",
+              lambda: nitro_matmul(xo, w8, **kw), lambda: nitro_matmul_ref(xo, w8, **kw), errs)
+        x = torch.randint(-127, 128, (m, k), generator=g).to(torch.int32).cuda()
+        w = torch.randint(-4, 5, (k, n), generator=g).to(torch.int32).cuda()
+        w[k // 2, n // 2] = I32[0]
+        for rep in (1, 2):
+            _pair(f"nitro_matmul_fwd {tag} ({m},{k},{n}) one tile of w with 4 digits call {rep}",
+                  lambda: nitro_matmul_fwd(x, w, sf=sf), lambda: nitro_matmul_fwd_ref(x, w, sf=sf),
+                  errs)
+    _, arrivals = cuda_lib.split_workspace(torch.device("cuda", torch.cuda.current_device()),
+                                           1000, 3000)
+    if bool(arrivals.any()):
+        die("nitro_matmul / nitro_matmul_fwd left an arrival counter non-zero")
+    print("[parity] nitro_matmul / nitro_matmul_fwd: every digit path at every main-path "
+          "and ragged shape, twice each; arrival counters left zero")
 
 
 def _trees(state, metrics):
@@ -1169,7 +1297,9 @@ def work(meta, a, w, out_elems: int, out_itemsize: int):
 
 def timing(steps, card: str) -> dict:
     """Phase 6: per-step kernel / plain / bound times of the serving
-    kernels, with the forward conv's digit products and device time."""
+    kernels, with the forward conv's digit products and device time; #1's
+    ``ms`` is its device time per call (its launches are shorter than the
+    wrapper's host path), the back-to-back time beside it."""
     import torch
 
     per_kernel: dict[str, dict] = {}
@@ -1179,12 +1309,17 @@ def timing(steps, card: str) -> dict:
         ms = time_cuda(lambda: run_step(meta, a, w, "cuda"), iters=50, warmup=5)
         plain = time_cuda(lambda: run_step(meta, a, w, "reference"), iters=5, warmup=1)
         ops, nbytes = work(meta, a, w, out.numel(), out.element_size())
-        bound, by = add_time(per_kernel, kernel, ms, plain, ops, nbytes)
+        x = a.to(torch.int8) if meta.operand_dtype == "int8" else a
         how = ""
         if kernel == "stream_conv":
-            x = a.to(torch.int8) if meta.operand_dtype == "int8" else a
             how = (f" ({fwd_digits_run(x, w)}; "
                    f"{conv_device_split(lambda: run_step(meta, a, w, 'cuda'))})")
+        else:
+            events, (ms, gemm) = ms, matmul_device(lambda: run_step(meta, a, w, "cuda"))
+            how = (f" (device, profiler: GEMM {gemm:.4f}, pre-passes and memset "
+                   f"{ms - gemm:.4f}; {matmul_digits_run(x, w)}; back to back through the "
+                   f"wrapper {events:.4f} ms)")
+        bound, by = add_time(per_kernel, kernel, ms, plain, ops, nbytes)
         print(f"[time] {card} | step {i} {kernel} in{tuple(a.shape)} "
               f"w{tuple(w.shape)} operands={meta.operand_dtype} | kernel "
               f"{ms:.4f} ms{how} | plain {plain:.4f} ms | bound {bound:.5f} ms "
@@ -1192,7 +1327,41 @@ def timing(steps, card: str) -> dict:
               f"{100 * bound / ms:.2f}% of bound | library none")
         if kernel == "stream_conv":
             fwd_int_mm_yardstick(tuple(a.shape), tuple(w.shape), card, f"step {i}")
+        else:
+            matmul_int_mm_yardstick(tuple(a.shape), tuple(w.shape), card, f"step {i}")
     return per_kernel
+
+
+def matmul_device(fn, calls: int = 20, tries: int = 3) -> tuple[float, float]:
+    """``(device ms of one matmul kernel call, its digit GEMM's ms)`` from
+    the profiler — every device operation of the call (the memset, the
+    pre-passes, the GEMM) — from a session that saw every GEMM launch."""
+    for _ in range(tries):
+        _, kernels = device_profile(fn, calls)
+        hits = [(ms, n) for k, (ms, n) in kernels.items() if "matmul_digit_kernel" in k]
+        if sum(n for _, n in hits) == calls:
+            return (sum(ms for ms, _ in kernels.values()) / calls,
+                    sum(ms for ms, _ in hits) / calls)
+    die(f"profiler saw {hits} launches of matmul_digit_kernel, expected {calls}")
+
+
+def matmul_int_mm_yardstick(xs, ws, card: str, tag: str) -> None:
+    """A yardstick the port never calls: ``torch._int_mm`` at a matmul's
+    int8 GEMM shape (one digit product), M raised to 17 and N to a multiple
+    of 8 where ``_int_mm`` requires it (the output layer's N = 10 → 16)."""
+    import torch
+
+    m, k, n = max(xs[0], 17), xs[1], -(-ws[1] // 8) * 8
+    try:
+        a = torch.randint(-128, 128, (m, k), dtype=torch.int8, device="cuda")
+        b = torch.randint(-128, 128, (n, k), dtype=torch.int8, device="cuda").t()
+        ms = time_cuda(lambda: torch._int_mm(a, b), iters=50, warmup=5)
+        _, kernels = device_profile(lambda: torch._int_mm(a, b), 20)
+        dev = sum(v for v, _ in kernels.values()) / 20
+        print(f"[yardstick] {card} | {tag} torch._int_mm ({m}x{k}) . ({k}x{n}) int8 -> int32, "
+              f"one digit product of the matmul: device {dev:.4f} ms, back to back {ms:.4f} ms")
+    except RuntimeError as e:  # a yardstick only: report, not fatal
+        print(f"[yardstick] {card} | {tag} torch._int_mm: not measured ({e})")
 
 
 def conv_device_split(fn, calls: int = 10, tries: int = 3) -> str:
@@ -1267,6 +1436,8 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
     path's own operands (the CLI's first batch and the seeded init, whose
     digits decide its products), and beside them on w of ±2^15."""
     import torch
+    from repro_torch.core.scaling import linear_scale_factor
+    from repro_torch.kernels.nitro_matmul.ops import fused_matmul_fwd
 
     g = torch.Generator().manual_seed(3)
     convs = iter(main_path_conv_operands())
@@ -1283,13 +1454,25 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
             xm, wm = next(convs)
             cuda = (train_calls(kind, xm, wm, delta, z, sf, ai, "cuda")[0], *cuda[1:])
             plain = (train_calls(kind, xm, wm, delta, z, sf, ai, "reference")[0], *plain[1:])
+        if kind == "linear":  # #2 at the init's range (±4: one product), beside ±2^15
+            wide = time_cuda(cuda[0], iters=20, warmup=3)
+            print(f"[time] {card} | train step {i} nitro_matmul_fwd on w +-2^15 "
+                  f"({matmul_digits_run(x, w)}) | kernel {wide:.4f} ms back to back")
+            wm = torch.randint(-4, 5, ws, generator=g).to(torch.int32).cuda()
+            cuda = (train_calls(kind, x, wm, delta, z, sf, ai, "cuda")[0], *cuda[1:])
+            plain = (train_calls(kind, x, wm, delta, z, sf, ai, "reference")[0], *plain[1:])
         for kernel, fn, pfn in zip(names, cuda[:2], plain[:2]):
             ms = time_cuda(fn, iters=20, warmup=3)
             plain_ms = time_cuda(pfn, iters=3, warmup=1)
             ops, nbytes = train_work(kind, kernel, xs, ws)
-            bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
             dev = (f" (device, profiler: {device_ms(fn, 'grad_w_kernel', 20):.4f} ms)"
                    if kernel == "nitro_matmul_grad_w" else "")
+            if kernel == "nitro_matmul_fwd":  # shorter than its wrapper's host path
+                events, (ms, gemm) = ms, matmul_device(fn)
+                dev = (f" (device, profiler: GEMM {gemm:.4f}, pre-passes and memset "
+                       f"{ms - gemm:.4f}; {matmul_digits_run(x, wm)}; back to back through "
+                       f"the wrapper {events:.4f} ms)")
+            bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
             if kernel == "stream_conv_grad_w":
                 dev = f" ({digits_run(x, delta, z, ai)}; delta +-2^20)"
             if kernel == "stream_conv_fwd":
@@ -1305,6 +1488,26 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
                   f"(no mask on load) | kernel {ms:.4f} ms")
             int_mm_yardstick(xs, ws, card, i)
             fwd_int_mm_yardstick(xs, ws, card, f"train step {i}")
+        else:
+            matmul_int_mm_yardstick(xs, ws, card, f"train step {i}")
+    for xs, ws in [sh[1:] for sh in MLP4_SHAPES]:  # #2 at mlp4's layers
+        x, _, _, _ = train_operands(xs, ws, g)
+        wm = torch.randint(-4, 5, ws, generator=g).to(torch.int32).cuda()
+        sf = linear_scale_factor(xs[1])
+        fn = lambda x=x, w=wm, sf=sf: fused_matmul_fwd(x, w, sf=sf, backend="cuda")  # noqa: E731
+        events = time_cuda(fn, iters=20, warmup=3)
+        ms, gemm = matmul_device(fn)
+        plain_ms = time_cuda(lambda: fused_matmul_fwd(x, wm, sf=sf, backend="reference"),
+                             iters=3, warmup=1)
+        ops, nbytes = train_work("linear", "nitro_matmul_fwd", xs, ws)
+        bound = max(ops / PEAK_OPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES else "bytes"
+        print(f"[time] {card} | mlp4 nitro_matmul_fwd x{xs} w{ws} int32 | kernel {ms:.4f} ms "
+              f"(device, profiler: GEMM {gemm:.4f}, pre-passes and memset {ms - gemm:.4f}; "
+              f"{matmul_digits_run(x, wm)}; back to back through the wrapper {events:.4f} ms) | "
+              f"plain {plain_ms:.4f} ms | bound {bound:.5f} ms ({by}: {ops / 1e9:.3f} Gop, "
+              f"{nbytes / 1e6:.3f} MB) | {100 * bound / ms:.2f}% of bound | library none")
+        matmul_int_mm_yardstick(xs, ws, card, "mlp4")
 
 
 def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
@@ -1551,6 +1754,7 @@ def main() -> int:
     train_parity(shapes, errs)
     opt_parity(shapes, cfg, params, errs)
     grad_x_parity(shapes, errs)
+    matmul_digit_parity(errs)
     no_sync_phase(steps, shapes, errs)
     res, launches = main_path()
     train_res, train_ref, train_launches = train_path()

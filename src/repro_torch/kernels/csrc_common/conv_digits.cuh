@@ -312,31 +312,7 @@ __device__ __forceinline__ void run_w(int nw, const ConvArgs& g, int8_t* smem, i
 
 // ------------------------------------------------------------ epilogue
 
-// NITRO Scaling and NITRO-ReLU as nitro::Epilogue computes them, with the
-// two floor divisions by multiply-high (FastDiv) in place of a divide:
-// an integer divide is tens of instructions, and these epilogues scale
-// every one of a tile's 8,192 sums.  (nitro::Epilogue keeps its divides:
-// nitro_matmul_fwd, whose epilogue is a small part, ran slower with this
-// form on an H100.)
-struct FastEpilogue {
-  int shift;
-  FastDiv residual, alpha_inv;
-  int mu, apply_relu;
-
-  FastEpilogue(int shift_, int residual_, int alpha_inv_, int mu_, int apply_relu_)
-      : shift(shift_), residual((unsigned)residual_), alpha_inv((unsigned)alpha_inv_),
-        mu(mu_), apply_relu(apply_relu_) {}
-
-  __device__ __forceinline__ int scale(int z) const { return residual.floor_div(z >> shift); }
-  __device__ __forceinline__ int relu(int z) const {
-    z = z < 0 ? alpha_inv.floor_div(max(z, -127)) : min(z, 127);
-    return z - mu;
-  }
-  __device__ __forceinline__ int operator()(int z) const {
-    z = scale(z);
-    return apply_relu ? relu(z) : z;
-  }
-};
+using nitro::FastEpilogue;
 
 // The epilogue stages a tile's values in shared memory (the ring's first
 // 36,864 B, free after the main loop), 72 ints a row so that the mma
@@ -447,11 +423,11 @@ inline int prepare(const Layout& L, const void* x, bool x_int8, const void* w, b
     if (w_int8)
       digits::delta_digits_kernel<false, int8_t><<<grid, 256, 0, st>>>(
           (const int8_t*)w, nullptr, s + L.wb_off, L.M, L.F, L.Mp, L.wb_plane, FastDiv(1),
-          &flags->w_digits);
+          &flags->w_digits, nullptr);
     else
       digits::delta_digits_kernel<false, int32_t><<<grid, 256, 0, st>>>(
           (const int32_t*)w, nullptr, s + L.wb_off, L.M, L.F, L.Mp, L.wb_plane, FastDiv(1),
-          &flags->w_digits);
+          &flags->w_digits, nullptr);
   }
   return (int)cudaGetLastError();
 }

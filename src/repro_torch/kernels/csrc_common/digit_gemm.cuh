@@ -133,14 +133,23 @@ __global__ void x_range_kernel(const int32_t* __restrict__ x, long long n,
 // each (digit, filter) row of 64 bytes as four 16-byte stores.  `need`
 // gets the most digits any (masked) value needs.  The forward conv
 // kernels run it unmasked on the (K²C, F) weight (P = K²C, T int32 or
-// int8), which it writes as the (F, K²C) digit planes their GEMM reads.
+// int8), which it writes as the (F, K²C) digit planes their GEMM reads,
+// and the matmul kernels on the (K, N) weight, written as (N, K) planes.
+// An int8 T writes plane 0 alone: its digits 1–3 are zero, and a reader
+// told one digit (the flag) reads no other plane.  With `tile_need` the
+// block also records its own 64 × 64 tile's digit count there (entry
+// blockIdx.y · gridDim.x + blockIdx.x) and writes only those planes: a
+// reader that zero-fills the tile's other planes (the matmul GEMM) saves
+// their bytes both ways.  The conv GEMMs pass null and read every plane.
+// One atomic on `need_out` a block at most (the block's own count).
 template <bool MASK, typename T = int32_t>
 __global__ void __launch_bounds__(256)
 delta_digits_kernel(const T* __restrict__ delta,
                     const int32_t* __restrict__ z, int8_t* __restrict__ db,
                     int P, int F, long long Pp, long long plane,
-                    FastDiv alpha_inv, int* need_out) {
+                    FastDiv alpha_inv, int* need_out, uint8_t* tile_need) {
   __shared__ unsigned s[MAXD][64][PT / 4 + 1];
+  __shared__ unsigned warp_need[8];
   const int p0 = blockIdx.x * PT, f0 = blockIdx.y * 64;
   const int fl = threadIdx.x % 64, f = f0 + fl;
   unsigned need = 1u;
@@ -168,13 +177,25 @@ delta_digits_kernel(const T* __restrict__ delta,
     for (int j = 0; j < MAXD; ++j) s[j][fl][pw] = w[j];
   }
   need = __reduce_max_sync(0xffffffffu, need);
-  if (threadIdx.x % 32 == 0) atomicMax(need_out, (int)need);
+  if (threadIdx.x % 32 == 0) warp_need[threadIdx.x / 32] = need;
   __syncthreads();
+  unsigned tile = 1u;  // the block's own need
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
+  for (int i = 0; i < 8; ++i) tile = max(tile, warp_need[i]);
+  // one atomic a block at most, none once the flag holds as much: the
+  // flag only grows, so a stale read can only cost an atomic
+  if (threadIdx.x == 0 && (int)tile > __ldcg(need_out)) atomicMax(need_out, (int)tile);
+  constexpr int PLANES = sizeof(T) == 1 ? 1 : MAXD;  // an int8 value is its own d0
+  int planes = PLANES;
+  if (tile_need) {  // this tile's planes past its own need stay unwritten
+    planes = min(planes, (int)tile);
+    if (threadIdx.x == 0) tile_need[(size_t)blockIdx.y * gridDim.x + blockIdx.x] = (uint8_t)tile;
+  }
+#pragma unroll
+  for (int e = 0; e < PLANES; ++e) {
     const int item = threadIdx.x + 256 * e;
     const int c = item % 4, r = (item / 4) % 64, j = item / 256;
-    if (f0 + r < F) {
+    if (j < planes && f0 + r < F) {
       const uint4 v = make_uint4(s[j][r][4 * c], s[j][r][4 * c + 1],
                                  s[j][r][4 * c + 2], s[j][r][4 * c + 3]);
       *reinterpret_cast<uint4*>(db + j * plane + (size_t)(f0 + r) * Pp + p0 + 16 * c) = v;
@@ -541,15 +562,23 @@ digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, gemm::SgdOut o) {
 
 // Splits of a contraction Pp deep over `tiles` output tiles for `slots`
 // resident blocks, each split a multiple of BK, at most MAX_CHUNK and at
-// least 8 stages deep: the count with the least estimated time, in
-// stages, waves × (stages a split + epi), the fewest on a tie.  `epi` is
-// what a split's flush costs beyond its stages when there is more than
+// least `min_per` stages deep: the count with the least estimated time,
+// in stages, waves × (stages a split + epi), the fewest on a tie.  `epi`
+// is what a split's flush costs beyond its stages when there is more than
 // one: the fuse_opt flush waits on the workspace atomics and the arrival
 // counter before its block can retire, and with one block an SM the next
 // block waits too (about 12 stages); the plain flush's atomics mostly
 // retire in the background (3: a split's pipeline fill and atomics).
+// The grad_W GEMMs have many tiles and keep splits 8 stages deep or more.
+// The matmul digit GEMM (nitro_matmul.cu) has few tiles at a batch of
+// 32–64, so it takes splits down to one stage, and its flush, where the
+// last split reads every other split's tile back, adds `tail` stages per
+// split beyond the first: 32×2048 · 2048×1024 is 16 tiles × 32 stages,
+// which at 132 slots (one block an SM: two blocks on one SM share its
+// bandwidth), epi 8 and tail 1 plans 4 splits of 8 stages (64 blocks);
+// 64×3072 · 3072×3000 is 47 tiles × 48 stages: 2 splits of 24.
 inline void plan_splits(long long tiles, long long Pp, int slots, int epi, int* splits,
-                        int* p_chunk) {
+                        int* p_chunk, int min_per = 8, int tail = 0) {
   const long long stages = Pp / BK;
   if (stages == 0) {  // P = 0: one empty split (the update still applies)
     *p_chunk = BK;
@@ -557,7 +586,7 @@ inline void plan_splits(long long tiles, long long Pp, int slots, int epi, int* 
     return;
   }
   const long long least = (Pp + MAX_CHUNK - 1) / MAX_CHUNK;
-  long long most = stages / 8;
+  long long most = stages / min_per;
   if (most < least) most = least;
   if (most > 65535) most = 65535;
   long long want = least, best = -1;
@@ -566,7 +595,7 @@ inline void plan_splits(long long tiles, long long Pp, int slots, int epi, int* 
     const long long n = (stages + per - 1) / per;  // splits that many make
     if (n != s) continue;
     const long long waves = (tiles * s + slots - 1) / slots;
-    const long long est = waves * (per + (s > 1 ? epi : 0));
+    const long long est = waves * (per + (s > 1 ? epi : 0)) + tail * (s - 1);
     if (best < 0 || est < best) {
       best = est;
       want = s;
@@ -597,7 +626,7 @@ inline int prepare(const Layout& L, const void* x, const void* delta, const void
   auto dk = z ? delta_digits_kernel<true> : delta_digits_kernel<false>;
   dk<<<dgrid, 256, 0, st>>>((const int32_t*)delta, (const int32_t*)z, s + L.db_off, L.P,
                             L.F, L.Pp, L.db_plane, FastDiv((unsigned)alpha_inv),
-                            &flags->delta_digits);
+                            &flags->delta_digits, nullptr);
   if (win > 48 * 1024) {
     err = cudaFuncSetAttribute(patch_digits_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)win);

@@ -70,6 +70,32 @@ struct FastDiv {
   }
 };
 
+// NITRO Scaling and NITRO-ReLU as Epilogue computes them, with the two
+// floor divisions by multiply-high (FastDiv) in place of a divide: an
+// integer divide is tens of instructions, and the forward conv epilogues
+// scale every one of a tile's 8,192 sums.  Built on the host.  The matmul
+// kernels use it too (tools_torch/digit_gemm_variants.py times it there
+// against Epilogue's divide instructions).
+struct FastEpilogue {
+  int shift;
+  FastDiv residual, alpha_inv;
+  int mu, apply_relu;
+
+  FastEpilogue(int shift_, int residual_, int alpha_inv_, int mu_, int apply_relu_)
+      : shift(shift_), residual((unsigned)residual_), alpha_inv((unsigned)alpha_inv_),
+        mu(mu_), apply_relu(apply_relu_) {}
+
+  __device__ __forceinline__ int scale(int z) const { return residual.floor_div(z >> shift); }
+  __device__ __forceinline__ int relu(int z) const {
+    z = z < 0 ? alpha_inv.floor_div(max(z, -127)) : min(z, 127);
+    return z - mu;
+  }
+  __device__ __forceinline__ int operator()(int z) const {
+    z = scale(z);
+    return apply_relu ? relu(z) : z;
+  }
+};
+
 // ⌊a / d⌋ for a divisor d ≠ 0 of either sign that is only known on the
 // device (γ_inv): |d| by FastDiv, the sign folded into the dividend, which
 // is negated in 64 bits so that a = −2³¹ wraps as XLA's int32 floor

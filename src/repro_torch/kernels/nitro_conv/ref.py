@@ -21,6 +21,14 @@ from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.layers import im2col, window_view_2x2
 from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_forward
+from repro_torch.kernels.digit_planes import (  # noqa: F401  (re-exported)
+    N_DIGITS,
+    PIXEL_TILE,
+    digits_needed,
+    padded_planes,
+    s8_digits,
+    x_fits_s8,
+)
 from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
 
 #: Default row-band height of the CUDA kernel (the JAX package's
@@ -236,51 +244,6 @@ def stream_conv_grad_x_ref(
 # needs.  Bitwise the same function as stream_conv_grad_w_ref.
 # ---------------------------------------------------------------------------
 
-#: Digits of an int32 and the pixel tile the planes are padded to.
-N_DIGITS = 4
-PIXEL_TILE = 64
-
-
-def s8_digits(v: torch.Tensor) -> torch.Tensor:
-    """(4, *v.shape) int8: the balanced base-256 digits d0..d3 of int32 v,
-    each in [−128, 127], with v ≡ Σ_i 2^(8i)·d_i (mod 2^32).
-
-    d0 = ((v + 128) mod 256) − 128, then v ← (v − d0) / 256, and so on,
-    worked mod 2^32; the top digit keeps what is left and wraps mod 256.
-    """
-    u = v.to(torch.int64) & 0xFFFFFFFF
-    out = []
-    for _ in range(N_DIGITS - 1):
-        d = ((u + 128) & 255) - 128
-        out.append(d)
-        u = ((u - d) & 0xFFFFFFFF) >> 8
-    out.append(((u + 128) & 255) - 128)
-    return torch.stack(out).to(torch.int8)
-
-
-def digits_needed(v: torch.Tensor) -> int:
-    """What the kernel's δ pre-pass records: 1 + the index of the highest
-    nonzero digit of any element (1 when every element is 0)."""
-    nonzero = s8_digits(v).reshape(N_DIGITS, -1).ne(0).any(dim=1)
-    return 1 + max((i for i in range(N_DIGITS) if bool(nonzero[i])), default=0)
-
-
-def x_fits_s8(x: torch.Tensor) -> bool:
-    """What the kernel's x pre-pass records: every x in [−128, 127], so x
-    is its own digit 0 and needs no other plane."""
-    return x.numel() == 0 or bool(((x >= -128) & (x <= 127)).all())
-
-
-def _pixel_planes(rows: torch.Tensor, digits: int) -> torch.Tensor:
-    """(R, P) int32 → (digits, R, Pp) int8 digit planes, P zero-padded to
-    a multiple of the pixel tile."""
-    r, p = rows.shape
-    pp = -(-p // PIXEL_TILE) * PIXEL_TILE
-    planes = torch.zeros((digits, r, pp), dtype=torch.int8, device=rows.device)
-    planes[:, :, :p] = s8_digits(rows)[:digits]
-    return planes
-
-
 def patch_digit_planes(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
     """The x pre-pass: the im2col patch matrix of x (N,H,W,C), transposed
     to (K·K·C, N·H·W) rows m = (ki·K + kj)·C + c, as digit planes
@@ -288,7 +251,7 @@ def patch_digit_planes(x: torch.Tensor, kernel_size: int) -> torch.Tensor:
     n, h, w_sp, c = x.shape
     k = kernel_size
     patches = im2col(x.to(INT_DTYPE), k, k // 2).reshape(n * h * w_sp, k * k * c)
-    return _pixel_planes(patches.T, 1 if x_fits_s8(x) else N_DIGITS)
+    return padded_planes(patches.T, 1 if x_fits_s8(x) else N_DIGITS)
 
 
 def delta_digit_planes(grad_out: torch.Tensor, z_star: torch.Tensor | None = None,
@@ -300,7 +263,7 @@ def delta_digit_planes(grad_out: torch.Tensor, z_star: torch.Tensor | None = Non
     if z_star is not None:
         g = nitro_relu_backward(z_star, g, alpha_inv)
     rows = g.reshape(-1, g.shape[-1]).T
-    return _pixel_planes(rows, N_DIGITS), digits_needed(g)
+    return padded_planes(rows, N_DIGITS), digits_needed(g)
 
 
 def digit_grad_w(xa: torch.Tensor, db: torch.Tensor, nd: int) -> torch.Tensor:
@@ -398,7 +361,7 @@ def w_digit_planes(w: torch.Tensor) -> tuple[torch.Tensor, int]:
     planes (4, F, Mp), and the digits it needs."""
     k, _, c, f = w.shape
     flat = w.to(INT_DTYPE).reshape(k * k * c, f)
-    return _pixel_planes(flat.T, N_DIGITS), digits_needed(flat)
+    return padded_planes(flat.T, N_DIGITS), digits_needed(flat)
 
 
 def conv_digit_rows(n: int, h: int, w_sp: int, *, pool: bool) -> torch.Tensor:

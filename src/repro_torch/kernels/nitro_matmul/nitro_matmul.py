@@ -16,7 +16,8 @@
     (``_nitro_grad_x_kernel``): ``relu_bwd(z*, δ) @ wᵀ`` with w read in
     its natural layout — the training input gradient.
 
-Sources: ``csrc/nitro_matmul.cu`` (the first two),
+Sources: ``csrc/nitro_matmul.cu`` (the first two: a split-K GEMM on the
+int8 tensor cores over exact base-256 digits),
 ``csrc/nitro_matmul_grad_w.cu``, ``csrc/nitro_matmul_grad_w_opt.cu`` and
 ``csrc/nitro_matmul_grad_x.cu``, which note each kernel's bound and
 design.  The wrappers take CUDA tensors only; the dispatchers in
@@ -34,12 +35,48 @@ from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.nitro_matmul_launch
+def _digit_operand(t: torch.Tensor) -> torch.Tensor:
+    """x or w as the digit kernels read them: int8 or int32 as they are
+    (int16 lifted to int32), contiguous."""
+    if t.dtype == torch.int16:
+        t = t.to(torch.int32)
+    return t.contiguous()
+
+
+def _digit_call(name: str, x: torch.Tensor, w: torch.Tensor, outs, *args) -> None:
+    """Launch ``name`` (``csrc/nitro_matmul.cu``'s split-K digit GEMM) on x
+    (M,K) and w (K,N), int8 or int32 each, into ``outs``; ``args`` are the
+    entry point's ints between K and the dtype flags."""
+    m, k = x.shape
+    n = w.shape[1]
+    if -(-m // cuda_lib.GEMM_TILE) > 65535:  # one block row per 64 batch rows
+        raise ValueError(f"{name}: batch exceeds the kernel's grid")
+    x_int8, w_int8 = int(x.dtype == torch.int8), int(w.dtype == torch.int8)
+    # an int8 x whose rows start 16-byte aligned is read as it is
+    x_direct = int(bool(x_int8) and k % 16 == 0 and x.data_ptr() % 16 == 0)
+    lib, launch = cuda_lib.entry("nitro_matmul", f"{name}_launch", 4 + len(outs),
+                                 7 + len(args))
+    sms = cuda_lib.sm_count(x.device)
+    scratch = _scratch(lib, x.device, m, n, k, x_int8, w_int8, x_direct, sms)
+    _, arrivals = cuda_lib.split_workspace(x.device, m, n)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(
+            x.data_ptr(), w.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
+            arrivals.data_ptr(), m, n, k, *args, x_int8, w_int8, x_direct, sms, stream,
+        )
+    cuda_lib.check(lib, err, name)
+
+
+def _scratch(lib: ctypes.CDLL, device: torch.device, *shape: int) -> torch.Tensor:
+    """The call's scratch (the digit flags, w's tile map and digit planes,
+    x's digit planes, the splits' slots), sized by the library; its
+    contents need no zeroing (the GEMM reads only bytes the call writes)."""
+    fn = lib.nitro_matmul_scratch_bytes
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
+        fn.argtypes = [ctypes.c_int] * len(shape)
+        fn.restype = ctypes.c_longlong
+    return torch.empty(fn(*shape), dtype=torch.uint8, device=device)
 
 
 def nitro_matmul(
@@ -54,33 +91,30 @@ def nitro_matmul(
 ) -> torch.Tensor:
     """Fused ``nitro_relu(⌊(x @ w)/sf⌋)`` on the card: x (M,K), w (K,N).
 
-    ``operand_dtype='int8'`` takes int8 operands as they are; ``'int32'``
-    lifts int8/int16/int32 operands to int32 (as ``_accumulate_tile``
-    does).  Both give the same result.
+    ``operand_dtype='int8'`` requires int8 operands; ``'int32'`` takes
+    int8/int16/int32.  Both give the same result: the kernel reads int8
+    and int32 operands as they are and runs a split-K GEMM on the int8
+    tensor cores over exact signed base-256 digits (``csrc/nitro_matmul.cu``;
+    the plain model is ``ref.nitro_matmul_digits``), only as many products
+    as the data needs, decided on the card: one for int8 x and w.  A memset
+    and at most three device launches per call.
     """
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"bad shapes x{tuple(x.shape)} @ w{tuple(w.shape)}")
     x, w, alpha_inv = cuda_lib.check_inputs(
         "nitro_matmul", x, w, operand_dtype=operand_dtype, out_dtype=out_dtype,
-        apply_relu=apply_relu, alpha_inv=alpha_inv)
+        apply_relu=apply_relu, alpha_inv=alpha_inv, lift=False)
     m, k = x.shape
     n = w.shape[1]
-    if max(m, n, k) >= 2 ** 31:
+    if max(m, n, k) >= 2 ** 31 or m * n >= 2 ** 31:
         raise ValueError("dimensions must fit int32")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _bind(cuda_lib.load("nitro_matmul"))
     shift, residual = pow2_split(sf)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.nitro_matmul_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-            shift, residual, alpha_inv, mu_int8(alpha_inv) if apply_relu else 0,
-            int(apply_relu), int(operand_dtype == "int8"),
-            int(out_dtype == torch.int8), stream,
-        )
-    cuda_lib.check(lib, err, "nitro_matmul")
+    _digit_call("nitro_matmul", _digit_operand(x), _digit_operand(w), (out,),
+                shift, residual, alpha_inv, mu_int8(alpha_inv) if apply_relu else 0,
+                int(apply_relu), int(out_dtype == torch.int8))
     nitro_matmul.launches.add()
     return out
 
@@ -105,29 +139,28 @@ def nitro_matmul_fwd(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused training forward on the card: ``(a, z_star)``, both int32.
 
-    x (M,K) and w (K,N) are lifted to int32 (the training dtype);
-    ``z_star = ⌊x @ w / sf⌋``, ``a = nitro_relu(z_star)``.
+    x (M,K) and w (K,N), integer; ``z_star = ⌊x @ w / sf⌋``,
+    ``a = nitro_relu(z_star)``.  The products run as in ``nitro_matmul``
+    (the plain model is ``ref.nitro_matmul_fwd_digits``); a memset and at
+    most three device launches per call.
     """
     _check_2d("nitro_matmul_fwd", x, w, 1, 0)
     cuda_lib.require_cuda("nitro_matmul_fwd", x, w)
     if alpha_inv < 1:
         raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
-    x, w = cuda_lib.as_int32("nitro_matmul_fwd", x, w)
-    m, k = x.shape
-    n = w.shape[1]
+    for t in (x, w):
+        if t.dtype not in (torch.int8, torch.int16, torch.int32):
+            raise ValueError(f"nitro_matmul_fwd: integer operands expected, got {t.dtype}")
+    m, n = x.shape[0], w.shape[1]
+    if m * n >= 2 ** 31:
+        raise ValueError("nitro_matmul_fwd: dimensions must fit int32")
     a = torch.empty((m, n), dtype=torch.int32, device=x.device)
     z_star = torch.empty_like(a)
     if a.numel() == 0:
         return a, z_star
-    lib, launch = cuda_lib.entry("nitro_matmul", "nitro_matmul_fwd_launch", 4, 7)
     shift, residual = pow2_split(sf)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            x.data_ptr(), w.data_ptr(), a.data_ptr(), z_star.data_ptr(),
-            m, n, k, shift, residual, alpha_inv, mu_int8(alpha_inv), stream,
-        )
-    cuda_lib.check(lib, err, "nitro_matmul_fwd")
+    _digit_call("nitro_matmul_fwd", _digit_operand(x), _digit_operand(w), (a, z_star),
+                shift, residual, int(alpha_inv), mu_int8(alpha_inv))
     nitro_matmul_fwd.launches.add()
     return a, z_star
 

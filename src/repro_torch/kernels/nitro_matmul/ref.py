@@ -5,7 +5,9 @@ Composes integer matmul → NITRO Scaling → NITRO-ReLU (forward),
 NITRO-ReLU derivative → integer matmul (weight and input gradients) and
 the weight gradient → IntegerSGD (weight update) exactly as
 ``repro_torch.core`` defines them.  The CUDA kernels must match them bit
-for bit; the CPU path of the dispatchers runs them.
+for bit; the CPU path of the dispatchers runs them.  Last, a plain model
+of the forward matmul kernels' arithmetic on the card: exact int8 digit
+products, split-K (``matmul_w_planes`` to ``nitro_matmul_fwd_digits``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_backward, scale_forward
+from repro_torch.kernels.digit_planes import N_DIGITS, digits_needed, padded_planes
 from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
 
 
@@ -108,3 +111,126 @@ def nitro_matmul_grad_x_ref(
     natural layout → (B,M) int32."""
     g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
     return int_matmul(g, w.to(INT_DTYPE).T)
+
+
+# ---------------------------------------------------------------------------
+# The forward matmul kernels' arithmetic (csrc/nitro_matmul.cu): x and w as
+# int8 digit planes laid out K-contiguous, only the digit products the data
+# needs, the contraction split across blocks whose s32 sums stay exact, the
+# splits' tiles added mod 2^32, the epilogue on the whole sum.  Bitwise the
+# same functions as nitro_matmul_ref and nitro_matmul_fwd_ref.
+# ---------------------------------------------------------------------------
+
+#: The digit GEMM's output tile (64 columns n × 64 batch rows m), its stage
+#: (K is padded to a multiple) and the deepest split it sums in s32.
+MATMUL_TILE = 64
+STAGE = 64
+MAX_SPLIT = 16384
+#: Blocks the splits are planned for: one on each of an H100's 132 SMs.
+H100_SLOTS = 132
+
+
+def matmul_w_planes(w: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The w pre-pass: w (K, N) transposed to K-contiguous digit planes
+    (planes, N, Kp), K zero-padded to 64 — one plane for an int8 w, else
+    four — and the digits w needs."""
+    planes = padded_planes(w.to(INT_DTYPE).T, 1 if w.dtype == torch.int8 else N_DIGITS)
+    return planes, digits_needed(w)
+
+
+def matmul_x_planes(x: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The x pre-pass: x (M, K) as digit planes (planes, M, Kp) — an int8 x
+    is its own one plane (the kernel reads it as it is when 16 | K, the
+    zero columns past K coming from its zero-filled copies) — and the
+    digits x needs."""
+    planes = padded_planes(x.to(INT_DTYPE), 1 if x.dtype == torch.int8 else N_DIGITS)
+    return planes, digits_needed(x)
+
+
+def plan_splits(tiles: int, kp: int, slots: int = H100_SLOTS, epi: int = 8,
+                min_per: int = 1, tail: int = 1) -> tuple[int, int]:
+    """``digit_gemm.cuh``'s ``plan_splits`` as the matmul kernels call it:
+    ``(splits, columns a split)`` for a contraction ``kp`` deep over
+    ``tiles`` output tiles and ``slots`` resident blocks — the count with
+    the least estimated time in stages, waves × (stages a split + epi) +
+    tail × (splits − 1), each split at least ``min_per`` stages and at
+    most 16,384 columns deep, the fewest on a tie."""
+    stages = kp // STAGE
+    if stages == 0:
+        return 1, STAGE
+    least = -(-kp // MAX_SPLIT)
+    most = min(max(stages // min_per, least), 65535)
+    want, best = least, -1
+    for s in range(least, most + 1):
+        per = -(-stages // s)
+        if -(-stages // per) != s:
+            continue
+        est = -(-tiles * s // slots) * (per + (epi if s > 1 else 0)) + tail * (s - 1)
+        if best < 0 or est < best:
+            best, want = est, s
+    chunk = -(-stages // want) * STAGE
+    return -(-kp // chunk), chunk
+
+
+def digit_matmul(x: torch.Tensor, w: torch.Tensor, *, slots: int = H100_SLOTS) -> torch.Tensor:
+    """The split-K digit GEMM: z (M, N) int32 = Σ over splits of
+    Σ_{i+j ≤ 3, i < nx, j < nw} 2^(8(i+j)) · X_i · W_jᵀ (mod 2^32).
+
+    Each split's s32 sums (at most four pairs of s8 products over at most
+    16,384 columns) stay below 2^31, which is checked; a split's tile
+    combines mod 2^32 and the splits add mod 2^32, as the kernel's
+    atomics do, in any order.
+    """
+    m, n = x.shape[0], w.shape[1]
+    xb, nx = matmul_x_planes(x)
+    wb, nw = matmul_w_planes(w)
+    kp = wb.shape[-1]
+    tiles = -(-n // MATMUL_TILE) * -(-m // MATMUL_TILE)
+    splits, chunk = plan_splits(tiles, kp, slots)
+    total = torch.zeros((m, n), dtype=torch.int64)
+    for s in range(splits):
+        cols = slice(s * chunk, min(kp, (s + 1) * chunk))
+        part = torch.zeros((m, n), dtype=torch.int64)
+        for shift in range(N_DIGITS):
+            acc = torch.zeros((m, n), dtype=torch.int64)
+            for i in range(nx):
+                j = shift - i
+                if 0 <= j < nw:
+                    acc += xb[i, :, cols].to(torch.int64) @ wb[j, :, cols].to(torch.int64).T
+            if acc.numel() and int(acc.abs().max()) >= 2 ** 31:
+                raise AssertionError(f"split {s} shift {shift}: s32 sum {int(acc.abs().max())}")
+            part += acc << (8 * shift)
+        total += part & 0xFFFFFFFF
+    return (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
+
+
+def nitro_matmul_digits(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    out_dtype: torch.dtype = torch.int32,
+    slots: int = H100_SLOTS,
+) -> torch.Tensor:
+    """``nitro_matmul_ref`` computed as the CUDA kernel computes it: the
+    split-K digit GEMM, then scale (+ReLU) on the whole sum."""
+    z = scale_forward(digit_matmul(x, w, slots=slots), sf)
+    if apply_relu:
+        z = nitro_relu(z, alpha_inv)
+    return z.to(out_dtype)
+
+
+def nitro_matmul_fwd_digits(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    sf: int,
+    alpha_inv: int = 10,
+    slots: int = H100_SLOTS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``nitro_matmul_fwd_ref`` computed as the CUDA kernel computes it:
+    ``(a, z*)``, both int32."""
+    z_star = scale_forward(digit_matmul(x, w, slots=slots), sf)
+    return nitro_relu(z_star, alpha_inv), z_star

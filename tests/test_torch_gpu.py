@@ -76,6 +76,9 @@ def _ints(g, shape, dtype, device):
 
 @pytest.mark.gpu
 def test_nitro_matmul_matches_plain(cuda_device):
+    """int8 and int32 operands, ReLU on and off, int8 and int32 out; then
+    int8 x whose rows are not 16-byte aligned (the x pre-pass) and every
+    digit path of the int32 operands, each call twice."""
     g = torch.Generator().manual_seed(0)
     for (m, k, n), sf in _MM_CASES:
         for od in ("int8", "int32"):
@@ -86,6 +89,21 @@ def test_nitro_matmul_matches_plain(cuda_device):
                 want = nitro_matmul_ref(x, w, **kw)
                 torch.cuda.synchronize()
                 assert got.dtype == want.dtype and torch.equal(got, want)
+        buf = _ints(g, (m * k + 1,), torch.int8, cuda_device)
+        x, w = buf[1:].view(m, k), _ints(g, (k, n), torch.int8, cuda_device)
+        kw = dict(sf=sf, out_dtype=torch.int8, operand_dtype="int8")
+        assert torch.equal(nitro_matmul(x, w, **kw), nitro_matmul_ref(x, w, **kw))
+    for m, k, n in _MM_DIGIT_SHAPES:
+        for x_lim in _LIMS:
+            for w_lim in _LIMS:
+                x, w = _lim_ints(g, (m, k), x_lim, cuda_device), _lim_ints(g, (k, n), w_lim, cuda_device)
+                relu = x_lim < w_lim
+                kw = dict(sf=27 << 8, apply_relu=relu, out_dtype=torch.int8 if relu else torch.int32)
+                want = nitro_matmul_ref(x, w, **kw)
+                for _ in range(2):
+                    got = nitro_matmul(x, w, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), (m, k, n)
 
 
 #: bounds of x and w on the forward conv kernels' digit paths: one, two,
@@ -171,8 +189,18 @@ def _wide(g, shape, lim, device):
 _MM_TRAIN = [((5, 7, 3), 3 << 8), ((64, 300, 70), 3 << 10), ((1000, 20, 10), 3 << 4)]
 
 
+#: ragged matmul shapes on the digit paths: M of 1 to 65, K not a multiple
+#: of 16, K = 0 and K deep enough for three splits, N = 10 and ragged
+_MM_DIGIT_SHAPES = [(1, 7, 10), (3, 100, 10), (33, 300, 70), (65, 130, 67), (2, 0, 5),
+                    (3, 40000, 10)]
+
+
 @pytest.mark.gpu
 def test_nitro_matmul_fwd_matches_plain(cuda_device):
+    """The training shapes at α_inv 1, 2 and 10; then every digit path of
+    the split-K tensor-core kernel — x and w of one to four digits — each
+    call twice (a split slot or arrival counter left wrong would show),
+    and w with one 64×64 tile of four digits among one-digit tiles."""
     g = torch.Generator().manual_seed(3)
     for (m, k, n), sf in _MM_TRAIN:
         x, w = _ints(g, (m, k), torch.int32, cuda_device), _wide(g, (k, n), 2 ** 10, cuda_device)
@@ -182,6 +210,22 @@ def test_nitro_matmul_fwd_matches_plain(cuda_device):
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b)
+    for m, k, n in _MM_DIGIT_SHAPES:
+        cases = [(_lim_ints(g, (m, k), x_lim, cuda_device), _lim_ints(g, (k, n), w_lim, cuda_device))
+                 for x_lim in _LIMS for w_lim in _LIMS]
+        w = _wide(g, (k, n), 5, cuda_device)
+        if w.numel():
+            w[k // 2, n // 2] = -(2 ** 31)
+        cases.append((_wide(g, (m, k), 128, cuda_device), w))
+        for x, w in cases:
+            want = nitro_matmul_fwd_ref(x, w, sf=3 << 9, alpha_inv=10)
+            for _ in range(2):
+                got = nitro_matmul_fwd(x, w, sf=3 << 9, alpha_inv=10)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert a.dtype == b.dtype == torch.int32 and torch.equal(a, b), (m, k, n)
+    _, arrivals = cuda_lib.split_workspace(cuda_device, 65, 70)
+    assert not bool(arrivals.any())
 
 
 @pytest.mark.gpu

@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """What bounds the conv digit GEMMs on the card: their device time with the
-tensor-core MMAs, the staging copies or the stores taken out.
+tensor-core MMAs, the staging copies or the stores taken out; and the
+matmul digit GEMM's epilogue with its floor divides as multiply-highs (as
+built) against divide instructions.
 
     python3 tools_torch/digit_gemm_variants.py     # from a checkout, one CUDA card
 
@@ -26,9 +28,14 @@ Variants:
     in grad_W, w's in the forward);
   * ``no_store`` (forward only): the epilogue's writes of a and z* taken
     out (the tile is still staged in shared memory);
-  * ``ring_3`` (forward only): the ring cut from up to six stages to three.
+  * ``ring_3`` (forward only): the ring cut from up to six stages to three;
+  * ``divides`` (the matmuls, ``matmul_digit_kernel``): ``nitro::Epilogue``
+    (divide instructions) in place of ``FastEpilogue`` — a right result —
+    timed at #1's served shapes (int8, batch 32) and #2's VGG8B and mlp4
+    shapes (batch 64, x of the NITRO-ReLU range, w of the init's ±4), in
+    turns with the kernel as built.
 
-The variants' results are garbage; only their times are read.  Prints the
+The conv variants' results are garbage; only their times are read.  Prints the
 card's name and power limit, each variant's ptxas registers, then one line
 per shape.
 """
@@ -75,7 +82,22 @@ TARGETS = {
                       "    if (tile[threadIdx.x] == 0x7fffffff) z[threadIdx.x] = tile[0];")],
         "ring_3": [("conv_digits.cuh", "(FIT > 6 ? 6 : FIT)", "(FIT > 3 ? 3 : FIT)")],
     }),
+    "matmul": ("nitro_matmul", "matmul_digit_kernel", {
+        "multiply-highs": [],
+        "divides": [
+            ("nitro_matmul.cu", "  FastEpilogue ep;", "  Epilogue ep;"),
+            ("nitro_matmul.cu", "  const FastEpilogue& ep = o.ep;", "  const Epilogue& ep = o.ep;"),
+            ("nitro_matmul.cu", "nitro::FastEpilogue(shift, residual, alpha_inv, mu, apply_relu)",
+             "nitro::Epilogue{shift, residual, alpha_inv, mu, apply_relu}"),
+            ("nitro_matmul.cu", "nitro::FastEpilogue(shift, residual, alpha_inv, mu, 1)",
+             "nitro::Epilogue{shift, residual, alpha_inv, mu, 1}")],
+    }),
 }
+#: (M, K, N, int8 operands, kernel): #1's served linear and output layer,
+#: #2's VGG8B linear and mlp4's layers (the second twice in a step)
+MATMUL_SHAPES = [(32, 2048, 1024, True, "#1"), (32, 1024, 10, True, "#1"),
+                 (64, 2048, 1024, False, "#2 VGG8B"), (64, 3072, 3000, False, "#2 mlp4"),
+                 (64, 3000, 3000, False, "#2 mlp4")]
 GRAD_W_SHAPES = [((64, 32, 32, 128, 256), 2 ** 20), ((64, 16, 16, 256, 512), 2 ** 20),
                  ((64, 16, 16, 256, 512), 100)]
 FWD_SHAPES = [(64, 32, 32, 128, 256), (64, 16, 16, 256, 512), (64, 4, 4, 512, 512)]
@@ -116,19 +138,25 @@ def build(tmp: Path, target: str) -> dict[str, ctypes.CDLL]:
     return libs
 
 
-def gemm_ms(call, kernel: str) -> float:
+def gemm_ms(call, kernel: str, tries: int = 5) -> float:
+    """Best of two profiler sessions of 10 calls; a session that saw no
+    launch of ``kernel`` (the profiler drops one now and then) is run
+    again, up to ``tries`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    best = float("inf")
-    for _ in range(2):
+    times = []
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(10):
                 call()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
-        best = min(best, us / 10 / 1e3)
-    return best
+        if us > 0:
+            times.append(us / 10 / 1e3)
+        if len(times) == 2:
+            return min(times)
+    raise SystemExit(f"the profiler saw no launch of {kernel} in {tries} sessions")
 
 
 def bind(lib, name: str, n_ptrs: int, n_ints: int, n_shape: int):
@@ -189,7 +217,57 @@ def main() -> int:
                 times.append(f"{name} {gemm_ms(lambda: launch(*args), 'conv_digit_gemm'):.4f}")
             print(f"[variant] fwd x{(n, h, w, c)} w +-6 F={f}: conv_digit_gemm_kernel ms "
                   + " | ".join(times))
+        matmul_epilogues(Path(tmp), ints, sms, stream)
     return 0
+
+
+def matmul_epilogues(tmp: Path, ints, sms: int, stream: int) -> None:
+    """The matmul GEMM with each epilogue form, per shape in turns (as
+    built, divides, divides, as built; the best of each), then summed per
+    served batch (#1) and per VGG8B and mlp4 step (#2)."""
+    import torch
+
+    libs = build(tmp, "matmul")
+    arrivals = torch.zeros(64, dtype=torch.int32, device="cuda")
+    totals: dict[tuple[str, str], float] = {}
+    for m, k, n, int8, what in MATMUL_SHAPES:
+        dt = torch.int8 if int8 else torch.int32
+        x, w = ints((m, k), 128).to(dt), ints((k, n), 128 if int8 else 5).to(dt)
+        out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+        z = torch.empty_like(out)
+        best = {}
+        for name in ("multiply-highs", "divides", "divides", "multiply-highs"):
+            lib = libs[name]
+            nbytes = lib.nitro_matmul_scratch_bytes
+            nbytes.argtypes, nbytes.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+            scratch = torch.empty(nbytes(m, n, k, int(int8), int(int8), int(int8), sms),
+                                  dtype=torch.uint8, device="cuda")
+            if int8:  # #1: relu(z*) − μ as int32
+                launch = lib.nitro_matmul_launch
+                launch.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
+                args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                        arrivals.data_ptr(), m, n, k, 9, 1, 10, 0, 1, 0, 1, 1, 1, sms, stream)
+            else:  # #2: (a, z*)
+                launch = lib.nitro_matmul_fwd_launch
+                launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+                args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), z.data_ptr(),
+                        scratch.data_ptr(), arrivals.data_ptr(), m, n, k, 9, 3, 10, 0, 0, 0, 0,
+                        sms, stream)
+            launch.restype = ctypes.c_int
+            if launch(*args):
+                raise SystemExit(f"matmul variant {name}: launch failed")
+            t = gemm_ms(lambda: launch(*args), "matmul_digit")
+            best[name] = min(best.get(name, t), t)
+        for name, t in best.items():
+            key = (what, name)
+            totals[key] = totals.get(key, 0.0) + t * (2 if (m, k, n) == (64, 3000, 3000) else 1)
+        print(f"[variant] matmul ({m},{k},{n}) {'int8' if int8 else 'int32'} {what}: "
+              f"matmul_digit_kernel ms " + " | ".join(f"{a} {b:.4f}" for a, b in best.items()))
+    for what in ("#1", "#2 VGG8B", "#2 mlp4"):
+        per = "served batch" if what == "#1" else "step"
+        print(f"[fastdiv] {what} per {per}: multiply-highs "
+              f"{totals[(what, 'multiply-highs')]:.4f} ms, divides "
+              f"{totals[(what, 'divides')]:.4f} ms (GEMM device time, best of two turns)")
 
 
 if __name__ == "__main__":

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Compare the full-width VGG8B training step of two checkouts of the port
-on one CUDA card, in turns (A, B, B, A), each turn in a fresh process.
+"""Compare the full-width VGG8B training step, the served VGG8B batch and
+the full-width mlp4 training step of two checkouts of the port on one CUDA
+card, in turns (A, B, B, A), each turn in a fresh process.
 
     git archive PARENT | tar -x -C .chip_checkout/parent   # a git-ignored dir
     python3 tools_torch/step_ab.py .chip_checkout/parent .
 
-For each turn it builds the kernels the step runs (from that tree's
+For each turn it builds the kernels those paths run (from that tree's
 sources), then prints one ``[ab]`` line: the split step's and the
 ``fuse_opt`` step's host-to-host time at batch 64 (best of three turns of
 10 steps, ``torch.cuda.synchronize`` at the end) and their device busy
 time per step from ``torch.profiler`` over 3 steps (the idle share is of
-that profiled window, whose host time the profiler lengthens).  The card's
-name and power limit come first.  Needs one card; no network.
+that profiled window, whose host time the profiler lengthens); the same
+for a batch of 32 through the served plan (``ExecutionPlan.logits``, the
+seeded init, logits back on the host) and for the mlp4 step at batch 64.
+The card's name and power limit come first.  Needs one card; no network.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import sys
 import time
 from pathlib import Path
 
-TRAIN_LIBS = ["stream_conv_fwd", "nitro_matmul", "stream_conv_grad_w",
+TRAIN_LIBS = ["stream_conv", "stream_conv_fwd", "nitro_matmul", "stream_conv_grad_w",
               "stream_conv_grad_w_opt", "nitro_matmul_grad_w", "nitro_matmul_grad_w_opt"]
 
 
@@ -34,6 +37,8 @@ def turn(root: str) -> None:
 
     from repro_torch.configs import get_paper_config
     from repro_torch.core import les, prng
+    from repro_torch.core import model as M
+    from repro_torch.infer import compile_plan, freeze
     from repro_torch.kernels import cuda_lib
 
     if Path(root).resolve() not in Path(cuda_lib.__file__).resolve().parents:
@@ -48,8 +53,17 @@ def turn(root: str) -> None:
                          .astype(np.int32)).cuda()
     y = torch.from_numpy(rng.integers(0, 10, 64).astype(np.int32)).cuda()
     key = prng.PRNGKey(4)
+    plan = compile_plan(freeze(M.init_params(prng.PRNGKey(0), cfg, device="cpu"), cfg),
+                        device="cuda")
+    batch = rng.integers(-127, 128, (32, *cfg.input_shape)).astype(np.int32)
+    mcfg = get_paper_config("mlp4", scale=1.0)
+    mstate = les.create_train_state(prng.PRNGKey(0), mcfg, device="cuda")
+    mx = torch.from_numpy(rng.integers(-127, 128, (64, *mcfg.input_shape))
+                          .astype(np.int32)).cuda()
     steps = {"split": lambda: les.train_step(state, cfg, x, y, key),
-             "fuse_opt": lambda: les.train_step(state, cfg, x, y, key, fuse_opt=True)}
+             "fuse_opt": lambda: les.train_step(state, cfg, x, y, key, fuse_opt=True),
+             "served batch": lambda: plan.logits(batch).cpu(),
+             "mlp4": lambda: les.train_step(mstate, mcfg, mx, y, key)}
 
     def host_ms(fn, iters: int = 10) -> float:
         fn()
@@ -61,11 +75,12 @@ def turn(root: str) -> None:
         return (time.perf_counter() - t0) * 1e3 / iters
 
     ms: dict[str, float] = {}
-    for name in ("split", "fuse_opt", "fuse_opt", "split", "split", "fuse_opt"):
+    order = list(steps)
+    for name in order + order[::-1] + order:
         t = host_ms(steps[name])
         ms[name] = min(ms.get(name, t), t)
     parts = []
-    for name in ("split", "fuse_opt"):
+    for name in order:
         steps[name]()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -76,9 +91,10 @@ def turn(root: str) -> None:
             wall = (time.perf_counter() - t0) * 1e3
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.self_device_time_total > 0) / 1e3
-        parts.append(f"{name}: host to host {ms[name]:.3f} ms ({64e3 / ms[name]:.1f} img/s), "
-                     f"device busy {busy / 3:.3f} ms/step, idle {100 - 100 * busy / wall:.1f}% "
-                     f"of the profiled 3 steps")
+        n = 32 if name == "served batch" else 64
+        parts.append(f"{name}: host to host {ms[name]:.3f} ms ({n * 1e3 / ms[name]:.1f} img/s), "
+                     f"device busy {busy / 3:.3f} ms/call, idle {100 - 100 * busy / wall:.1f}% "
+                     f"of the profiled 3 calls")
     print(f"[ab] {root}: " + " | ".join(parts), flush=True)
 
 
