@@ -23,8 +23,9 @@ Phases, each fatal on failure:
      on every digit path — x and w each of one to four digits, 16 variants,
      INT32_MIN/MAX planted at four — at every VGG8B serving (#6) and
      training (#7) conv shape and the ragged ones, and #7 on int8 x and w;
-  3e. each forward conv and matmul kernel called once per main-path shape
-     under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
+  3e. each forward conv and matmul kernel and each linear grad_W kernel
+     called once per main-path shape under
+     ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
      wrapper: the digit counts are decided on the card), then held against
      its plain version;
   3f. the matmul kernels (split-K over exact digits on the int8 tensor
@@ -34,6 +35,12 @@ Phases, each fatal on failure:
      to 1,000, K deep enough for three splits), each case twice; #1 also on
      int8 operands, aligned and not; #2 on w with one 64×64 tile of four
      digits; the arrival counters must be left zero;
+  3g. the linear grad_W kernels (a shallow GEMM over exact digits on the
+     int8 tensor cores) on every digit path — x and masked δ of one to four
+     digits, 16 variants — at every main-path shape (VGG8B's linear, mlp4's
+     layers) and ragged ones (batches of 1, 3 and 16,385; M and N off the
+     tile), each case twice, nitro_matmul_grad_w_opt under two optimiser
+     states;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
      full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
      with the launch counts reset just before and read just after; every
@@ -68,27 +75,28 @@ Phases, each fatal on failure:
   5e. the MLP path: ``launch.train.main`` takes 4 steps of full-width mlp4
      (3072→3000×3→10) at batch 64, counted (nitro_matmul_fwd 3× and
      nitro_matmul_grad_w 3× per step), equal to ``--backend reference``;
+  5g. the same with ``--fuse-opt``, counted (nitro_matmul_fwd 3× and
+     nitro_matmul_grad_w_opt 3× per step), equal to 5e's reference run;
   5f. resume: two CLI calls of 2 VGG8B steps with one ``--ckpt-dir``, the
      second resuming from step 2, equal to the same two calls with
      ``--backend reference``; a save → restore of the card's TrainState
      is bitwise;
   6. time each kernel per step shape with CUDA events beside its bound and
-     its plain version (#1 and #2 by their device time, with the
-     ``torch._int_mm`` yardstick at their int8 GEMM shapes), the serving
-     batch latency, the split and ``fuse_opt`` training steps host to host
-     in turns, and the mlp4 step.
+     its plain version (#1–#4 by their device time, with the
+     ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3 and #4 at
+     mlp4's shapes too), the serving batch latency, the split and
+     ``fuse_opt`` training steps host to host in turns, and the mlp4 step.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
 the kernel summed over its step shapes and ``launches`` is its path's
 count; then, last, ``{"ok": true, "device": {...}}``.  ``ms`` is CUDA-event
 time over back-to-back launches, except for nitro_matmul, nitro_matmul_fwd,
-nitro_matmul_grad_w_opt and integer_sgd_update, whose launches are shorter
-than their wrappers' host path: there it is the device time
-``torch.profiler`` reports (for the matmuls every device operation of the
-call: the memset, the pre-passes and the GEMM; the back-to-back time is
-printed beside it, and nitro_matmul_grad_w's and nitro_matmul_grad_x's
-device times beside their own).  The grad_x
+nitro_matmul_grad_w, nitro_matmul_grad_w_opt, nitro_matmul_grad_x and
+integer_sgd_update, whose launches are shorter than their wrappers' host
+path: there it is the device time ``torch.profiler`` reports (for #1–#4
+every device operation of the call: the memset, the pre-passes and the
+GEMM, where there are; the back-to-back time is printed beside it).  The grad_x
 kernels' ``launches`` are phase 5d's (two passes).  Exits non-zero,
 without that line, when CUDA is absent or the script is not inside a
 checkout.
@@ -179,6 +187,7 @@ PER_GRAD_X_PASS = {"stream_conv_grad_x": 12, "nitro_matmul_grad_x": 2,
                    "stream_conv_grad_w_opt": 6, "nitro_matmul_grad_w_opt": 1}
 #: launches per mlp4 step (three linear blocks)
 PER_STEP_MLP = {"nitro_matmul_fwd": 3, "nitro_matmul_grad_w": 3}
+PER_STEP_MLP_FUSE_OPT = {"nitro_matmul_fwd": 3, "nitro_matmul_grad_w_opt": 3}
 #: mlp4's forward-layer shapes at batch 64: (kind, x shape, w shape)
 MLP4_SHAPES = [("linear", (TRAIN_BATCH, 3072), (3072, 3000)),
                ("linear", (TRAIN_BATCH, 3000), (3000, 3000))]
@@ -188,7 +197,8 @@ PARITY_CASES: Counter = Counter()
 #: (grad_W) and in conv_digits.cuh (the forward convs), RING in
 #: nitro_matmul.cu (the matmuls)
 DIGIT_GEMM_SMEM = {"digit_gemm_kernel": 184320, "conv_digit_gemm_kernel": 217088,
-                   "matmul_digit_kernelILb0": 102400, "matmul_digit_kernelILb1": 102400}
+                   "matmul_digit_kernelILb0": 102400, "matmul_digit_kernelILb1": 102400,
+                   "grad_w_digit_kernelILb0": 61440, "grad_w_digit_kernelILb1": 98304}
 I32 = (-(2 ** 31), 2 ** 31)
 #: bounds of x and w whose values need one to four base-256 digits (the
 #: last with INT32_MIN/MAX planted)
@@ -240,7 +250,8 @@ def build() -> None:
                   f"registers, spill stores up to {max(spills, default=0)} B")
         for entry in log.split("Compiling entry function")[1:]:
             kernel = next((k for k in ("conv_digit_gemm_kernel", "matmul_digit_kernelILb0",
-                                       "matmul_digit_kernelILb1", "digit_gemm_kernel",
+                                       "matmul_digit_kernelILb1", "grad_w_digit_kernelILb0",
+                                       "grad_w_digit_kernelILb1", "digit_gemm_kernel",
                                        "x_digits_kernel", "patch_digits_kernelIa",
                                        "patch_digits_kernelIi", "row_digits_kernelIa",
                                        "row_digits_kernelIi")
@@ -257,6 +268,8 @@ def build() -> None:
                       "row_digits_kernelIi": "row_digits_kernel<int32>",
                       "matmul_digit_kernelILb0": "matmul_digit_kernel<int8 only>",
                       "matmul_digit_kernelILb1": "matmul_digit_kernel<16 variants>",
+                      "grad_w_digit_kernelILb0": "grad_w_digit_kernel<grad_W>",
+                      "grad_w_digit_kernelILb1": "grad_w_digit_kernel<W' (fuse_opt)>",
                       }.get(kernel, kernel)
             print(f"[ptxas] {name}: {kernel} {r and r.group(1)} registers, "
                   f"{sm.group(1) if sm else 0} B static smem + {dyn} B dynamic, "
@@ -813,14 +826,20 @@ def grad_x_parity(shapes, errs: dict) -> None:
 
 
 def no_sync_phase(steps, shapes, errs: dict) -> None:
-    """Phase 3e: each forward conv and matmul kernel called once at each
-    main-path shape (#6 and #1 at the serving steps' inputs, #7 and #2 at
-    int32 training operands, #2 also at mlp4's shapes) with
-    ``torch.cuda.set_sync_debug_mode("error")``: its wrapper must not
-    synchronise with the host (the digit counts are read on the card).
-    The outputs are then held against the plain versions."""
+    """Phase 3e: each forward conv and matmul kernel and each linear grad_W
+    kernel called once at each main-path shape (#6 and #1 at the serving
+    steps' inputs, #7 and #2 at int32 training operands, #2, #3 and #4 at
+    VGG8B's linear and mlp4's shapes, #4 with the optimiser state's
+    tensors) with ``torch.cuda.set_sync_debug_mode("error")``: its wrapper
+    must not synchronise with the host (the digit counts are read on the
+    card).  The outputs are then held against the plain versions."""
     import torch
+    from repro_torch.core import optimizer as opt
     from repro_torch.core.scaling import linear_scale_factor
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+        nitro_matmul_grad_w, nitro_matmul_grad_w_opt)
+    from repro_torch.kernels.nitro_matmul.ref import (
+        nitro_matmul_grad_w_opt_ref, nitro_matmul_grad_w_ref)
     from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv, stream_conv_fwd
     from repro_torch.kernels.nitro_conv.ref import stream_conv_fwd_ref, stream_conv_ref
     from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul, nitro_matmul_fwd
@@ -860,6 +879,18 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
                       lambda x=x, w=w, sf=sf, ai=ai: nitro_matmul_fwd(x, w, sf=sf, alpha_inv=ai),
                       lambda x=x, w=w, sf=sf, ai=ai: nitro_matmul_fwd_ref(x, w, sf=sf,
                                                                            alpha_inv=ai)))
+    state = opt.init_state(327680, 25000, device="cuda")
+    for b, m, n in GRAD_W_SHAPES:  # #3 and #4 at the main path's digits
+        x, delta, z = grad_w_operands(b, m, n, 1, 2, g)
+        w = torch.randint(-(2 ** 15), 2 ** 15, (m, n), generator=g).to(torch.int32).cuda()
+        calls.append((f"nitro_matmul_grad_w x({b}, {m}) delta({b}, {n})",
+                      lambda x=x, d=delta, z=z: nitro_matmul_grad_w(x, d, z),
+                      lambda x=x, d=delta, z=z: nitro_matmul_grad_w_ref(x, d, z)))
+        calls.append((f"nitro_matmul_grad_w_opt x({b}, {m}) delta({b}, {n})",
+                      lambda x=x, d=delta, z=z, w=w: nitro_matmul_grad_w_opt(
+                          x, d, z, w, state.gamma_inv, state.eta_inv),
+                      lambda x=x, d=delta, z=z, w=w: nitro_matmul_grad_w_opt_ref(
+                          x, d, z, w, state.gamma_inv, state.eta_inv)))
     torch.cuda.synchronize()
     outs = []
     torch.cuda.set_sync_debug_mode("error")
@@ -874,8 +905,8 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
         _pair(f"{what} (called under sync debug mode 'error')", lambda got=got: got,
               plain_fn, errs)
     print(f"[no-sync] {len(calls)} calls of stream_conv / stream_conv_fwd / nitro_matmul / "
-          f"nitro_matmul_fwd ran under torch.cuda.set_sync_debug_mode('error') without a "
-          f"host sync")
+          f"nitro_matmul_fwd / nitro_matmul_grad_w / nitro_matmul_grad_w_opt ran under "
+          f"torch.cuda.set_sync_debug_mode('error') without a host sync")
 
 
 #: the matmul kernels' main-path shapes (M, K, N): the served linear and
@@ -962,6 +993,92 @@ def matmul_digit_parity(errs: dict) -> None:
         die("nitro_matmul / nitro_matmul_fwd left an arrival counter non-zero")
     print("[parity] nitro_matmul / nitro_matmul_fwd: every digit path at every main-path "
           "and ragged shape, twice each; arrival counters left zero")
+
+
+#: (B, M, N) of the linear grad_W kernels: the main path's (VGG8B's linear,
+#: mlp4's two layer shapes) and ragged ones (batches of 1 and 3, shorter
+#: than one MMA step, and of 16,385: 257 chunks; M and N off the 128 × 64
+#: tile)
+GRAD_W_SHAPES = [(TRAIN_BATCH, 2048, 1024), (TRAIN_BATCH, 3072, 3000),
+                 (TRAIN_BATCH, 3000, 3000)]
+RAGGED_GRAD_W = [(1, 63, 65), (3, 129, 1), (33, 65, 129), (16385, 65, 63), (5, 7, 3),
+                 (1000, 20, 10)]
+
+
+def grad_w_operands(b, m, n, nx, nd, g):
+    """x (B, M) of ``nx`` digits, δ and z* (B, N) whose masked δ needs
+    ``nd`` digits: the ranges' largest values planted first (INT32_MIN/MAX
+    at four), z* over every NITRO-ReLU segment but 0 where they sit, so
+    the mask keeps them."""
+    import torch
+
+    def ints(shape, nd):
+        lim = DIGIT_LIMS[nd]
+        t = torch.randint(-lim, lim, shape, generator=g, dtype=torch.int64).to(torch.int32)
+        if nd == 4 and t.numel() >= 2:
+            t.view(-1)[:2] = torch.tensor([I32[0], I32[1] - 1], dtype=torch.int32)
+        elif t.numel():
+            t.view(-1)[0] = lim - 1
+        return t.cuda()
+
+    z = torch.randint(-300, 301, (b, n), generator=g).to(torch.int32)
+    z.view(-1)[:2] = 0
+    return ints((b, m), nx), ints((b, n), nd), z.cuda()
+
+
+def grad_w_digits_run(x, delta, z, alpha_inv) -> str:
+    """The digit products the linear grad_W kernels run at most on these
+    operands (a tile whose own values need fewer runs fewer; the rule of
+    their block-wide counts, read here on the host for the report)."""
+    from repro_torch.kernels.digit_planes import digits_needed
+    from repro_torch.kernels.nitro_matmul.ref import masked_delta
+
+    nx, nd = digits_needed(x), digits_needed(masked_delta(delta, z, alpha_inv))
+    pairs = sum(1 for i in range(nx) for j in range(nd) if i + j < 4)
+    return f"x {nx} digits, masked delta {nd} digits: {pairs} products"
+
+
+def grad_w_digit_parity(errs: dict) -> None:
+    """Phase 3g: #3 and #4 (a shallow GEMM over exact digits on the int8
+    tensor cores) vs their plain versions, bitwise, on every digit path —
+    x and masked δ of one to four digits, 16 variants, INT32_MIN/MAX
+    planted at four — at every main-path shape and the ragged ones, each
+    case twice (the same bits); #4 under two optimiser states (the
+    forward layers' of a VGG8B run, and γ_inv = 1 without decay) with W
+    of the full int32 range; then α_inv 1 and 2."""
+    import torch
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+        nitro_matmul_grad_w, nitro_matmul_grad_w_opt)
+    from repro_torch.kernels.nitro_matmul.ref import (
+        nitro_matmul_grad_w_opt_ref, nitro_matmul_grad_w_ref)
+
+    g = torch.Generator().manual_seed(11)
+    states = [opt.init_state(327680, 25000, device="cuda"), opt.init_state(1, 0, device="cuda")]
+    cases = [("step", sh) for sh in GRAD_W_SHAPES] + [("ragged", sh) for sh in RAGGED_GRAD_W]
+    for tag, (b, m, n) in cases:
+        w = torch.randint(*I32, (m, n), generator=g, dtype=torch.int64).to(torch.int32).cuda()
+        for nx, nd in [(nx, nd) for nx in DIGIT_LIMS for nd in DIGIT_LIMS]:
+            x, delta, z = grad_w_operands(b, m, n, nx, nd, g)
+            state = states[(nx + nd) % 2]
+            what = f"{tag} ({b},{m})->{n} ({grad_w_digits_run(x, delta, z, 10)})"
+            for rep in (1, 2):
+                _pair(f"nitro_matmul_grad_w {what} call {rep}",
+                      lambda: nitro_matmul_grad_w(x, delta, z, alpha_inv=10),
+                      lambda: nitro_matmul_grad_w_ref(x, delta, z, alpha_inv=10), errs)
+                _pair(f"nitro_matmul_grad_w_opt {what} gamma_inv={int(state.gamma_inv)} "
+                      f"eta_inv={int(state.eta_inv)} call {rep}",
+                      lambda: nitro_matmul_grad_w_opt(x, delta, z, w, state.gamma_inv,
+                                                      state.eta_inv, alpha_inv=10),
+                      lambda: nitro_matmul_grad_w_opt_ref(x, delta, z, w, state.gamma_inv,
+                                                          state.eta_inv, alpha_inv=10), errs)
+        x, delta, z = grad_w_operands(b, m, n, 4, 4, g)
+        for ai in (1, 2):
+            _pair(f"nitro_matmul_grad_w {tag} ({b},{m})->{n} full range alpha_inv={ai}",
+                  lambda: nitro_matmul_grad_w(x, delta, z, alpha_inv=ai),
+                  lambda: nitro_matmul_grad_w_ref(x, delta, z, alpha_inv=ai), errs)
+    print("[parity] nitro_matmul_grad_w / nitro_matmul_grad_w_opt: every digit path at every "
+          "main-path and ragged shape, twice each")
 
 
 def _trees(state, metrics):
@@ -1170,6 +1287,25 @@ def mlp_path():
     return res, ref
 
 
+def mlp_fuse_opt_path(mlp_ref):
+    """Phase 5g: the train CLI on full-width mlp4 with --fuse-opt, counted
+    (3 nitro_matmul_grad_w_opt launches a step, no split grad_W), held
+    against the split run on the plain versions of phase 5e (fuse_opt ≡
+    split bitwise: the floor of an exact int32 sum is exact)."""
+    from repro_torch.launch import train
+
+    res, launches = counted(lambda: train.main(MLP_ARGV + ["--fuse-opt"]))
+    print(f"[train-mlp4-fuse-opt] {res['steps']} steps, launches {launches}")
+    expect_launches(launches, PER_STEP_MLP_FUSE_OPT, res["steps"], "mlp4 fuse_opt run")
+    n = same_run(res["state"], res["step_metrics"], mlp_ref["state"], mlp_ref["step_metrics"],
+                 "mlp4 fuse_opt cuda run vs reference run")
+    if res["test_accuracy"] != mlp_ref["test_accuracy"]:
+        die(f"mlp4 fuse_opt test accuracy {res['test_accuracy']} != reference "
+            f"{mlp_ref['test_accuracy']}")
+    print(f"[train-mlp4-fuse-opt] final state, {n} tensors incl. every step's metrics, and "
+          f"the test accuracy equal the reference backend's bitwise")
+
+
 def resume_path():
     """Phase 5f: two CLI calls of 2 VGG8B steps sharing a --ckpt-dir, the
     second resuming, on the kernels and on the plain versions; and a
@@ -1332,17 +1468,18 @@ def timing(steps, card: str) -> dict:
     return per_kernel
 
 
-def matmul_device(fn, calls: int = 20, tries: int = 3) -> tuple[float, float]:
+def matmul_device(fn, calls: int = 20, tries: int = 3,
+                  kernel: str = "matmul_digit_kernel") -> tuple[float, float]:
     """``(device ms of one matmul kernel call, its digit GEMM's ms)`` from
     the profiler — every device operation of the call (the memset, the
     pre-passes, the GEMM) — from a session that saw every GEMM launch."""
     for _ in range(tries):
         _, kernels = device_profile(fn, calls)
-        hits = [(ms, n) for k, (ms, n) in kernels.items() if "matmul_digit_kernel" in k]
+        hits = [(ms, n) for k, (ms, n) in kernels.items() if kernel in k]
         if sum(n for _, n in hits) == calls:
             return (sum(ms for ms, _ in kernels.values()) / calls,
                     sum(ms for ms, _ in hits) / calls)
-    die(f"profiler saw {hits} launches of matmul_digit_kernel, expected {calls}")
+    die(f"profiler saw {hits} launches of {kernel}, expected {calls}")
 
 
 def matmul_int_mm_yardstick(xs, ws, card: str, tag: str) -> None:
@@ -1462,11 +1599,12 @@ def train_timing(shapes, card: str, per_kernel: dict) -> None:
             cuda = (train_calls(kind, x, wm, delta, z, sf, ai, "cuda")[0], *cuda[1:])
             plain = (train_calls(kind, x, wm, delta, z, sf, ai, "reference")[0], *plain[1:])
         for kernel, fn, pfn in zip(names, cuda[:2], plain[:2]):
+            if kernel == "nitro_matmul_grad_w":
+                continue  # linear_grad_w_timing
             ms = time_cuda(fn, iters=20, warmup=3)
             plain_ms = time_cuda(pfn, iters=3, warmup=1)
             ops, nbytes = train_work(kind, kernel, xs, ws)
-            dev = (f" (device, profiler: {device_ms(fn, 'grad_w_kernel', 20):.4f} ms)"
-                   if kernel == "nitro_matmul_grad_w" else "")
+            dev = ""
             if kernel == "nitro_matmul_fwd":  # shorter than its wrapper's host path
                 events, (ms, gemm) = ms, matmul_device(fn)
                 dev = (f" (device, profiler: GEMM {gemm:.4f}, pre-passes and memset "
@@ -1530,8 +1668,9 @@ def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
 
 def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
     """Phase 6c: per-shape kernel / plain / bound times of the update
-    kernels — #4 and #9 at each forward layer of a step (the forward
-    layers' optimiser state), #11 on each of a step's 15 weight tensors."""
+    kernels — #9 at each conv layer of a step (the forward layers'
+    optimiser state; #4 in ``linear_grad_w_timing``), #11 on each of a
+    step's 15 weight tensors."""
     import torch
     from repro_torch.core import optimizer as opt
     from repro_torch.kernels.integer_sgd.integer_sgd import integer_sgd_update
@@ -1541,16 +1680,14 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
     gamma, eta, _ = opt_states(cfg)[0]
     state = opt.init_state(gamma, eta, device="cuda")
     for i, (kind, xs, ws, _, ai) in enumerate(shapes, 1):
+        if kind == "linear":
+            continue  # linear_grad_w_timing
         x, w, delta, z = train_operands(xs, ws, g)
-        kernel = "stream_conv_grad_w_opt" if kind == "conv" else "nitro_matmul_grad_w_opt"
+        kernel = "stream_conv_grad_w_opt"
         ms = time_cuda(opt_call(kind, x, w, delta, z, state, ai, "cuda"), iters=20, warmup=3)
         plain_ms = time_cuda(opt_call(kind, x, w, delta, z, state, ai, "reference"),
                              iters=3, warmup=1)
-        how = f" ({digits_run(x, delta, z, ai)}; delta +-2^20)" if kind == "conv" else ""
-        if kind == "linear":  # shorter than its wrapper's host path
-            events, ms = ms, device_ms(opt_call(kind, x, w, delta, z, state, ai, "cuda"),
-                                       "grad_w_opt_kernel", 20)
-            how = f" (device, profiler; back to back through the wrapper {events:.4f} ms)"
+        how = f" ({digits_run(x, delta, z, ai)}; delta +-2^20)"
         ops, nbytes = train_work(kind, kernel, xs, ws)
         bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
         print(f"[time] {card} | train step {i} {kernel} x{xs} w{ws} int32 | kernel "
@@ -1575,6 +1712,77 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
               f"{per_call:.4f} ms per call) | plain {plain_ms:.4f} ms | bound "
               f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB) | {100 * bound / ms:.2f}% "
               f"of bound | library none")
+
+
+def linear_grad_w_timing(card: str, per_kernel: dict) -> None:
+    """Phase 6e: #3 and #4 at VGG8B's linear (the kernels line's step
+    figure) and at mlp4's two layer shapes, on operands of the main path's
+    digits (x in the NITRO-ReLU range: one digit; masked δ of two): the
+    device time of every device operation of one call from the profiler
+    (a launch is shorter than its wrapper's host path), back to back
+    beside it, the bound, the plain version, and ``torch._int_mm`` at the
+    same output as a yardstick."""
+    import torch
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+        nitro_matmul_grad_w, nitro_matmul_grad_w_opt)
+    from repro_torch.kernels.nitro_matmul.ref import (
+        nitro_matmul_grad_w_opt_ref, nitro_matmul_grad_w_ref)
+
+    g = torch.Generator().manual_seed(12)
+    state = opt.init_state(327680, 25000, device="cuda")
+    for tag, (b, m, n) in zip(("train step 7", "mlp4", "mlp4"), GRAD_W_SHAPES):
+        x, delta, z = grad_w_operands(b, m, n, 1, 2, g)
+        w = torch.randint(-(2 ** 15), 2 ** 15, (m, n), generator=g).to(torch.int32).cuda()
+        calls = (("nitro_matmul_grad_w", lambda: nitro_matmul_grad_w(x, delta, z),
+                  lambda: nitro_matmul_grad_w_ref(x, delta, z)),
+                 ("nitro_matmul_grad_w_opt",
+                  lambda: nitro_matmul_grad_w_opt(x, delta, z, w, state.gamma_inv, state.eta_inv),
+                  lambda: nitro_matmul_grad_w_opt_ref(x, delta, z, w, state.gamma_inv,
+                                                      state.eta_inv)))
+        for kernel, fn, pfn in calls:
+            events = time_cuda(fn, iters=20, warmup=3)
+            ms, gemm = matmul_device(fn, kernel="grad_w_digit_kernel")
+            plain_ms = time_cuda(pfn, iters=3, warmup=1)
+            ops, nbytes = train_work("linear", kernel, (b, m), (m, n))
+            if tag.startswith("train"):
+                bound, by = add_time(per_kernel, kernel, ms, plain_ms, ops, nbytes)
+            else:
+                bound = max(ops / PEAK_OPS, nbytes / PEAK_BYTES) * 1e3
+                by = "operations" if ops / PEAK_OPS >= nbytes / PEAK_BYTES else "bytes"
+            print(f"[time] {card} | {tag} {kernel} x({b}, {m}) delta({b}, {n}) int32 | kernel "
+                  f"{ms:.4f} ms (device, profiler: every device operation of the call, "
+                  f"grad_w_digit_kernel {gemm:.4f}; {grad_w_digits_run(x, delta, z, 10)}; back "
+                  f"to back through the wrapper {events:.4f} ms) | plain {plain_ms:.4f} ms | "
+                  f"bound {bound:.5f} ms ({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | "
+                  f"{100 * bound / ms:.2f}% of bound | library none")
+        grad_w_int_mm_yardstick(b, m, n, card, tag)
+
+
+def grad_w_int_mm_yardstick(b, m, n, card: str, tag: str) -> None:
+    """A yardstick the port never calls: ``torch._int_mm`` for (M × B) ·
+    (B × N) int8 → int32, one digit product of the linear grad_W writing
+    the same output; where cuBLASLt refuses the shape, its transpose
+    ((N × B) · (B × M), the same bytes) and then M and N rounded up to
+    multiples of 64 are tried (the line says which ran)."""
+    import torch
+
+    errors = []
+    for rows, cols in ((m, n), (n, m), (-(-m // 64) * 64, -(-n // 64) * 64)):
+        try:
+            a = torch.randint(-128, 128, (rows, b), dtype=torch.int8, device="cuda")
+            bt = torch.randint(-128, 128, (cols, b), dtype=torch.int8, device="cuda").t()
+            ms = time_cuda(lambda: torch._int_mm(a, bt), iters=50, warmup=5)
+            _, kernels = device_profile(lambda: torch._int_mm(a, bt), 20)
+        except RuntimeError as e:  # a yardstick only: report, not fatal
+            errors.append(str(e).splitlines()[0])
+            continue
+        dev = sum(v for v, _ in kernels.values()) / 20
+        print(f"[yardstick] {card} | {tag} torch._int_mm ({rows}x{b}) . ({b}x{cols}) int8 -> "
+              f"int32, one digit product of the linear grad_W: device {dev:.4f} ms, back to "
+              f"back {ms:.4f} ms")
+        return
+    print(f"[yardstick] {card} | {tag} torch._int_mm: not measured ({'; '.join(errors)})")
 
 
 def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
@@ -1755,6 +1963,7 @@ def main() -> int:
     opt_parity(shapes, cfg, params, errs)
     grad_x_parity(shapes, errs)
     matmul_digit_parity(errs)
+    grad_w_digit_parity(errs)
     no_sync_phase(steps, shapes, errs)
     res, launches = main_path()
     train_res, train_ref, train_launches = train_path()
@@ -1766,10 +1975,12 @@ def main() -> int:
     gx_launches = grad_x_path()
     launches.update({k: gx_launches[k] for k in ("stream_conv_grad_x", "nitro_matmul_grad_x")})
     mlp_res, mlp_ref = mlp_path()
+    mlp_fuse_opt_path(mlp_ref)
     resume_path()
     per_kernel = timing(steps, card)
     train_timing(shapes, card, per_kernel)
     opt_timing(shapes, cfg, params, card, per_kernel)
+    linear_grad_w_timing(card, per_kernel)
     grad_x_timing(shapes, card, per_kernel)
     end_to_end(res, card)
     train_end_to_end(train_res, train_ref, fuse_res, cfg, card)

@@ -1,7 +1,8 @@
 // Exact int32 conv weight-gradient GEMM on Hopper's int8 tensor cores,
 // shared by stream_conv_grad_w and stream_conv_grad_w_opt (its digits,
 // digit-plane transpose and per-stage MMA step also serve the forward
-// convs' GEMM, conv_digits.cuh):
+// convs' GEMM, conv_digits.cuh, and its tile, MMA step and lane offsets
+// the linear grad_W GEMM, linear_grad_w.cuh):
 //
 //   grad_W[m, f] = Σ_p A(m, p) · B(p, f)   (mod 2^32)
 //
@@ -499,10 +500,11 @@ __device__ __forceinline__ void flush_sgd(const gemm::SgdOut& o, const SgdDiviso
 }
 
 // grad_W (OPT false: added into the zeroed `out` with atomics) or W′
-// (OPT true: IntegerSGD in the flush; with more than one split, through
-// the workspace and the tile's arrival counter, the last split to arrive
-// applying it to the whole sum and re-zeroing both — int_gemm.cuh's
-// grad_w_opt_kernel contract).
+// (OPT true: IntegerSGD in the flush; with more than one split, each
+// split adds its tile into the workspace and counts itself in on the
+// tile's arrival counter, and the last to arrive applies IntegerSGD to
+// the whole sum and re-zeroes both: IntegerSGD floors the whole sum, so a
+// split cannot apply it alone).
 template <bool OPT>
 __global__ void __launch_bounds__(THREADS, 1)
 digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, gemm::SgdOut o) {

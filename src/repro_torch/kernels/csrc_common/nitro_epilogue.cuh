@@ -132,11 +132,61 @@ struct SgdDivisors {
 // IntegerSGD on one weight (paper Algorithm 1, the counterpart of
 // integer_sgd_tile): W − (⌊g/γ_inv⌋ + ⌊W/η_inv⌋), no decay for η_inv = 0.
 // Both divides floor (so −η_inv ≤ W < 0 decays by −1, 0 ≤ W < η_inv by 0);
-// the sum and difference wrap mod 2³² in unsigned.  The one definition
-// that integer_sgd_update, nitro_matmul_grad_w_opt and
-// stream_conv_grad_w_opt all call.
+// the sum and difference wrap mod 2³² in unsigned.  integer_sgd_update and
+// stream_conv_grad_w_opt call it; nitro_matmul_grad_w_opt, which applies
+// it to every weight of its output tile, the overload on SgdMagic below.
 __device__ __forceinline__ int integer_sgd(int w, int g, const SgdDivisors& s) {
   const unsigned delta = (unsigned)s.gamma(g);
+  const unsigned decay = s.decay ? (unsigned)s.eta.floor_div(w) : 0u;
+  return (int)((unsigned)w - (delta + decay));
+}
+
+// Unsigned n / d for a divisor d in [1, 2^31] and n ≤ 2^31, as a 32-bit
+// multiply-high, an add and a shift (Granlund and Montgomery, "Division by
+// invariant integers using multiplication", 1994): with l = ⌈log2 d⌉ and
+// m = ⌊2^32·(2^l − d)/d⌋ + 1 < 2^32, n / d = (umulhi(m, n) + n) >> l, and
+// the sum cannot overflow (umulhi(m, n) < n ≤ 2^31).  FastDiv takes every
+// 32-bit n but multiplies in 64 bits, several instructions more.
+struct Div31 {
+  int l;
+  unsigned m;
+
+  __device__ explicit Div31(unsigned d) : l(0) {
+    while ((1ull << l) < d) ++l;
+    m = (unsigned)((((1ull << l) - d) << 32) / d + 1ull);
+  }
+
+  __device__ __forceinline__ unsigned operator()(unsigned n) const {
+    return (__umulhi(m, n) + n) >> l;
+  }
+
+  // ⌊a / d⌋ for a in [−2^31, 2^31] (2^31 from a 64-bit −(−2^31)): with s
+  // the sign mask of a, a ^ s = −a − 1 ≥ 0 for a < 0, and ⌊a/d⌋ = (n/d) ^ s.
+  __device__ __forceinline__ int floor_div(long long a) const {
+    const unsigned s = a < 0 ? ~0u : 0u;
+    return (int)((*this)((unsigned)a ^ s) ^ s);
+  }
+};
+
+// SgdDivisors' values as Div31 multipliers, built on the device the same
+// way: |γ_inv| ≤ 2^31 and max(η_inv, 1).
+struct SgdMagic {
+  Div31 gamma;
+  Div31 eta;
+  bool gamma_neg;  // γ_inv < 0: ⌊g/γ_inv⌋ = ⌊−g/|γ_inv|⌋, −g in 64 bits
+  bool decay;      // η_inv ≠ 0
+
+  __device__ SgdMagic(const int32_t* gamma_inv, const int32_t* eta_inv)
+      : gamma(__ldg(gamma_inv) < 0 ? 0u - (unsigned)__ldg(gamma_inv) : (unsigned)__ldg(gamma_inv)),
+        eta((unsigned)max(__ldg(eta_inv), 1)),
+        gamma_neg(__ldg(gamma_inv) < 0),
+        decay(__ldg(eta_inv) != 0) {}
+};
+
+// integer_sgd with SgdMagic's divisors: the same bits in fewer
+// instructions (no 64-bit multiply, no branch on the signs).
+__device__ __forceinline__ int integer_sgd(int w, int g, const SgdMagic& s) {
+  const unsigned delta = (unsigned)s.gamma.floor_div(s.gamma_neg ? -(long long)g : g);
   const unsigned decay = s.decay ? (unsigned)s.eta.floor_div(w) : 0u;
   return (int)((unsigned)w - (delta + decay));
 }

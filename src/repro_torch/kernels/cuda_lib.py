@@ -27,10 +27,10 @@ BUILD_DIR = _HERE / "_build"
 COMMON_HEADERS = (
     _HERE / "csrc_common" / "nitro_epilogue.cuh",
     _HERE / "csrc_common" / "int_gemm.cuh",
-    _HERE / "csrc_common" / "grad_w_stage.cuh",
     _HERE / "csrc_common" / "patch_rows.cuh",
     _HERE / "csrc_common" / "digit_gemm.cuh",
     _HERE / "csrc_common" / "conv_digits.cuh",
+    _HERE / "csrc_common" / "linear_grad_w.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,11 +56,13 @@ SOURCES = {
     "integer_sgd": _HERE / "integer_sgd" / "csrc" / "integer_sgd.cu",
 }
 
-#: Output tile of the grad_W GEMM core (``BM``/``BN`` in int_gemm.cuh):
-#: ``nitro_matmul_grad_w_opt`` keeps one arrival counter per tile.
+#: Output tile of the CUDA-core GEMM (``BM``/``BN`` in int_gemm.cuh: the
+#: grad_x kernels) and of the forward matmul digit GEMM (``TN``/``TM`` in
+#: nitro_matmul.cu), which keeps one arrival counter per tile.
 GEMM_TILE = 64
-#: Output tile (rows, cols) of the conv digit GEMM (``BM``/``BN`` in
-#: digit_gemm.cuh): ``stream_conv_grad_w_opt`` keeps one counter per tile.
+#: Output tile (rows, cols) of the digit GEMMs of digit_gemm.cuh (``BM``/
+#: ``BN``): the conv grad_W kernels (``stream_conv_grad_w_opt`` keeps one
+#: counter per tile) and the linear ones (linear_grad_w.cuh).
 DIGIT_TILE = (128, 64)
 
 _lock = threading.Lock()
@@ -199,10 +201,10 @@ def sm_count(device: torch.device) -> int:
 def split_workspace(device: torch.device, m: int, n: int,
                     tile: tuple[int, int] = (GEMM_TILE, GEMM_TILE),
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(ws, arrivals)`` for a ``*_grad_w_opt`` launch with an M×N output
-    on ``device``'s current stream: int32 split sums (≥ M·N) and one
-    arrival counter per ``tile`` of the output (the launching kernel's
-    own tile), both zero.
+    """``(ws, arrivals)`` for a split-K launch with an M×N output on
+    ``device``'s current stream (``stream_conv_grad_w_opt``, the forward
+    matmuls): int32 split sums (≥ M·N) and one arrival counter per
+    ``tile`` of the output (the launching kernel's own tile), both zero.
 
     Each launch leaves them zero again, so one pair per (device, stream)
     serves every call in stream order, whichever kernel makes it; it

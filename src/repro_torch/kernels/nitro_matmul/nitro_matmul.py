@@ -18,9 +18,10 @@
 
 Sources: ``csrc/nitro_matmul.cu`` (the first two: a split-K GEMM on the
 int8 tensor cores over exact base-256 digits),
-``csrc/nitro_matmul_grad_w.cu``, ``csrc/nitro_matmul_grad_w_opt.cu`` and
-``csrc/nitro_matmul_grad_x.cu``, which note each kernel's bound and
-design.  The wrappers take CUDA tensors only; the dispatchers in
+``csrc/nitro_matmul_grad_w.cu`` and ``csrc/nitro_matmul_grad_w_opt.cu``
+(a shallow GEMM on the int8 tensor cores over exact digits,
+``csrc_common/linear_grad_w.cuh``) and ``csrc/nitro_matmul_grad_x.cu``,
+which note each kernel's bound and design.  The wrappers take CUDA tensors only; the dispatchers in
 ``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
 """
 
@@ -174,9 +175,13 @@ def nitro_matmul_grad_w(
 ) -> torch.Tensor:
     """Fused weight gradient on the card: ``xᵀ @ relu_bwd(z_star, δ)``.
 
-    x (B,M), delta and z_star (B,N) → (M,N) int32.  The contraction over
-    the batch is split across blocks whose partial sums are added with
-    atomics (exact: int32 addition wraps mod 2³² in any order).
+    x (B,M), delta and z_star (B,N) → (M,N) int32.  One device launch: a
+    shallow GEMM on the int8 tensor cores over exact signed base-256
+    digits (``csrc_common/linear_grad_w.cuh``; the plain model is
+    ``ref.grad_w_digits``), each block splitting its slabs of x and
+    masked δ into digits as it stages them, running only the digit pairs
+    its tile needs (decided on the card) and storing its tile once: no
+    zero-fill, no atomics.
     """
     _check_2d("nitro_matmul_grad_w", x, delta, 0, 0)
     if z_star.shape != delta.shape:
@@ -188,19 +193,24 @@ def nitro_matmul_grad_w(
     x, delta, z_star = cuda_lib.as_int32("nitro_matmul_grad_w", x, delta, z_star)
     b, m = x.shape
     n = delta.shape[1]
-    out = torch.zeros((m, n), dtype=torch.int32, device=x.device)
-    if out.numel() == 0 or b == 0:
+    _check_grid("nitro_matmul_grad_w", m, n)
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
         return out
     lib, launch = cuda_lib.entry("nitro_matmul_grad_w", "nitro_matmul_grad_w_launch", 4, 5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            x.data_ptr(), delta.data_ptr(), z_star.data_ptr(), out.data_ptr(),
-            b, m, n, alpha_inv, cuda_lib.sm_count(x.device), stream,
-        )
+        err = launch(x.data_ptr(), delta.data_ptr(), z_star.data_ptr(), out.data_ptr(),
+                     b, m, n, alpha_inv, cuda_lib.sm_count(x.device), stream)
     cuda_lib.check(lib, err, "nitro_matmul_grad_w")
     nitro_matmul_grad_w.launches.add()
     return out
+
+
+def _check_grid(name: str, m: int, n: int) -> None:
+    """The grad_W kernels' grid: one block per 128 × 64 output tile."""
+    if m * n >= 2 ** 31 or -(-m // cuda_lib.DIGIT_TILE[0]) > 65535:
+        raise ValueError(f"{name}: output ({m}, {n}) exceeds the kernel's grid")
 
 
 def nitro_matmul_grad_w_opt(
@@ -218,7 +228,10 @@ def nitro_matmul_grad_w_opt(
 
     x (B,M), delta and z_star (B,N), w (M,N) → W′ (M,N) int32.
     ``gamma_inv``/``eta_inv`` are the optimiser state's 0-d int32 tensors
-    on the card (the kernel reads them there: no host sync) or ints.
+    on the card (the kernel reads them there: no host sync) or ints.  One
+    device launch: ``nitro_matmul_grad_w``'s GEMM (the plain model is
+    ``ref.grad_w_opt_digits``), IntegerSGD applied from its registers,
+    with no workspace or arrival counter at any batch depth.
     """
     _check_2d("nitro_matmul_grad_w_opt", x, delta, 0, 0)
     if z_star.shape != delta.shape:
@@ -236,20 +249,17 @@ def nitro_matmul_grad_w_opt(
     eta = cuda_lib.sgd_scalar("eta_inv", eta_inv, x.device)
     b, m = x.shape
     n = delta.shape[1]
-    if max(m, n) >= 65535 * cuda_lib.GEMM_TILE:
-        raise ValueError("nitro_matmul_grad_w_opt: output exceeds the kernel's grid")
+    _check_grid("nitro_matmul_grad_w_opt", m, n)
     w_new = torch.empty_like(w)
     if w.numel() == 0:
         return w_new
     lib, launch = cuda_lib.entry(
-        "nitro_matmul_grad_w_opt", "nitro_matmul_grad_w_opt_launch", 9, 5)
-    ws, arrivals = cuda_lib.split_workspace(x.device, m, n)
+        "nitro_matmul_grad_w_opt", "nitro_matmul_grad_w_opt_launch", 7, 5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             x.data_ptr(), delta.data_ptr(), z_star.data_ptr(), w.data_ptr(),
-            w_new.data_ptr(), gamma.data_ptr(), eta.data_ptr(), ws.data_ptr(),
-            arrivals.data_ptr(), b, m, n, alpha_inv,
+            w_new.data_ptr(), gamma.data_ptr(), eta.data_ptr(), b, m, n, alpha_inv,
             cuda_lib.sm_count(x.device), stream,
         )
     cuda_lib.check(lib, err, "nitro_matmul_grad_w_opt")

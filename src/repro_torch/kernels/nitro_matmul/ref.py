@@ -5,9 +5,11 @@ Composes integer matmul → NITRO Scaling → NITRO-ReLU (forward),
 NITRO-ReLU derivative → integer matmul (weight and input gradients) and
 the weight gradient → IntegerSGD (weight update) exactly as
 ``repro_torch.core`` defines them.  The CUDA kernels must match them bit
-for bit; the CPU path of the dispatchers runs them.  Last, a plain model
-of the forward matmul kernels' arithmetic on the card: exact int8 digit
-products, split-K (``matmul_w_planes`` to ``nitro_matmul_fwd_digits``).
+for bit; the CPU path of the dispatchers runs them.  Last, plain models
+of the kernels' arithmetic on the card, exact int8 digit products: the
+forward matmuls' split-K (``matmul_w_planes`` to
+``nitro_matmul_fwd_digits``) and the weight gradients' shallow tiles
+(``tile_digits`` to ``grad_w_opt_digits``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.numerics import INT_DTYPE, int_matmul
 from repro_torch.core.scaling import scale_backward, scale_forward
-from repro_torch.kernels.digit_planes import N_DIGITS, digits_needed, padded_planes
+from repro_torch.kernels.digit_planes import N_DIGITS, digits_needed, padded_planes, s8_digits
 from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
 
 
@@ -234,3 +236,74 @@ def nitro_matmul_fwd_digits(
     ``(a, z*)``, both int32."""
     z_star = scale_forward(digit_matmul(x, w, slots=slots), sf)
     return nitro_relu(z_star, alpha_inv), z_star
+
+
+# ---------------------------------------------------------------------------
+# The weight-gradient kernels' arithmetic (csrc_common/linear_grad_w.cuh): one
+# block per 128 × 64 tile of grad_W, the batch in chunks of 64 samples, each
+# chunk's x and masked δ split into digits, only the digit pairs the tile's
+# own digit counts allow, the pairs of one shift summed in one s32 set that
+# is folded into the total mod 2^32 after every chunk.  Bitwise the same
+# functions as nitro_matmul_grad_w_ref and nitro_matmul_grad_w_opt_ref.
+# ---------------------------------------------------------------------------
+
+#: The grad_W GEMM's output tile (rows m of x's columns, columns n of δ's)
+#: and the samples it stages and folds at a time.
+GRAD_W_TILE = (128, 64)
+GRAD_W_CHUNK = 64
+
+
+def tile_digits(planes: torch.Tensor, tile: int) -> torch.Tensor:
+    """What a block's digit count gives each column: ``planes`` (4, P, R)
+    are the digits of P samples of R columns; a column gets its tile's
+    count (``tile`` columns a tile), 1 + the highest plane with a nonzero
+    digit anywhere in the tile (1 when every digit is 0)."""
+    _, _, r = planes.shape
+    tiles = -(-r // tile)
+    nonzero = torch.zeros((N_DIGITS, tiles * tile), dtype=torch.bool)
+    nonzero[:, :r] = planes.ne(0).any(dim=1)
+    nonzero = nonzero.view(N_DIGITS, tiles, tile).any(dim=2)
+    rank = torch.arange(1, N_DIGITS + 1).view(-1, 1)
+    need = (nonzero * rank).amax(dim=0).clamp(min=1)
+    return need.repeat_interleave(tile)[:r]
+
+
+def grad_w_digits(x: torch.Tensor, delta: torch.Tensor, z_star: torch.Tensor, *,
+                  alpha_inv: int = 10) -> torch.Tensor:
+    """``nitro_matmul_grad_w_ref`` computed as the CUDA kernel computes it:
+    (M, N) int32 = Σ over chunks of Σ_s 2^(8s) · Σ_{i+j=s, i < nx, j < nd}
+    X_iᵀ · G_j (mod 2^32), nx and nd the tile's digit counts in the chunk.
+
+    Each shift's set (at most four pairs over 64 samples) stays below 2^31,
+    which is checked; the digit products are exact in float64 (|Σ| ≤ 2^22).
+    """
+    g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
+    xd, gd = s8_digits(x.to(INT_DTYPE)), s8_digits(g)  # (4, B, M), (4, B, N)
+    b, m = x.shape
+    n = g.shape[1]
+    total = torch.zeros((m, n), dtype=torch.int64)
+    for p0 in range(0, b, GRAD_W_CHUNK):
+        xs, gs = xd[:, p0:p0 + GRAD_W_CHUNK], gd[:, p0:p0 + GRAD_W_CHUNK]
+        nx, nd = tile_digits(xs, GRAD_W_TILE[0]), tile_digits(gs, GRAD_W_TILE[1])
+        xs, gs = xs.to(torch.float64), gs.to(torch.float64)
+        for shift in range(N_DIGITS):
+            acc = torch.zeros((m, n), dtype=torch.float64)
+            for i in range(shift + 1):
+                use = (nx > i)[:, None] & (nd > shift - i)[None, :]
+                if bool(use.any()):
+                    acc += (xs[i].T @ gs[shift - i]) * use
+            if acc.numel() and float(acc.abs().max()) >= 2 ** 31:
+                raise AssertionError(f"chunk at {p0} shift {shift}: s32 sum "
+                                     f"{float(acc.abs().max())}")
+            total += acc.to(torch.int64) << (8 * shift)
+        total &= 0xFFFFFFFF
+    return (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
+
+
+def grad_w_opt_digits(x: torch.Tensor, delta: torch.Tensor, z_star: torch.Tensor,
+                      w: torch.Tensor, gamma_inv, eta_inv, *,
+                      alpha_inv: int = 10) -> torch.Tensor:
+    """``nitro_matmul_grad_w_opt_ref`` computed as the CUDA kernel computes
+    it: ``grad_w_digits``' sums, then IntegerSGD on each whole sum → W′."""
+    grad_w = grad_w_digits(x, delta, z_star, alpha_inv=alpha_inv)
+    return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)

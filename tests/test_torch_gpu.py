@@ -228,18 +228,46 @@ def test_nitro_matmul_fwd_matches_plain(cuda_device):
     assert not bool(arrivals.any())
 
 
+#: (B, M, N) of the linear grad_W kernels: contractions shorter than one
+#: MMA step (1, 3), VGG8B's linear and mlp4's layers at batch 64, 4,096 and
+#: 16,385 samples (64 and 257 chunks), M and N off the 128 × 64 tile
+_GRAD_W_SHAPES = [(1, 63, 65), (3, 129, 1), (16385, 65, 63), (5, 7, 3), (64, 300, 70),
+                  (1000, 20, 10), (4096, 300, 70), (64, 2048, 1024), (64, 3072, 3000),
+                  (64, 3000, 3000)]
+
+
+def _grad_w_operands(g, b, m, n, x_lim, d_lim, device):
+    """x and δ within ±lim (INT32_MIN/MAX planted at the full range), z*
+    over every NITRO-ReLU segment but 0 where the extremes sit, so the
+    masked δ keeps them."""
+    x, delta = _lim_ints(g, (b, m), x_lim, device), _lim_ints(g, (b, n), d_lim, device)
+    z = _wide(g, (b, n), 300, device)
+    z.view(-1)[:2] = 0
+    return x, delta, z
+
+
 @pytest.mark.gpu
 def test_nitro_matmul_grad_w_matches_plain(cuda_device):
+    """Every digit path — x and masked δ of one to four digits, 16
+    variants — at every shape of _GRAD_W_SHAPES, α_inv 10, each call twice
+    (the same bits); then α_inv 1 and 2 on full-range operands."""
     g = torch.Generator().manual_seed(4)
-    for b, m, n in ((5, 7, 3), (64, 300, 70), (1000, 20, 10)):
-        x = _wide(g, (b, m), 2 ** 31 - 1, cuda_device)
-        delta = _wide(g, (b, n), 2 ** 20, cuda_device)
-        z = _wide(g, (b, n), 300, cuda_device)
-        for alpha_inv in (1, 2, 10):
+    for b, m, n in _GRAD_W_SHAPES:
+        for x_lim in _LIMS:
+            for d_lim in _LIMS:
+                x, delta, z = _grad_w_operands(g, b, m, n, x_lim, d_lim, cuda_device)
+                want = nitro_matmul_grad_w_ref(x, delta, z, alpha_inv=10)
+                for _ in range(2):
+                    got = nitro_matmul_grad_w(x, delta, z, alpha_inv=10)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), \
+                        (b, m, n, x_lim, d_lim)
+        x, delta, z = _grad_w_operands(g, b, m, n, 2 ** 31 - 1, 2 ** 31 - 1, cuda_device)
+        for alpha_inv in (1, 2):
             got = nitro_matmul_grad_w(x, delta, z, alpha_inv=alpha_inv)
             want = nitro_matmul_grad_w_ref(x, delta, z, alpha_inv=alpha_inv)
             torch.cuda.synchronize()
-            assert got.dtype == want.dtype and torch.equal(got, want)
+            assert got.dtype == want.dtype and torch.equal(got, want), (b, m, n, alpha_inv)
 
 
 _CONV_TRAIN = [  # (N, H, W, C, F, K, sf)
@@ -381,23 +409,31 @@ def test_integer_sgd_update_matches_plain(cuda_device):
 
 @pytest.mark.gpu
 def test_nitro_matmul_grad_w_opt_matches_plain(cuda_device):
-    """VGG8B's linear shape (one split: the flush from registers), deep
-    batches (split-K: the workspace and the last-arriving split), each
-    twice, so a second call proves the workspace was left zero."""
+    """Every digit path at every shape of _GRAD_W_SHAPES under two
+    optimiser states, each call twice (the same bits); then every state of
+    _SGD_STATES on full-range operands, W full range (the update wraps)."""
     g = torch.Generator().manual_seed(9)
-    for b, m, n in ((5, 7, 3), (64, 2048, 1024), (1000, 20, 10), (4096, 300, 70)):
-        x = _wide(g, (b, m), 2 ** 31 - 1, cuda_device)
-        delta = _wide(g, (b, n), 2 ** 20, cuda_device)
-        z = _wide(g, (b, n), 300, cuda_device)
-        w = _wide(g, (m, n), 2 ** 31 - 1, cuda_device)
+    for b, m, n in _GRAD_W_SHAPES:
+        w = _lim_ints(g, (m, n), 2 ** 31 - 1, cuda_device)
+        for x_lim in _LIMS:
+            for d_lim in _LIMS:
+                x, delta, z = _grad_w_operands(g, b, m, n, x_lim, d_lim, cuda_device)
+                for (gamma, eta), alpha_inv in zip(_SGD_STATES[:2], (10, 1)):
+                    want = nitro_matmul_grad_w_opt_ref(x, delta, z, w, gamma, eta,
+                                                       alpha_inv=alpha_inv)
+                    for _ in range(2):
+                        got = nitro_matmul_grad_w_opt(x, delta, z, w, gamma, eta,
+                                                      alpha_inv=alpha_inv)
+                        torch.cuda.synchronize()
+                        assert got.dtype == want.dtype and torch.equal(got, want), \
+                            (b, m, n, x_lim, d_lim, gamma)
+        x, delta, z = _grad_w_operands(g, b, m, n, 2 ** 31 - 1, 2 ** 20, cuda_device)
         for (gamma, eta), alpha_inv in zip(_SGD_STATES, (10, 1, 2, 10, 3)):
-            for _ in range(2):
-                got = nitro_matmul_grad_w_opt(x, delta, z, w, gamma, eta,
-                                              alpha_inv=alpha_inv)
-                want = nitro_matmul_grad_w_opt_ref(x, delta, z, w, gamma, eta,
-                                                   alpha_inv=alpha_inv)
-                torch.cuda.synchronize()
-                assert got.dtype == want.dtype and torch.equal(got, want)
+            got = nitro_matmul_grad_w_opt(x, delta, z, w, gamma, eta, alpha_inv=alpha_inv)
+            want = nitro_matmul_grad_w_opt_ref(x, delta, z, w, gamma, eta,
+                                               alpha_inv=alpha_inv)
+            torch.cuda.synchronize()
+            assert got.dtype == want.dtype and torch.equal(got, want), (b, m, n, gamma)
 
 
 @pytest.mark.gpu

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """What bounds the conv digit GEMMs on the card: their device time with the
-tensor-core MMAs, the staging copies or the stores taken out; and the
-matmul digit GEMM's epilogue with its floor divides as multiply-highs (as
-built) against divide instructions.
+tensor-core MMAs, the staging copies or the stores taken out; the matmul
+digit GEMM's epilogue with its floor divides as multiply-highs (as
+built) against divide instructions; and the linear grad_W kernels with
+their loads, their stores or the update's W tile changed.
 
     python3 tools_torch/digit_gemm_variants.py     # from a checkout, one CUDA card
 
@@ -33,9 +34,23 @@ Variants:
     (divide instructions) in place of ``FastEpilogue`` — a right result —
     timed at #1's served shapes (int8, batch 32) and #2's VGG8B and mlp4
     shapes (batch 64, x of the NITRO-ReLU range, w of the init's ±4), in
-    turns with the kernel as built.
+    turns with the kernel as built;
+  * the linear grad_W kernels (``grad_w_digit_kernel`` of
+    ``nitro_matmul_grad_w`` and ``nitro_matmul_grad_w_opt``) at VGG8B's
+    linear and mlp4's 3072 × 3000 layer (batch 64, x in ±127, δ in ±170:
+    two products), in turns with the kernel as built: ``plain_store``
+    (the stores without the evict-first hint), ``no_store`` (no output
+    written), ``no_load`` (x, δ and z* not read: the values come from the
+    indices), ``one_block`` (shared memory padded to one block an SM),
+    ``no_io`` (neither loads nor stores: the staging arithmetic, MMAs and
+    flush alone); for the update ``w_global`` (W read from device memory
+    in the flush, no cp.async tile), ``no_sgd`` (W − g in place of
+    IntegerSGD) and ``sgd_divisors`` (IntegerSGD on the 64-bit
+    ``SgdDivisors`` in place of ``SgdMagic``).
 
-The conv variants' results are garbage; only their times are read.  Prints the
+The conv and grad_W variants' results are garbage (but those of
+``plain_store``, ``one_block`` and ``sgd_divisors``); only their times are
+read.  Prints the
 card's name and power limit, each variant's ptxas registers, then one line
 per shape.
 """
@@ -54,6 +69,17 @@ KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 MMA = ("digit_gemm.cuh",
        "for (int nt = 0; nt < 4; ++nt) mma_s8(acc[i + j][mt][nt], a[mt], b[j][nt]);",
        "for (int nt = 0; nt < 4; ++nt) acc[i + j][mt][nt][0] ^= a[mt][0] ^ b[j][nt][0];")
+LGW_STCS = ("linear_grad_w.cuh",
+            "          __stcs(reinterpret_cast<int2*>(dst + idx), make_int2(v0, v1));",
+            "          *reinterpret_cast<int2*>(dst + idx) = make_int2(v0, v1);")
+LGW_NO_STORE = ("linear_grad_w.cuh",
+                "          __stcs(reinterpret_cast<int2*>(dst + idx), make_int2(v0, v1));",
+                "          if ((v0 ^ v1) == 0x7fffffff) dst[idx] = v0;")
+LGW_NO_LOAD = [("linear_grad_w.cuh", "__ldg(src + (size_t)s * a.M)", "((s ^ r) & 127)"),
+               ("linear_grad_w.cuh", "__ldg(a.delta + idx)", "(((int)idx & 255) - 128)"),
+               ("linear_grad_w.cuh", "__ldg(a.z + idx)", "(((int)idx & 511) - 256)")]
+LGW_ONE_BLOCK = ("linear_grad_w.cuh", "constexpr int SMEM = X_PLANES + G_PLANES;",
+                 "constexpr int SMEM = X_PLANES + G_PLANES + 64 * 1024;")
 #: per GEMM: library, kernel name, variant → [(file, old, new)]
 TARGETS = {
     "grad_w": ("stream_conv_grad_w", "digit_gemm_kernel", {
@@ -91,6 +117,34 @@ TARGETS = {
              "nitro::Epilogue{shift, residual, alpha_inv, mu, apply_relu}"),
             ("nitro_matmul.cu", "nitro::FastEpilogue(shift, residual, alpha_inv, mu, 1)",
              "nitro::Epilogue{shift, residual, alpha_inv, mu, 1}")],
+    }),
+    "linear": ("nitro_matmul_grad_w", "grad_w_digit_kernel", {
+        "base": [],
+        "plain_store": [LGW_STCS],
+        "no_store": [LGW_NO_STORE],
+        "no_load": LGW_NO_LOAD,
+        "one_block": [LGW_ONE_BLOCK],
+        "no_io": [LGW_NO_STORE, *LGW_NO_LOAD],
+    }),
+    "linear_opt": ("nitro_matmul_grad_w_opt", "grad_w_digit_kernel", {
+        "base": [],
+        "plain_store": [LGW_STCS],
+        "no_store": [LGW_NO_STORE],
+        "no_load": LGW_NO_LOAD,
+        "one_block": [LGW_ONE_BLOCK],
+        "w_global": [("linear_grad_w.cuh", "    stage_w(a, wt, m0, n0);", ""),
+                     ("linear_grad_w.cuh",
+                      "          const int32_t* w = wt + (m - m0) * W_ROW + (f - n0);",
+                      "          const int32_t* w = a.w + idx;")],
+        "no_sgd": [("linear_grad_w.cuh", "v0 = integer_sgd(w[0], v0, sgd);", "v0 = w[0] - v0;"),
+                   ("linear_grad_w.cuh", "v1 = integer_sgd(w[1], v1, sgd);", "v1 = w[1] - v1;")],
+        "sgd_divisors": [("linear_grad_w.cuh", "sizeof(SgdMagic)", "sizeof(SgdDivisors)"),
+                         ("linear_grad_w.cuh", "<SgdMagic*>(sgd_bytes) = SgdMagic(",
+                          "<SgdDivisors*>(sgd_bytes) = SgdDivisors("),
+                         ("linear_grad_w.cuh",
+                          "const SgdMagic sgd = *reinterpret_cast<const SgdMagic*>(sgd_bytes);",
+                          "const SgdDivisors sgd = *reinterpret_cast<const SgdDivisors*>"
+                          "(sgd_bytes);")],
     }),
 }
 #: (M, K, N, int8 operands, kernel): #1's served linear and output layer,
@@ -139,9 +193,9 @@ def build(tmp: Path, target: str) -> dict[str, ctypes.CDLL]:
 
 
 def gemm_ms(call, kernel: str, tries: int = 5) -> float:
-    """Best of two profiler sessions of 10 calls; a session that saw no
-    launch of ``kernel`` (the profiler drops one now and then) is run
-    again, up to ``tries`` sessions."""
+    """Best of two profiler sessions of 10 calls, each the mean over the
+    launches of ``kernel`` it saw (the profiler drops some now and then);
+    a session that saw none is run again, up to ``tries`` sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -151,9 +205,10 @@ def gemm_ms(call, kernel: str, tries: int = 5) -> float:
             for _ in range(10):
                 call()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages() if kernel in e.key)
-        if us > 0:
-            times.append(us / 10 / 1e3)
+        hits = [e for e in prof.key_averages() if kernel in e.key]
+        launches = sum(e.count for e in hits)
+        if launches:
+            times.append(sum(e.self_device_time_total for e in hits) / launches / 1e3)
         if len(times) == 2:
             return min(times)
     raise SystemExit(f"the profiler saw no launch of {kernel} in {tries} sessions")
@@ -218,7 +273,42 @@ def main() -> int:
             print(f"[variant] fwd x{(n, h, w, c)} w +-6 F={f}: conv_digit_gemm_kernel ms "
                   + " | ".join(times))
         matmul_epilogues(Path(tmp), ints, sms, stream)
+        linear_grad_w(Path(tmp), ints, sms, stream)
     return 0
+
+
+def linear_grad_w(tmp: Path, ints, sms: int, stream: int) -> None:
+    """#3 and #4 with each variant, per shape in turns (the order of the
+    variants, then reversed; the best of each)."""
+    import torch
+
+    for target, opt in (("linear", False), ("linear_opt", True)):
+        libs = build(tmp, target)
+        for m, n in ((2048, 1024), (3072, 3000)):
+            x, d, z, w = ints((64, m), 128), ints((64, n), 171), ints((64, n), 301), \
+                ints((m, n), 2 ** 15)
+            gamma = torch.tensor(327680, dtype=torch.int32, device="cuda")
+            eta = torch.tensor(25000, dtype=torch.int32, device="cuda")
+            out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+            best = {}
+            for name in [*libs, *reversed(libs)]:
+                if opt:
+                    launch = libs[name].nitro_matmul_grad_w_opt_launch
+                    launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    args = (x.data_ptr(), d.data_ptr(), z.data_ptr(), w.data_ptr(), out.data_ptr(),
+                            gamma.data_ptr(), eta.data_ptr(), 64, m, n, 10, sms, stream)
+                else:
+                    launch = libs[name].nitro_matmul_grad_w_launch
+                    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+                    args = (x.data_ptr(), d.data_ptr(), z.data_ptr(), out.data_ptr(), 64, m, n,
+                            10, sms, stream)
+                launch.restype = ctypes.c_int
+                if launch(*args):
+                    raise SystemExit(f"{target} variant {name}: launch failed")
+                t = gemm_ms(lambda: launch(*args), "grad_w_digit_kernel")
+                best[name] = min(best.get(name, t), t)
+            print(f"[variant] {'#4' if opt else '#3'} (64, {m}) -> {n}: grad_w_digit_kernel ms "
+                  + " | ".join(f"{a} {b:.4f}" for a, b in best.items()))
 
 
 def matmul_epilogues(tmp: Path, ints, sms: int, stream: int) -> None:

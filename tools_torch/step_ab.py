@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Compare the full-width VGG8B training step, the served VGG8B batch and
-the full-width mlp4 training step of two checkouts of the port on one CUDA
-card, in turns (A, B, B, A), each turn in a fresh process.
+"""Compare the full-width VGG8B training step, the served VGG8B batch, the
+full-width mlp4 training step (split and ``fuse_opt``) and the linear
+grad_W kernels of two checkouts of the port on one CUDA card, in turns
+(A, B, B, A), each turn in a fresh process.
 
     git archive PARENT | tar -x -C .chip_checkout/parent   # a git-ignored dir
     python3 tools_torch/step_ab.py .chip_checkout/parent .
@@ -13,8 +14,15 @@ sources), then prints one ``[ab]`` line: the split step's and the
 time per step from ``torch.profiler`` over 3 steps (the idle share is of
 that profiled window, whose host time the profiler lengthens); the same
 for a batch of 32 through the served plan (``ExecutionPlan.logits``, the
-seeded init, logits back on the host) and for the mlp4 step at batch 64.
-The card's name and power limit come first.  Needs one card; no network.
+seeded init, logits back on the host) and for the mlp4 steps at batch 64.
+Then one ``[ab-kernels]`` line: the device time of one call of
+``nitro_matmul_grad_w`` (#3) and ``nitro_matmul_grad_w_opt`` (#4) at
+VGG8B's linear (64 × 2048 → 1024) and mlp4's two layer shapes, every
+device operation of the call summed (the parent's #3 zero-fills its
+output first), from ``torch.profiler`` over 20 calls, on operands of the
+main path's digits (x in ±127: one digit; δ in ±170 with z* over every
+NITRO-ReLU segment: two).  The card's name and power limit come first.
+Needs one card; no network.
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ def turn(root: str) -> None:
     steps = {"split": lambda: les.train_step(state, cfg, x, y, key),
              "fuse_opt": lambda: les.train_step(state, cfg, x, y, key, fuse_opt=True),
              "served batch": lambda: plan.logits(batch).cpu(),
-             "mlp4": lambda: les.train_step(mstate, mcfg, mx, y, key)}
+             "mlp4": lambda: les.train_step(mstate, mcfg, mx, y, key),
+             "mlp4 fuse_opt": lambda: les.train_step(mstate, mcfg, mx, y, key, fuse_opt=True)}
 
     def host_ms(fn, iters: int = 10) -> float:
         fn()
@@ -96,6 +105,46 @@ def turn(root: str) -> None:
                      f"device busy {busy / 3:.3f} ms/call, idle {100 - 100 * busy / wall:.1f}% "
                      f"of the profiled 3 calls")
     print(f"[ab] {root}: " + " | ".join(parts), flush=True)
+    print(f"[ab-kernels] {root}: " + " | ".join(grad_w_kernel_ms(torch, profile,
+                                                                   ProfilerActivity)),
+          flush=True)
+
+
+def grad_w_kernel_ms(torch, profile, activity) -> list[str]:
+    """Device ms of one #3 and one #4 call at each main-path linear shape."""
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import (
+        nitro_matmul_grad_w, nitro_matmul_grad_w_opt)
+
+    g = torch.Generator().manual_seed(0)
+
+    def ints(shape, lim):
+        return torch.randint(-lim, lim + 1, shape, generator=g).to(torch.int32).cuda()
+
+    parts = []
+    for tag, (b, m, n) in (("VGG8B", (64, 2048, 1024)), ("mlp4 3072x3000", (64, 3072, 3000)),
+                           ("mlp4 3000x3000", (64, 3000, 3000))):
+        x, delta, z, w = ints((b, m), 127), ints((b, n), 170), ints((b, n), 300), \
+            ints((m, n), 2 ** 15)
+        gamma, eta = torch.tensor(327680, dtype=torch.int32).cuda(), \
+            torch.tensor(25000, dtype=torch.int32).cuda()
+        for name, fn in (("#3", lambda: nitro_matmul_grad_w(x, delta, z)),
+                         ("#4", lambda: nitro_matmul_grad_w_opt(x, delta, z, w, gamma, eta))):
+            fn()
+            torch.cuda.synchronize()
+            for _ in range(5):  # a session that missed a launch runs again
+                with profile(activities=[activity.CUDA]) as prof:
+                    for _ in range(20):
+                        fn()
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                if sum(e.count for e in events if "grad_w" in e.key) == 20:
+                    break
+            else:
+                raise SystemExit(f"the profiler missed launches of {name} at {tag}")
+            busy = sum(e.self_device_time_total for e in events
+                       if e.self_device_time_total > 0) / 1e3
+            parts.append(f"{name} {tag} {busy / 20:.4f} ms")
+    return parts
 
 
 def main(argv: list[str]) -> int:
