@@ -23,8 +23,15 @@ Phases, each fatal on failure:
      on every digit path — x and w each of one to four digits, 16 variants,
      INT32_MIN/MAX planted at four — at every VGG8B serving (#6) and
      training (#7) conv shape and the ragged ones, and #7 on int8 x and w;
-  3e. each forward conv and matmul kernel and each linear grad_W kernel
-     called once per main-path shape under
+  3d. the input-gradient kernels (int8 tensor cores over exact digits of
+     the masked δ and of w) at every VGG8B training shape, mlp4's linear
+     shapes and ragged ones (C = 3, F % 16 != 0, odd batches), at α_inv 10
+     and on full-range int32 operands at α_inv 1, and on every digit path
+     — masked δ and w of one to four digits, 16 variants — each call
+     twice, the arrival counters left zero; #6 at sf=1 (the route without
+     z*) at every VGG8B conv;
+  3e. each forward conv and matmul kernel, each linear grad_W kernel and
+     each input-gradient kernel called once per main-path shape under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
      wrapper: the digit counts are decided on the card), then held against
      its plain version;
@@ -67,9 +74,10 @@ Phases, each fatal on failure:
   5d. the grad_x path: full-width VGG8B's forward with caches on the CLI's
      first batch, each block's δ_fw as the LES step forms it, then every
      block's ``layers.conv_backward`` / ``linear_backward`` with z* and
-     ``conv_update`` / ``linear_update``, counted: stream_conv_grad_x 6×
-     and nitro_matmul_grad_x 1× per pass beside the grad_W (or grad_W_opt)
-     kernels; every grad_x and weight must equal the same calls with
+     ``conv_update`` / ``linear_update``, counted: stream_conv_grad_x 12×
+     and nitro_matmul_grad_x 2× per pass (one in each block's backward and
+     one in its update) beside the grad_W (or grad_W_opt) kernels; every
+     grad_x and weight must equal the same calls with
      ``backend='reference'``, and the weight gradients
      ``compute_gradients``' for the same batch and key;
   5e. the MLP path: ``launch.train.main`` takes 4 steps of full-width mlp4
@@ -82,9 +90,10 @@ Phases, each fatal on failure:
      ``--backend reference``; a save → restore of the card's TrainState
      is bitwise;
   6. time each kernel per step shape with CUDA events beside its bound and
-     its plain version (#1–#4 by their device time, with the
-     ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3 and #4 at
-     mlp4's shapes too), the serving batch latency, the split and
+     its plain version (#1–#5 by their device time, with the
+     ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3, #4 and #5
+     at mlp4's shapes too; #10's device time split into its GEMM and
+     pre-passes beside #6 at sf=1), the serving batch latency, the split and
      ``fuse_opt`` training steps host to host in turns, and the mlp4 step.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
@@ -94,10 +103,11 @@ count; then, last, ``{"ok": true, "device": {...}}``.  ``ms`` is CUDA-event
 time over back-to-back launches, except for nitro_matmul, nitro_matmul_fwd,
 nitro_matmul_grad_w, nitro_matmul_grad_w_opt, nitro_matmul_grad_x and
 integer_sgd_update, whose launches are shorter than their wrappers' host
-path: there it is the device time ``torch.profiler`` reports (for #1–#4
+path: there it is the device time ``torch.profiler`` reports (for #1–#5
 every device operation of the call: the memset, the pre-passes and the
-GEMM, where there are; the back-to-back time is printed beside it).  The grad_x
-kernels' ``launches`` are phase 5d's (two passes).  Exits non-zero,
+GEMM, where there are; the back-to-back time is printed beside it).  The
+grad_x kernels' ``ms`` is one pass of VGG8B's shapes (one call each) and
+their ``launches`` phase 5d's (a backward and an update per block).  Exits non-zero,
 without that line, when CUDA is absent or the script is not inside a
 checkout.
 
@@ -198,7 +208,29 @@ PARITY_CASES: Counter = Counter()
 #: nitro_matmul.cu (the matmuls)
 DIGIT_GEMM_SMEM = {"digit_gemm_kernel": 184320, "conv_digit_gemm_kernel": 217088,
                    "matmul_digit_kernelILb0": 102400, "matmul_digit_kernelILb1": 102400,
-                   "grad_w_digit_kernelILb0": 61440, "grad_w_digit_kernelILb1": 98304}
+                   "grad_w_digit_kernelILb0": 61440, "grad_w_digit_kernelILb1": 98304,
+                   "grad_x_digit_kernelILb0": 163840, "grad_x_digit_kernelILb1": 163840}
+#: kernels whose ptxas lines the build phase prints: mangled name fragment
+#: (the first that matches an entry, in this order) → what the line says
+PTXAS_KERNELS = {
+    "conv_digit_gemm_kernel": "conv_digit_gemm_kernel",
+    "matmul_digit_kernelILb0": "matmul_digit_kernel<int8 only>",
+    "matmul_digit_kernelILb1": "matmul_digit_kernel<16 variants>",
+    "grad_w_digit_kernelILb0": "grad_w_digit_kernel<grad_W>",
+    "grad_w_digit_kernelILb1": "grad_w_digit_kernel<W' (fuse_opt)>",
+    "grad_x_digit_kernelILb0": "grad_x_digit_kernel<4-byte copies of w>",
+    "grad_x_digit_kernelILb1": "grad_x_digit_kernel<16-byte copies of w>",
+    "digit_gemm_kernel": "digit_gemm_kernel",
+    "x_digits_kernelILb0": "x_digits_kernel",
+    "x_digits_kernelILb1": "x_digits_kernel<masked>",
+    "patch_digits_kernelILb0Ea": "patch_digits_kernel<int8>",
+    "patch_digits_kernelILb0Ei": "patch_digits_kernel<int32>",
+    "patch_digits_kernelILb1Ei": "patch_digits_kernel<masked>",
+    "row_digits_kernelILb0Ea": "row_digits_kernel<int8>",
+    "row_digits_kernelILb0Ei": "row_digits_kernel<int32>",
+    "row_digits_kernelILb1Ei": "row_digits_kernel<masked>",
+    "w_rot_digits_kernel": "w_rot_digits_kernel",
+}
 I32 = (-(2 ** 31), 2 ** 31)
 #: bounds of x and w whose values need one to four base-256 digits (the
 #: last with INT32_MIN/MAX planted)
@@ -249,28 +281,14 @@ def build() -> None:
             print(f"[ptxas] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
                   f"registers, spill stores up to {max(spills, default=0)} B")
         for entry in log.split("Compiling entry function")[1:]:
-            kernel = next((k for k in ("conv_digit_gemm_kernel", "matmul_digit_kernelILb0",
-                                       "matmul_digit_kernelILb1", "grad_w_digit_kernelILb0",
-                                       "grad_w_digit_kernelILb1", "digit_gemm_kernel",
-                                       "x_digits_kernel", "patch_digits_kernelIa",
-                                       "patch_digits_kernelIi", "row_digits_kernelIa",
-                                       "row_digits_kernelIi")
-                           if k in entry.split("\n")[0]), None)
+            kernel = next((k for k in PTXAS_KERNELS if k in entry.split("\n")[0]), None)
             if kernel is None:
                 continue  # the digit GEMMs and the forward convs' own pre-passes
             r = re.search(r"Used (\d+) registers", entry)
             sp = re.search(r"(\d+) bytes spill stores", entry)
             sm = re.search(r"(\d+) bytes smem", entry)
             dyn = DIGIT_GEMM_SMEM.get(kernel, 0)
-            kernel = {"patch_digits_kernelIa": "patch_digits_kernel<int8>",
-                      "patch_digits_kernelIi": "patch_digits_kernel<int32>",
-                      "row_digits_kernelIa": "row_digits_kernel<int8>",
-                      "row_digits_kernelIi": "row_digits_kernel<int32>",
-                      "matmul_digit_kernelILb0": "matmul_digit_kernel<int8 only>",
-                      "matmul_digit_kernelILb1": "matmul_digit_kernel<16 variants>",
-                      "grad_w_digit_kernelILb0": "grad_w_digit_kernel<grad_W>",
-                      "grad_w_digit_kernelILb1": "grad_w_digit_kernel<W' (fuse_opt)>",
-                      }.get(kernel, kernel)
+            kernel = PTXAS_KERNELS[kernel]
             print(f"[ptxas] {name}: {kernel} {r and r.group(1)} registers, "
                   f"{sm.group(1) if sm else 0} B static smem + {dyn} B dynamic, "
                   f"spill stores {sp and sp.group(1)} B")
@@ -796,15 +814,58 @@ def grad_x_call(kind, w, delta, z, alpha_inv, backend):
     return lambda: grad_x_matmul(delta, z, w, alpha_inv=alpha_inv, backend=backend)
 
 
-def grad_x_parity(shapes, errs: dict) -> None:
-    """Phase 3d: the input-gradient kernels vs their plain versions,
-    bitwise: #10 and #5 at every VGG8B training shape and #5 at mlp4's
-    linear shapes, at α_inv 10 (δ of ±2²⁰) and α_inv 1 (full-range int32
-    δ and w: the sums wrap), at ragged shapes; and #6 at sf=1 without
-    ReLU — the conv grad_x route without z* — at every VGG8B conv."""
+def grad_x_digit_operands(kind, xs, ws, nd, nw, g):
+    """(w, δ, z*) of one input-gradient shape whose masked δ needs ``nd``
+    digits and w ``nw`` (their ranges' largest values planted first,
+    INT32_MIN/MAX at four), z* over every NITRO-ReLU segment but 0 where
+    the extremes sit, so the mask keeps them; drawn on the card from the
+    CUDA generator ``g`` (VGG8B's δ have up to 16.8 M values)."""
     import torch
 
+    def ints(shape, n):
+        lim = DIGIT_LIMS[n]
+        t = torch.randint(-lim, lim, shape, generator=g, device="cuda", dtype=torch.int64)
+        t = t.to(torch.int32)
+        if n == 4 and t.numel() >= 2:
+            t.view(-1)[:2] = torch.tensor([I32[0], I32[1] - 1], dtype=torch.int32,
+                                          device="cuda")
+        elif t.numel():
+            t.view(-1)[0] = lim - 1
+        return t
+
+    d_shape = (*xs[:-1], ws[-1])  # δ (N,H,W,F), or (B, N) against w (M, N)
+    z = torch.randint(-300, 301, d_shape, generator=g, device="cuda").to(torch.int32)
+    z.view(-1)[:2] = 0
+    return ints(ws, nw), ints(d_shape, nd), z
+
+
+def grad_x_digits_run(w, delta, z, alpha_inv) -> str:
+    """The digit products #10 and #5 run at most on these operands (their
+    pre-passes' rule, read here on the host for the report; #5's warps
+    run fewer where their own w needs fewer digits)."""
+    from repro_torch.kernels.digit_planes import digits_needed
+    from repro_torch.kernels.nitro_matmul.ref import masked_delta
+
+    nd, nw = digits_needed(masked_delta(delta, z, alpha_inv)), digits_needed(w)
+    pairs = sum(1 for i in range(nd) for j in range(nw) if i + j < 4)
+    return f"masked delta {nd} digits, w {nw} digits: {pairs} products"
+
+
+def grad_x_parity(shapes, errs: dict) -> None:
+    """Phase 3d: the input-gradient kernels vs their plain versions,
+    bitwise: #10 and #5 at every VGG8B training shape, #5 at mlp4's
+    linear shapes, and both at ragged shapes, at α_inv 10 (δ of ±2²⁰) and
+    α_inv 1 (full-range int32 δ and w: the sums wrap); every digit path —
+    masked δ and w of one to four digits, 16 variants, INT32_MIN/MAX
+    planted at four — at each of those shapes, each kernel call twice
+    (the same bits: a slot or arrival counter left wrong would show);
+    then the arrival counters must be zero; and #6 at sf=1 without ReLU —
+    the conv grad_x route without z* — at every VGG8B conv."""
+    import torch
+    from repro_torch.kernels import cuda_lib
+
     g = torch.Generator().manual_seed(7)
+    gc = torch.Generator(device="cuda").manual_seed(7)
     wide = (-(2 ** 31), 2 ** 31)
     names = {"conv": "stream_conv_grad_x", "linear": "nitro_matmul_grad_x"}
     cases = [(f"step {i}", kind, xs, ws) for i, (kind, xs, ws, _, _) in enumerate(shapes, 1)]
@@ -823,16 +884,32 @@ def grad_x_parity(shapes, errs: dict) -> None:
             _pair(f"stream_conv sf=1 grad_x without z* {tag} x{xs} w{ws}",
                   grad_x_call(kind, full[0], full[1], None, 1, "cuda"),
                   grad_x_call(kind, full[0], full[1], None, 1, "reference"), errs)
+        for nd, nw in [(nd, nw) for nd in DIGIT_LIMS for nw in DIGIT_LIMS]:
+            wt, dt, zt = grad_x_digit_operands(kind, xs, ws, nd, nw, gc)
+            what = f"{tag} x{xs} w{ws} ({grad_x_digits_run(wt, dt, zt, 10)})"
+            want = grad_x_call(kind, wt, dt, zt, 10, "reference")()
+            for rep in (1, 2):
+                got = grad_x_call(kind, wt, dt, zt, 10, "cuda")()
+                torch.cuda.synchronize()
+                compare(f"{names[kind]} {what} call {rep}", got, want, errs)
+    _, arrivals = cuda_lib.split_workspace(torch.device("cuda", torch.cuda.current_device()),
+                                           1000, 3072)
+    if bool(arrivals.any()):
+        die("nitro_matmul_grad_x left an arrival counter non-zero")
+    print("[parity] stream_conv_grad_x / nitro_matmul_grad_x: every digit path at every "
+          "main-path and ragged shape, twice each; arrival counters left zero")
 
 
 def no_sync_phase(steps, shapes, errs: dict) -> None:
-    """Phase 3e: each forward conv and matmul kernel and each linear grad_W
-    kernel called once at each main-path shape (#6 and #1 at the serving
-    steps' inputs, #7 and #2 at int32 training operands, #2, #3 and #4 at
-    VGG8B's linear and mlp4's shapes, #4 with the optimiser state's
-    tensors) with ``torch.cuda.set_sync_debug_mode("error")``: its wrapper
-    must not synchronise with the host (the digit counts are read on the
-    card).  The outputs are then held against the plain versions."""
+    """Phase 3e: each forward conv and matmul kernel, each linear grad_W
+    kernel and each input-gradient kernel called once at each main-path
+    shape (#6 and #1 at the serving steps' inputs, #7 and #2 at int32
+    training operands, #2, #3 and #4 at VGG8B's linear and mlp4's shapes,
+    #4 with the optimiser state's tensors, #10 at VGG8B's convs and #5 at
+    its linear and mlp4's shapes) with
+    ``torch.cuda.set_sync_debug_mode("error")``: its wrapper must not
+    synchronise with the host (the digit counts are read on the card).
+    The outputs are then held against the plain versions."""
     import torch
     from repro_torch.core import optimizer as opt
     from repro_torch.core.scaling import linear_scale_factor
@@ -844,6 +921,10 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
     from repro_torch.kernels.nitro_conv.ref import stream_conv_fwd_ref, stream_conv_ref
     from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul, nitro_matmul_fwd
     from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_fwd_ref, nitro_matmul_ref
+    from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv_grad_x
+    from repro_torch.kernels.nitro_conv.ref import stream_conv_grad_x_ref
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul_grad_x
+    from repro_torch.kernels.nitro_matmul.ref import nitro_matmul_grad_x_ref
 
     g = torch.Generator().manual_seed(9)
     calls = []
@@ -891,6 +972,20 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
                           x, d, z, w, state.gamma_inv, state.eta_inv),
                       lambda x=x, d=delta, z=z, w=w: nitro_matmul_grad_w_opt_ref(
                           x, d, z, w, state.gamma_inv, state.eta_inv)))
+    for xs, ws, _, ai in linears:  # #5 at VGG8B's linear and mlp4's layers
+        _, w, delta, z = train_operands(xs, ws, g)
+        calls.append((f"nitro_matmul_grad_x delta{tuple(delta.shape)} w{ws}",
+                      lambda w=w, d=delta, z=z, ai=ai: nitro_matmul_grad_x(d, z, w, alpha_inv=ai),
+                      lambda w=w, d=delta, z=z, ai=ai: nitro_matmul_grad_x_ref(d, z, w,
+                                                                               alpha_inv=ai)))
+    for kind, xs, ws, _, ai in shapes:  # #10 at VGG8B's convs
+        if kind == "conv":
+            _, w, delta, z = train_operands(xs, ws, g)
+            calls.append((f"stream_conv_grad_x delta{tuple(delta.shape)} w{ws}",
+                          lambda w=w, d=delta, z=z, ai=ai: stream_conv_grad_x(d, z, w,
+                                                                              alpha_inv=ai),
+                          lambda w=w, d=delta, z=z, ai=ai: stream_conv_grad_x_ref(
+                              d, w, z_star=z, alpha_inv=ai)))
     torch.cuda.synchronize()
     outs = []
     torch.cuda.set_sync_debug_mode("error")
@@ -905,7 +1000,8 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
         _pair(f"{what} (called under sync debug mode 'error')", lambda got=got: got,
               plain_fn, errs)
     print(f"[no-sync] {len(calls)} calls of stream_conv / stream_conv_fwd / nitro_matmul / "
-          f"nitro_matmul_fwd / nitro_matmul_grad_w / nitro_matmul_grad_w_opt ran under "
+          f"nitro_matmul_fwd / nitro_matmul_grad_w / nitro_matmul_grad_w_opt / "
+          f"nitro_matmul_grad_x / stream_conv_grad_x ran under "
           f"torch.cuda.set_sync_debug_mode('error') without a host sync")
 
 
@@ -1482,10 +1578,11 @@ def matmul_device(fn, calls: int = 20, tries: int = 3,
     die(f"profiler saw {hits} launches of {kernel}, expected {calls}")
 
 
-def matmul_int_mm_yardstick(xs, ws, card: str, tag: str) -> None:
+def matmul_int_mm_yardstick(xs, ws, card: str, tag: str, what: str = "of the matmul") -> None:
     """A yardstick the port never calls: ``torch._int_mm`` at a matmul's
-    int8 GEMM shape (one digit product), M raised to 17 and N to a multiple
-    of 8 where ``_int_mm`` requires it (the output layer's N = 10 → 16)."""
+    int8 GEMM shape x (M, K) · w (K, N) (one digit product), M raised to 17
+    and N to a multiple of 8 where ``_int_mm`` requires it (the output
+    layer's N = 10 → 16)."""
     import torch
 
     m, k, n = max(xs[0], 17), xs[1], -(-ws[1] // 8) * 8
@@ -1496,7 +1593,7 @@ def matmul_int_mm_yardstick(xs, ws, card: str, tag: str) -> None:
         _, kernels = device_profile(lambda: torch._int_mm(a, b), 20)
         dev = sum(v for v, _ in kernels.values()) / 20
         print(f"[yardstick] {card} | {tag} torch._int_mm ({m}x{k}) . ({k}x{n}) int8 -> int32, "
-              f"one digit product of the matmul: device {dev:.4f} ms, back to back {ms:.4f} ms")
+              f"one digit product {what}: device {dev:.4f} ms, back to back {ms:.4f} ms")
     except RuntimeError as e:  # a yardstick only: report, not fatal
         print(f"[yardstick] {card} | {tag} torch._int_mm: not measured ({e})")
 
@@ -1788,8 +1885,13 @@ def grad_w_int_mm_yardstick(b, m, n, card: str, tag: str) -> None:
 def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
     """Phase 6d: per-shape kernel / plain / bound times of the input-
     gradient kernels at a VGG8B step's shapes (summed into the kernels
-    line), at mlp4's linear shapes, and of #6 at sf=1 (the grad_x route
-    without z*) beside #10."""
+    line), at mlp4's linear shapes, with their digit products: #10 back to
+    back (CUDA events) with its device time split into the GEMM and the
+    pre-passes (profiler), and #6 at sf=1 (the grad_x route without z*)
+    beside it as its yardstick; #5 by the device time of every device
+    operation of one call (the memset, the masked δ pre-pass, the GEMM;
+    its launches are shorter than the wrapper's host path), with
+    ``torch._int_mm`` at its int8 GEMM shape beside it."""
     import torch
 
     g = torch.Generator().manual_seed(8)
@@ -1803,10 +1905,13 @@ def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
         ms = time_cuda(fn, iters=20, warmup=3)
         plain_ms = time_cuda(grad_x_call(kind, w, delta, z, ai, "reference"),
                              iters=3, warmup=1)
-        how = ""
+        how = f"{grad_x_digits_run(w, delta, z, ai)}; "
         if kind == "linear":  # short beside its wrapper's host path
-            events, ms = ms, device_ms(fn, "nitro_matmul_grad_x_kernel", 20)
-            how = f" (device, profiler; back to back through the wrapper {events:.4f} ms)"
+            events, (ms, gemm) = ms, matmul_device(fn, kernel="grad_x_digit_kernel")
+            how = (f" (device, profiler: GEMM {gemm:.4f}, pre-pass and memset "
+                   f"{ms - gemm:.4f}; {how}back to back through the wrapper {events:.4f} ms)")
+        else:
+            how = f" ({how}{conv_device_split(fn)})"
         ops, nbytes = train_work(kind, kernel, xs, ws)
         ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
         if in_step:
@@ -1819,9 +1924,13 @@ def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
               f"({by}: {ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | "
               f"{100 * bound / ms:.2f}% of bound | library none")
         if kind == "conv":
-            sf1 = time_cuda(grad_x_call(kind, w, delta, None, ai, "cuda"), iters=20, warmup=3)
+            sf1 = grad_x_call(kind, w, delta, None, ai, "cuda")
             print(f"[time] {card} | {tag} stream_conv sf=1 (grad_x without z*, δ "
-                  f"pre-masked) | kernel {sf1:.4f} ms")
+                  f"pre-masked) | kernel {time_cuda(sf1, iters=20, warmup=3):.4f} ms "
+                  f"({conv_device_split(sf1)})")
+        else:
+            matmul_int_mm_yardstick((xs[0], ws[1]), (ws[1], ws[0]), card, tag,
+                                    "of the linear grad_x")
 
 
 def train_end_to_end(res, ref, fuse, cfg, card: str) -> None:

@@ -1,6 +1,7 @@
 // Exact int32 forward conv GEMM on Hopper's int8 tensor cores, shared by
-// stream_conv (the serving step) and stream_conv_fwd (the training
-// forward):
+// stream_conv (the serving step), stream_conv_fwd (the training forward)
+// and stream_conv_grad_x (the input gradient: x = the masked δ, w =
+// rot180_swap(w), its own pre-passes, stream_conv_grad_x.cu):
 //
 //   z[r, f] = Σ_m A(r, m) · B(m, f)   (mod 2^32)
 //
@@ -28,7 +29,8 @@
 //          the im2col patch matrix's digit planes, (N·H·W) × K²C padded to
 //          a multiple of 64 columns, zero outside the image; the GEMM then
 //          reads them as a 1×1 conv over K²C-padded channels;
-//      and flags.x_digits = the most digits any x needs;
+//      and flags.x_digits = the most digits any x needs (for grad_x both
+//      mask each δ by relu_bwd against z* as they read it: x_planes);
 //   2. delta_digits_kernel (digit_gemm.cuh, unmasked) writes w's four
 //      digit planes transposed to (F, K²C padded to 64) rows, and
 //      flags.w_digits;
@@ -101,14 +103,23 @@ struct Layout {
 };
 
 // x int32 with 4 | C: four values a thread (one 16-byte load), their four
-// digit bytes each packed into one word per plane.
+// digit bytes each packed into one word per plane.  MASK (the grad_x
+// pre-pass, x = δ): each value is relu_bwd(z*, δ) first, z* read with the
+// same 16-byte loads, so the masked δ is never written as int32.
+template <bool MASK>
 __global__ void __launch_bounds__(256)
-x_digits_kernel(const int4* __restrict__ x, long long n4, unsigned* __restrict__ xa,
-                long long plane_words, int* need_out) {
+x_digits_kernel(const int4* __restrict__ x, const int4* __restrict__ z, FastDiv alpha_inv,
+                long long n4, unsigned* __restrict__ xa, long long plane_words,
+                int* need_out) {
   unsigned need = 1u;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n4;
        i += (long long)gridDim.x * blockDim.x) {
-    const int4 v = __ldg(x + i);
+    int4 v = __ldg(x + i);
+    if (MASK) {
+      const int4 zv = __ldg(z + i);
+      v = make_int4(relu_bwd(zv.x, v.x, alpha_inv), relu_bwd(zv.y, v.y, alpha_inv),
+                    relu_bwd(zv.z, v.z, alpha_inv), relu_bwd(zv.w, v.w, alpha_inv));
+    }
     const unsigned b[4] = {digits::digit_bytes(v.x), digits::digit_bytes(v.y),
                            digits::digit_bytes(v.z), digits::digit_bytes(v.w)};
     need = max(need, digits::digits_needed(b[0] | b[1] | b[2] | b[3]));
@@ -125,11 +136,14 @@ x_digits_kernel(const int4* __restrict__ x, long long n4, unsigned* __restrict__
 }
 
 // Ragged C: one thread per (pixel, 16 patch columns), gathering from x
-// (L2-resident at these widths) and writing 16 bytes to each plane.
-template <typename T>
+// (L2-resident at these widths) and writing 16 bytes to each plane.  MASK
+// (the grad_x pre-pass): each value inside the image is relu_bwd(z*, δ),
+// z* read at the same index; the halo stays 0 (relu_bwd(0, 0) = 0).
+template <bool MASK, typename T>
 __global__ void __launch_bounds__(256)
-patch_digits_kernel(const T* __restrict__ x, int8_t* __restrict__ xa, int H, int W, int C,
-                    int K, int M, long long P, int Mp, long long plane, int* need_out) {
+patch_digits_kernel(const T* __restrict__ x, const int32_t* __restrict__ z,
+                    FastDiv alpha_inv, int8_t* __restrict__ xa, int H, int W, int C, int K,
+                    int M, long long P, int Mp, long long plane, int* need_out) {
   const int chunks = Mp / 16, r = K / 2;
   unsigned need = 1u;
   for (long long it = blockIdx.x * (long long)blockDim.x + threadIdx.x; it < P * chunks;
@@ -149,8 +163,11 @@ patch_digits_kernel(const T* __restrict__ x, int8_t* __restrict__ xa, int H, int
       if (m < M) {
         const int seg = m / C, c = m - seg * C;
         const int di = seg / K - r, dj = seg % K - r;
-        if (h + di >= 0 && h + di < H && w + dj >= 0 && w + dj < W)
-          v = (int)__ldg(x + (p + (long long)di * W + dj) * C + c);
+        if (h + di >= 0 && h + di < H && w + dj >= 0 && w + dj < W) {
+          const long long idx = (p + (long long)di * W + dj) * C + c;
+          v = (int)__ldg(x + idx);
+          if (MASK) v = relu_bwd(__ldg(z + idx), v, alpha_inv);
+        }
       }
       const unsigned b = digits::digit_bytes(v);
       need = max(need, digits::digits_needed(b));
@@ -394,7 +411,38 @@ inline int grid_stride_blocks(long long items, int sms) {
   return (int)(want < 8LL * sms ? want : 8LL * sms);
 }
 
-// Zero the flags, then x's planes (steps 1) and w's (step 2) on `st`.
+// Step 1 on `st`: x's digit planes (its patch planes for C % 16 != 0)
+// and flags->x_digits, each value masked by relu_bwd against z when z is
+// given (the grad_x pre-pass: x = δ, z = z*, both int32).  Nothing for an
+// int8 x read as it is.
+inline void x_planes(const Layout& L, const void* x, bool x_int8, const int32_t* z,
+                     FastDiv alpha_inv, int8_t* s, int sms, cudaStream_t st) {
+  Flags* flags = (Flags*)s;
+  if (L.patch && L.P > 0 && L.M > 0) {
+    const long long items = L.P * (L.Mp / 16);
+    const int blocks = grid_stride_blocks(items, sms);
+    if (z)
+      patch_digits_kernel<true, int32_t><<<blocks, 256, 0, st>>>(
+          (const int32_t*)x, z, alpha_inv, s + L.xa_off, L.H, L.W, L.C, L.K, L.M, L.P,
+          (int)L.Mp, L.xa_plane, &flags->x_digits);
+    else if (x_int8)
+      patch_digits_kernel<false, int8_t><<<blocks, 256, 0, st>>>(
+          (const int8_t*)x, nullptr, alpha_inv, s + L.xa_off, L.H, L.W, L.C, L.K, L.M, L.P,
+          (int)L.Mp, L.xa_plane, &flags->x_digits);
+    else
+      patch_digits_kernel<false, int32_t><<<blocks, 256, 0, st>>>(
+          (const int32_t*)x, nullptr, alpha_inv, s + L.xa_off, L.H, L.W, L.C, L.K, L.M, L.P,
+          (int)L.Mp, L.xa_plane, &flags->x_digits);
+  } else if (L.x_planes && L.P * L.C > 0) {
+    const long long n4 = L.P * L.C / 4;
+    auto kern = z ? x_digits_kernel<true> : x_digits_kernel<false>;
+    kern<<<grid_stride_blocks(n4, sms), 256, 0, st>>>(
+        (const int4*)x, (const int4*)z, alpha_inv, n4, (unsigned*)(s + L.xa_off),
+        L.xa_plane / 4, &flags->x_digits);
+  }
+}
+
+// Zero the flags, then x's planes (step 1) and w's (step 2) on `st`.
 // Returns a cudaError_t.
 inline int prepare(const Layout& L, const void* x, bool x_int8, const void* w, bool w_int8,
                    void* scratch, int sms, cudaStream_t st) {
@@ -402,22 +450,7 @@ inline int prepare(const Layout& L, const void* x, bool x_int8, const void* w, b
   Flags* flags = (Flags*)s;
   cudaError_t err = cudaMemsetAsync(flags, 0, sizeof(Flags), st);
   if (err != cudaSuccess) return (int)err;
-  if (L.patch && L.P > 0 && L.M > 0) {
-    const long long items = L.P * (L.Mp / 16);
-    const int blocks = grid_stride_blocks(items, sms);
-    if (x_int8)
-      patch_digits_kernel<int8_t><<<blocks, 256, 0, st>>>(
-          (const int8_t*)x, s + L.xa_off, L.H, L.W, L.C, L.K, L.M, L.P, (int)L.Mp,
-          L.xa_plane, &flags->x_digits);
-    else
-      patch_digits_kernel<int32_t><<<blocks, 256, 0, st>>>(
-          (const int32_t*)x, s + L.xa_off, L.H, L.W, L.C, L.K, L.M, L.P, (int)L.Mp,
-          L.xa_plane, &flags->x_digits);
-  } else if (L.x_planes && L.P * L.C > 0) {
-    const long long n4 = L.P * L.C / 4;
-    x_digits_kernel<<<grid_stride_blocks(n4, sms), 256, 0, st>>>(
-        (const int4*)x, n4, (unsigned*)(s + L.xa_off), L.xa_plane / 4, &flags->x_digits);
-  }
+  x_planes(L, x, x_int8, nullptr, FastDiv(1), s, sms, st);
   if (L.M > 0 && L.F > 0) {
     const dim3 grid((unsigned)(L.Mp / digits::PT), (unsigned)((L.F + 63) / 64));
     if (w_int8)

@@ -1,8 +1,11 @@
 // Exact int32 conv weight-gradient GEMM on Hopper's int8 tensor cores,
-// shared by stream_conv_grad_w and stream_conv_grad_w_opt (its digits,
-// digit-plane transpose and per-stage MMA step also serve the forward
-// convs' GEMM, conv_digits.cuh, and its tile, MMA step and lane offsets
-// the linear grad_W GEMM, linear_grad_w.cuh):
+// shared by stream_conv_grad_w and stream_conv_grad_w_opt.  Its digits,
+// digit-plane pre-passes and per-stage MMA step also serve the forward
+// convs' GEMM (conv_digits.cuh: stream_conv, stream_conv_fwd and
+// stream_conv_grad_x); its tile, MMA step and lane offsets the linear
+// grad_W GEMM (linear_grad_w.cuh); its row pre-pass, split plan and
+// last-arrival split sum the matmul GEMMs (nitro_matmul.cu,
+// nitro_matmul_grad_x.cu):
 //
 //   grad_W[m, f] = Σ_p A(m, p) · B(p, f)   (mod 2^32)
 //
@@ -51,7 +54,7 @@
 // on unsigned (exact in any order).
 #pragma once
 
-#include "int_gemm.cuh"
+#include "nitro_epilogue.cuh"
 
 namespace nitro {
 namespace digits {
@@ -79,6 +82,25 @@ __device__ __forceinline__ unsigned digit_bytes(int v) {
     u = (u - (b - 128u)) >> 8;             // (u − d) / 256, exact mod 2^32
   }
   return out | (u << 24);
+}
+
+// The same bytes in closed form: adding 128 at each of the three low
+// digits makes them the unsigned bytes d_i + 128 with no carry, and the
+// top byte keeps d3 mod 256.
+__device__ __forceinline__ unsigned digit_word(int v) {
+  return ((unsigned)v + 0x808080u) ^ 0x808080u;
+}
+
+// The digit words of four consecutive values → one word per plane, value
+// q in byte q (a 4×4 byte transpose).
+__device__ __forceinline__ void plane_words(unsigned a, unsigned b, unsigned c, unsigned d,
+                                            unsigned (&p)[4]) {
+  const unsigned lo_ab = __byte_perm(a, b, 0x5140), hi_ab = __byte_perm(a, b, 0x7362);
+  const unsigned lo_cd = __byte_perm(c, d, 0x5140), hi_cd = __byte_perm(c, d, 0x7362);
+  p[0] = __byte_perm(lo_ab, lo_cd, 0x5410);
+  p[1] = __byte_perm(lo_ab, lo_cd, 0x7632);
+  p[2] = __byte_perm(hi_ab, hi_cd, 0x5410);
+  p[3] = __byte_perm(hi_ab, hi_cd, 0x7632);
 }
 
 // Digits v needs: 1 + the index of its highest nonzero digit (1 for 0).
@@ -204,6 +226,64 @@ delta_digits_kernel(const T* __restrict__ delta,
   }
 }
 
+// Rows of a (M, K) row-major matrix as K-contiguous digit planes (M, Kp),
+// zero past K: one thread a (row, 4 columns), one 16-byte load of an
+// int32 row where it is aligned (else four), one word to each plane, so a
+// warp's loads and stores are whole 128-byte lines; `need` gets the most
+// digits any value needs.  An int8 T writes plane 0 alone (its own
+// digits).  The forward matmuls run it on x; with MASK,
+// nitro_matmul_grad_x on δ, each value relu_bwd(z*, δ) first (z* int32 at
+// the same index), so the masked δ is never written as int32.
+template <bool MASK, typename T>
+__global__ void __launch_bounds__(256)
+row_digits_kernel(const T* __restrict__ x, const int32_t* __restrict__ z, FastDiv alpha_inv,
+                  int8_t* __restrict__ xa, int M, int K, long long Kp, long long plane,
+                  int* need_out) {
+  constexpr int PLANES = sizeof(T) == 1 ? 1 : MAXD;
+  const long long words = Kp / 4;
+  unsigned need = 1u;
+  for (long long it = blockIdx.x * (long long)blockDim.x + threadIdx.x; it < M * words;
+       it += (long long)gridDim.x * blockDim.x) {
+    const long long m = it / words;
+    const int k0 = 4 * (int)(it - m * words);
+    const long long at = m * K + k0;
+    int v[4];
+    if (sizeof(T) == 4 && k0 + 4 <= K && (uintptr_t)(x + at) % 16 == 0 &&
+        (!MASK || (uintptr_t)(z + at) % 16 == 0)) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(x + at));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+      if (MASK) {
+        const int4 zq = __ldg(reinterpret_cast<const int4*>(z + at));
+        v[0] = relu_bwd(zq.x, v[0], alpha_inv), v[1] = relu_bwd(zq.y, v[1], alpha_inv);
+        v[2] = relu_bwd(zq.z, v[2], alpha_inv), v[3] = relu_bwd(zq.w, v[3], alpha_inv);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = k0 + e < K ? (int)__ldg(x + at + e) : 0;
+        if (MASK && k0 + e < K) v[e] = relu_bwd(__ldg(z + at + e), v[e], alpha_inv);
+      }
+    }
+    unsigned d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] = digit_word(v[e]);
+    need = max(need, digits_needed(d[0] | d[1] | d[2] | d[3]));
+    unsigned pw[4];
+    plane_words(d[0], d[1], d[2], d[3], pw);
+#pragma unroll
+    for (int j = 0; j < PLANES; ++j)
+      *reinterpret_cast<unsigned*>(xa + j * plane + m * Kp + k0) = pw[j];
+  }
+  __shared__ unsigned warp_need[8];
+  need = __reduce_max_sync(0xffffffffu, need);
+  if (threadIdx.x % 32 == 0) warp_need[threadIdx.x / 32] = need;
+  __syncthreads();
+  if (threadIdx.x == 0) {  // one atomic a block at most (the flag only grows)
+    for (int i = 1; i < 8; ++i) need = max(need, warp_need[i]);
+    if ((int)need > __ldcg(need_out)) atomicMax(need_out, (int)need);
+  }
+}
+
 // The patch bytes of one (ki, kj) segment for the thread's channel and
 // four pixels: digit 0 only (x fits int8: the value's low byte) or all
 // four, packed one word per digit; 0 outside the image.
@@ -299,6 +379,12 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
+}
+// 4 bytes global → shared, asynchronously; zero-filled when !ok (for
+// rows that are not 16-byte aligned).
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -477,6 +563,16 @@ __device__ __forceinline__ void for_each_out(int row0, int col0, int M, int F, F
     }
 }
 
+// What the fuse_opt flush reads and writes besides the GEMM's operands.
+struct SgdOut {
+  const int32_t* w;          // W, M×N
+  int32_t* w_new;            // W′, M×N
+  unsigned* ws;              // M×N split sums; zero before and after a launch
+  unsigned* arrivals;        // one counter per output tile; zero likewise
+  const int32_t* gamma_inv;  // 0-d device scalars of the optimiser state
+  const int32_t* eta_inv;
+};
+
 // W′ = integer_sgd(W, g) over the thread's outputs, g from tot (FROM_WS
 // false) or from the split-K workspace, read from L2 (__ldcg: the other
 // splits' atomics resolve there) and returned to zero.  All loads go
@@ -484,7 +580,7 @@ __device__ __forceinline__ void for_each_out(int row0, int col0, int M, int F, F
 // The divisors are copied out of shared memory first: for the same
 // reason every store would otherwise reload them.
 template <bool FROM_WS>
-__device__ __forceinline__ void flush_sgd(const gemm::SgdOut& o, const SgdDivisors& shared,
+__device__ __forceinline__ void flush_sgd(const SgdOut& o, const SgdDivisors& shared,
                                           unsigned (&tot)[2][4][4], int row0, int col0,
                                           int M, int F) {
   const SgdDivisors sgd = shared;
@@ -507,7 +603,7 @@ __device__ __forceinline__ void flush_sgd(const gemm::SgdOut& o, const SgdDiviso
 // split cannot apply it alone).
 template <bool OPT>
 __global__ void __launch_bounds__(THREADS, 1)
-digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, gemm::SgdOut o) {
+digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, SgdOut o) {
   extern __shared__ __align__(128) int8_t smem[];
   __shared__ __align__(8) unsigned char sgd_bytes[sizeof(SgdDivisors)];
   __shared__ bool last;
@@ -560,6 +656,67 @@ digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, gemm::SgdOut o) {
   if (!last) return;
   __threadfence();
   flush_sgd<true>(o, sgd, tot, row0, col0, g.M, g.F);
+}
+
+// Split-K for a GEMM whose epilogue is not linear (the forward matmuls,
+// nitro_matmul_grad_x): the splits of a 64×64 output tile meet before it.
+// Each writes its 16 sums a thread (of 256) to its own slot of `parts`
+// with plain 16-byte stores, thread-major, so a slot is written whole and
+// needs no zeroing; fences and counts itself in on the tile's arrival
+// counter (zero, left zero).  The last to arrive reads the other slots
+// back with __ldcg, each thread the same 16 sums it holds, and adds them
+// mod 2^32 (exact in any order): it returns true with the whole sum in
+// tot, every other split false.  `last` is a __shared__ flag.  (An
+// atomicAdd per sum costs more: about 10 µs a call on an H100 in L2
+// atomics and the read-back.)
+constexpr int SPLIT_SLOT = 64 * 64;
+
+__device__ __forceinline__ uint4* slot_words(unsigned* parts, size_t slot) {
+  return reinterpret_cast<uint4*>(parts + slot * SPLIT_SLOT) + 4 * threadIdx.x;
+}
+
+__device__ __forceinline__ void add4(unsigned (&tot)[4], uint4 v) {
+  tot[0] += v.x;
+  tot[1] += v.y;
+  tot[2] += v.z;
+  tot[3] += v.w;
+}
+
+__device__ __forceinline__ bool sum_splits(unsigned* parts, unsigned* arrivals, size_t tile,
+                                           unsigned (&tot)[4][4], bool& last) {
+  uint4* mine = slot_words(parts, tile * gridDim.z + blockIdx.z);
+#pragma unroll
+  for (int t = 0; t < 4; ++t) mine[t] = make_uint4(tot[t][0], tot[t][1], tot[t][2], tot[t][3]);
+  __threadfence();  // this block's sums are visible before it counts in
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* arrival = &arrivals[tile];
+    last = atomicAdd(arrival, 1u) == gridDim.z - 1;
+    if (last) *arrival = 0u;  // every split has counted in: reset
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  // the other splits' sums, two slots' loads in flight at a time
+#pragma unroll 1
+  for (unsigned s = 0; s < gridDim.z; s += 2) {
+    const unsigned s1 = s + 1 < gridDim.z ? s + 1 : s;
+    const uint4* a = slot_words(parts, tile * gridDim.z + s);
+    const uint4* b = slot_words(parts, tile * gridDim.z + s1);
+    uint4 va[4], vb[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      va[t] = __ldcg(a + t);
+      vb[t] = __ldcg(b + t);
+    }
+    const bool use_a = s != blockIdx.z, use_b = s1 != s && s1 != blockIdx.z;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (use_a) add4(tot[t], va[t]);
+      if (use_b) add4(tot[t], vb[t]);
+    }
+  }
+  return true;
 }
 
 // Splits of a contraction Pp deep over `tiles` output tiles for `slots`
@@ -645,7 +802,7 @@ inline int prepare(const Layout& L, const void* x, const void* delta, const void
 // M×F int32 zeroed by the caller) or W′ into o.w_new (OPT true; o.ws and
 // o.arrivals zero, one counter per BM×BN tile, left zero).
 template <bool OPT>
-int launch_gemm(const Layout& L, void* scratch, unsigned* out, const gemm::SgdOut& o,
+int launch_gemm(const Layout& L, void* scratch, unsigned* out, const SgdOut& o,
                 int sms, cudaStream_t st) {
   auto kern = digit_gemm_kernel<OPT>;
   cudaError_t err =

@@ -100,9 +100,7 @@ struct Args {
   int pairs = 0;  // N even and the outputs 8-byte aligned: two stored at a time
 };
 
-__device__ __forceinline__ unsigned digit_word(int v) {
-  return ((unsigned)v + 0x808080u) ^ 0x808080u;
-}
+using digits::digit_word;
 
 // The 16 digit words of one row's run of samples → the run's 16 bytes in
 // each of the four planes at dst (planes `plane` bytes apart): per four
@@ -110,24 +108,11 @@ __device__ __forceinline__ unsigned digit_word(int v) {
 __device__ __forceinline__ void put_run(int8_t* dst, int plane, const unsigned (&dw)[RUN]) {
   unsigned p[4][MAXD];
 #pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    const unsigned a = dw[4 * w], b = dw[4 * w + 1], c = dw[4 * w + 2], d = dw[4 * w + 3];
-    const unsigned lo_ab = __byte_perm(a, b, 0x5140), hi_ab = __byte_perm(a, b, 0x7362);
-    const unsigned lo_cd = __byte_perm(c, d, 0x5140), hi_cd = __byte_perm(c, d, 0x7362);
-    p[w][0] = __byte_perm(lo_ab, lo_cd, 0x5410);
-    p[w][1] = __byte_perm(lo_ab, lo_cd, 0x7632);
-    p[w][2] = __byte_perm(hi_ab, hi_cd, 0x5410);
-    p[w][3] = __byte_perm(hi_ab, hi_cd, 0x7632);
-  }
+  for (int w = 0; w < 4; ++w)
+    digits::plane_words(dw[4 * w], dw[4 * w + 1], dw[4 * w + 2], dw[4 * w + 3], p[w]);
 #pragma unroll
   for (int j = 0; j < MAXD; ++j)
     *reinterpret_cast<uint4*>(dst + j * plane) = make_uint4(p[0][j], p[1][j], p[2][j], p[3][j]);
-}
-
-// 4-byte global → shared, asynchronously; zero-filled when !ok.
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(digits::smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
 }
 
 // The update's W tile (BM rows × BN int32, rows W_ROW apart) into shared
@@ -145,7 +130,7 @@ __device__ __forceinline__ void stage_w(const Args& a, int32_t* wt, int m0, int 
     for (int c = threadIdx.x; c < BM * BN; c += THREADS) {
       const int r = c / BN, k = c % BN;
       const bool ok = m0 + r < a.M && n0 + k < a.N;
-      cp4(wt + r * W_ROW + k, ok ? a.w + (size_t)(m0 + r) * a.N + n0 + k : a.w, ok);
+      digits::cp4(wt + r * W_ROW + k, ok ? a.w + (size_t)(m0 + r) * a.N + n0 + k : a.w, ok);
     }
   }
   digits::cp_commit();

@@ -204,12 +204,6 @@ __device__ __forceinline__ int relu_bwd(int z, int g, const FastDiv& alpha_inv) 
 __device__ __forceinline__ void store(int8_t* p, int v) { *p = (int8_t)v; }
 __device__ __forceinline__ void store(int32_t* p, int v) { *p = v; }
 
-// Wrapping int32 multiply-accumulate: unsigned arithmetic is defined to
-// wrap mod 2^32, so the sum matches XLA's int32 dot bit for bit.
-__device__ __forceinline__ unsigned mac(unsigned acc, int a, int b) {
-  return acc + (unsigned)a * (unsigned)b;
-}
-
 }  // namespace nitro
 
 extern "C" const char* nitro_cuda_error_string(int err) {

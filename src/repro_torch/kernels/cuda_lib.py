@@ -26,8 +26,6 @@ _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
 COMMON_HEADERS = (
     _HERE / "csrc_common" / "nitro_epilogue.cuh",
-    _HERE / "csrc_common" / "int_gemm.cuh",
-    _HERE / "csrc_common" / "patch_rows.cuh",
     _HERE / "csrc_common" / "digit_gemm.cuh",
     _HERE / "csrc_common" / "conv_digits.cuh",
     _HERE / "csrc_common" / "linear_grad_w.cuh",
@@ -56,13 +54,15 @@ SOURCES = {
     "integer_sgd": _HERE / "integer_sgd" / "csrc" / "integer_sgd.cu",
 }
 
-#: Output tile of the CUDA-core GEMM (``BM``/``BN`` in int_gemm.cuh: the
-#: grad_x kernels) and of the forward matmul digit GEMM (``TN``/``TM`` in
-#: nitro_matmul.cu), which keeps one arrival counter per tile.
+#: Output tile (64 × 64) of the split-K matmul digit GEMMs, which keep one
+#: arrival counter per tile: the forward matmuls (``TN``/``TM`` in
+#: nitro_matmul.cu) and ``nitro_matmul_grad_x`` (``TM``/``TB`` in
+#: nitro_matmul_grad_x.cu).
 GEMM_TILE = 64
 #: Output tile (rows, cols) of the digit GEMMs of digit_gemm.cuh (``BM``/
 #: ``BN``): the conv grad_W kernels (``stream_conv_grad_w_opt`` keeps one
-#: counter per tile) and the linear ones (linear_grad_w.cuh).
+#: counter per tile), the linear ones (linear_grad_w.cuh) and the conv
+#: GEMM of conv_digits.cuh (the forward convs, ``stream_conv_grad_x``).
 DIGIT_TILE = (128, 64)
 
 _lock = threading.Lock()
@@ -203,8 +203,9 @@ def split_workspace(device: torch.device, m: int, n: int,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(ws, arrivals)`` for a split-K launch with an M×N output on
     ``device``'s current stream (``stream_conv_grad_w_opt``, the forward
-    matmuls): int32 split sums (≥ M·N) and one arrival counter per
-    ``tile`` of the output (the launching kernel's own tile), both zero.
+    matmuls, ``nitro_matmul_grad_x``): int32 split sums (≥ M·N) and one
+    arrival counter per ``tile`` of the output (the launching kernel's own
+    tile), both zero.
 
     Each launch leaves them zero again, so one pair per (device, stream)
     serves every call in stream order, whichever kernel makes it; it

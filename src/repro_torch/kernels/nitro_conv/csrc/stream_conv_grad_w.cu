@@ -46,5 +46,5 @@ extern "C" int stream_conv_grad_w_launch(const void* x, const void* delta,
   const cudaStream_t st = (cudaStream_t)stream;
   const int err = prepare(L, x, delta, z_star, scratch, alpha_inv, sms, st);
   if (err) return err;
-  return launch_gemm<false>(L, scratch, (unsigned*)out, nitro::gemm::SgdOut{}, sms, st);
+  return launch_gemm<false>(L, scratch, (unsigned*)out, nitro::digits::SgdOut{}, sms, st);
 }

@@ -49,7 +49,7 @@ extern "C" int stream_conv_grad_w_opt_launch(
   const cudaStream_t st = (cudaStream_t)stream;
   const int err = prepare(L, x, delta, z_star, scratch, alpha_inv, sms, st);
   if (err) return err;
-  const nitro::gemm::SgdOut o{(const int32_t*)w,         (int32_t*)w_new,
+  const nitro::digits::SgdOut o{(const int32_t*)w,         (int32_t*)w_new,
                               (unsigned*)ws,             (unsigned*)arrivals,
                               (const int32_t*)gamma_inv, (const int32_t*)eta_inv};
   return launch_gemm<true>(L, scratch, nullptr, o, sms, st);

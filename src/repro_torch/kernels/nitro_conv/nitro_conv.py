@@ -19,7 +19,8 @@
   * ``stream_conv_grad_x`` replaces ``stream_conv_grad_x``
     (``_stream_grad_x_kernel``): the input gradient, the 'full'
     correlation of δ masked by the NITRO-ReLU derivative with
-    ``rot180_swap(w)``.
+    ``rot180_swap(w)``, on the forward convs' digit GEMM over the masked
+    δ's digits.
 
 Sources: ``csrc/stream_conv.cu``, ``csrc/stream_conv_fwd.cu``,
 ``csrc/stream_conv_grad_w.cu``, ``csrc/stream_conv_grad_w_opt.cu`` and
@@ -37,7 +38,7 @@ import torch
 from repro_torch.core.activations import mu_int8
 from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH, rot180_swap
+from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH
 
 
 def _conv_shapes(name: str, x: torch.Tensor, k: int, c_w: int) -> None:
@@ -320,9 +321,13 @@ def stream_conv_grad_x(
     of ``relu_bwd(z_star, δ)`` with ``rot180_swap(w)``, unit scale, no
     activation.
 
-    delta and z_star (N,H,W,F), w (K,K,C,F) → (N,H,W,C) int32.  δ is
-    masked as the kernel gathers it; the rotated weight is laid out on
-    the card beside the launch, (K·K·F, C).
+    delta and z_star (N,H,W,F), w (K,K,C,F) → (N,H,W,C) int32.  A
+    pre-pass masks δ and writes its digit planes (the masked δ is never
+    written as int32), another writes the rotated weight's planes from w
+    as it lies, and the products run on the int8 tensor cores over exact
+    signed base-256 digits (``conv_digits.cuh``; the plain model is
+    ``ref.stream_conv_grad_x_digits``), only as many as the data needs,
+    decided on the card.  A memset and three device launches per call.
     """
     if w.ndim != 4 or w.shape[0] != w.shape[1]:
         raise ValueError(f"stream_conv_grad_x: bad weight shape {tuple(w.shape)}")
@@ -334,19 +339,22 @@ def stream_conv_grad_x(
     if alpha_inv < 1:
         raise ValueError(f"alpha_inv must be >= 1, got {alpha_inv}")
     delta, z_star, w = cuda_lib.as_int32("stream_conv_grad_x", delta, z_star, w)
+    delta, z_star = _digit_operand(delta), _digit_operand(z_star)  # 16-byte loads
     n, h, w_sp, _ = delta.shape
     out = torch.empty((n, h, w_sp, c), dtype=torch.int32, device=delta.device)
     if out.numel() == 0:
         return out
-    if out.numel() >= 2 ** 31 or c >= 65535 * cuda_lib.GEMM_TILE:
-        raise ValueError("stream_conv_grad_x: output exceeds the kernel's grid")
-    w_rot = rot180_swap(w).reshape(k * k * f, c).contiguous()
-    lib, launch = cuda_lib.entry("stream_conv_grad_x", "stream_conv_grad_x_launch", 4, 7)
+    if out.numel() >= 2 ** 31:
+        raise ValueError("stream_conv_grad_x: output must have fewer than 2^31 elements")
+    _digit_limits("stream_conv_grad_x", h, w_sp, n * h * w_sp, c)
+    lib, launch = cuda_lib.entry("stream_conv_grad_x", "stream_conv_grad_x_launch", 5, 8)
+    scratch = _digit_scratch(lib, "stream_conv_grad_x", delta.device, n, h, w_sp, f, c, k)
     with torch.cuda.device(delta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
-            delta.data_ptr(), z_star.data_ptr(), w_rot.data_ptr(), out.data_ptr(),
-            n, h, w_sp, f, c, k, int(alpha_inv), stream,
+            delta.data_ptr(), z_star.data_ptr(), w.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), n, h, w_sp, f, c, k, int(alpha_inv),
+            cuda_lib.sm_count(delta.device), stream,
         )
     cuda_lib.check(lib, err, "stream_conv_grad_x")
     stream_conv_grad_x.launches.add()

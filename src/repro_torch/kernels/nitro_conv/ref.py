@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the streaming implicit-im2col conv kernels
 (port of ``repro.kernels.nitro_conv.ref``): the inference step, the
 training forward ``(a, z*)``, the weight gradient, the weight update and
-the input gradient; and a plain model of the conv grad_W kernels'
-arithmetic on the card, exact int8 digit products (``s8_digits`` to
-``stream_conv_grad_w_opt_digits``).
+the input gradient; and plain models of the kernels' arithmetic on the
+card, exact int8 digit products: the conv grad_W kernels
+(``patch_digit_planes`` to ``stream_conv_grad_w_opt_digits``), the
+forward convs (``x_digit_planes`` to ``stream_conv_fwd_digits``) and the
+input gradient (``rot_w_digit_planes``, ``stream_conv_grad_x_digits``).
 
 Each runs the algorithm in plain tensor ops: a loop over output-row
 bands, each forming a band-local patch block from K² overlapping row
@@ -374,10 +376,13 @@ def conv_digit_rows(n: int, h: int, w_sp: int, *, pool: bool) -> torch.Tensor:
     return window_view_2x2(idx.reshape(n, h, w_sp, 1)).reshape(-1)
 
 
-def digit_conv(x: torch.Tensor, w: torch.Tensor, *, pool: bool = False) -> torch.Tensor:
+def digit_conv(x: torch.Tensor, w: torch.Tensor, *, pool: bool = False,
+               w_planes: tuple[torch.Tensor, int] | None = None) -> torch.Tensor:
     """The forward conv GEMM: z (R, F) int32, R rows in
     ``conv_digit_rows`` order, as Σ_{i+j ≤ 3, i < nx, j < nw}
-    2^(8(i+j)) · A_i · B_jᵀ (mod 2^32) over the x and w digit planes.
+    2^(8(i+j)) · A_i · B_jᵀ (mod 2^32) over the x and w digit planes
+    (``w_digit_planes(w)``, or ``w_planes`` when a pre-pass of its own
+    wrote them).
 
     The contraction runs in slices of at most 16,384 columns; within a
     slice each shift's s32 sum (≤ 4 pairs of s8 products) stays below
@@ -386,7 +391,7 @@ def digit_conv(x: torch.Tensor, w: torch.Tensor, *, pool: bool = False) -> torch
     n, h, w_sp, c = x.shape
     k, f = w.shape[0], w.shape[-1]
     xa, nx, patch = x_digit_planes(x, k)
-    wb, nw = w_digit_planes(w)
+    wb, nw = w_digit_planes(w) if w_planes is None else w_planes
     rows = conv_digit_rows(n, h, w_sp, pool=pool)
     if patch:  # a 1×1 conv over the patch planes
         a = xa[:nx][:, rows]
@@ -444,3 +449,42 @@ def stream_conv_fwd_digits(
     n, h, w_sp, _ = x.shape
     z_star = scale_forward(digit_conv(x, w), sf).reshape(n, h, w_sp, w.shape[-1])
     return nitro_relu(z_star, alpha_inv), z_star
+
+
+# ---------------------------------------------------------------------------
+# The conv input-gradient kernel's arithmetic (csrc/stream_conv_grad_x.cu,
+# on conv_digits.cuh's GEMM): the masked δ's digit planes, the rotated
+# weight's planes read from w as it lies, then the forward conv's digit
+# GEMM at unit scale.  Bitwise the same function as stream_conv_grad_x_ref.
+# ---------------------------------------------------------------------------
+
+def rot_w_digit_planes(w: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The rotated-weight pre-pass: w (K,K,C,F) read as it lies, row c of
+    the four digit planes (4, C, K²F padded to 64) being, segment by
+    segment, the run w[K²−1−seg, c, :] — the planes ``w_digit_planes``
+    gives for ``rot180_swap(w)``, with no rotated copy — and the digits w
+    needs."""
+    k, _, c, f = w.shape
+    rows = w.to(INT_DTYPE).reshape(k * k, c, f).flip(0).permute(1, 0, 2).reshape(c, k * k * f)
+    return padded_planes(rows, N_DIGITS), digits_needed(rows)
+
+
+def stream_conv_grad_x_digits(
+    grad_out: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    z_star: torch.Tensor | None = None,
+    alpha_inv: int = 10,
+) -> torch.Tensor:
+    """``stream_conv_grad_x_ref`` computed as the CUDA kernel computes it:
+    δ masked by the NITRO-ReLU derivative as its digit planes are written
+    (``x_digit_planes``: NHWC for 16 | F, else the patch planes), the
+    rotated weight's planes (``rot_w_digit_planes``), then ``digit_conv``'s
+    GEMM, only the digit pairs the two counts allow, folded every 16,384
+    columns → (N,H,W,C) int32."""
+    g = grad_out.to(INT_DTYPE)
+    if z_star is not None:
+        g = nitro_relu_backward(z_star, g, alpha_inv)
+    n, h, w_sp, _ = g.shape
+    z = digit_conv(g, rot180_swap(w), w_planes=rot_w_digit_planes(w))
+    return z.reshape(n, h, w_sp, w.shape[2])

@@ -44,17 +44,11 @@
 //     on an H100, PERF.md).  No split is deeper than 16,384, so no s32
 //     accumulator overflows (|Σ| ≤ 4·2^14·2^14 = 2^30 a set).
 //   * The splits meet before the epilogue, which is not linear: each
-//     writes its tile's sums (mod 2^32) to its own slot of the call's
-//     scratch with plain 16-byte stores, thread-major so that the slot is
-//     written whole and needs no zeroing, fences and counts itself in on
-//     the tile's arrival counter (cuda_lib.split_workspace: one counter per
-//     64×64 tile, zero, left zero); the last to arrive reads the other
-//     slots back with __ldcg, each thread the same 16 sums it holds, adds
-//     them mod 2^32 (exact in any order), applies the NITRO scale (+ ReLU,
-//     − μ) and writes out (and z*).  (An atomicAdd per sum costs more:
-//     about 10 µs a call on an H100 in L2 atomics and the read-back.)
-//     With one split the registers hold the whole sum and the epilogue
-//     runs on them directly.
+//     writes its tile's sums to its own slot of the call's scratch and the
+//     last to arrive on the tile's arrival counter (cuda_lib.split_workspace)
+//     adds them mod 2^32 (digit_gemm.cuh's sum_splits), applies the NITRO
+//     scale (+ ReLU, − μ) and writes out (and z*).  With one split the
+//     registers hold the whole sum and the epilogue runs on them directly.
 //   * The epilogue runs once per output after the reduction, with its two
 //     floor divides as multiply-highs (FastEpilogue): in one call on an
 //     H100 that read faster than divide instructions for both kernels
@@ -76,7 +70,7 @@ constexpr int BK = digits::BK;  // contraction bytes a stage; Kp is a multiple
 constexpr int ROW = BK + 16;    // padded shared row: conflict-free ldmatrix
 constexpr int THREADS = 256;
 constexpr int RING = 102400;    // bytes of stages: two blocks an SM fit
-constexpr int SLOT = TN * TM;   // sums a split's slot holds (16 a thread)
+constexpr int SLOT = digits::SPLIT_SLOT;  // sums a split's slot holds (TN · TM)
 constexpr int MAX_STAGES = digits::MAX_CHUNK / BK;  // stages of the deepest split
 
 struct Flags {
@@ -117,50 +111,6 @@ struct Layout {
             (splits > 1 ? (size_t)n_tiles * m_tiles * splits * SLOT * sizeof(unsigned) : 0);
   }
 };
-
-// x's rows as K-contiguous digit planes (M, Kp), zero past K: one thread a
-// (row, 16 columns), 16 bytes to each plane; `need` gets the most digits
-// any x needs.  An int8 x writes plane 0 alone (its own digits).
-template <typename T>
-__global__ void __launch_bounds__(256)
-row_digits_kernel(const T* __restrict__ x, int8_t* __restrict__ xa, int M, int K,
-                  long long Kp, long long plane, int* need_out) {
-  constexpr int PLANES = sizeof(T) == 1 ? 1 : MAXD;
-  const long long chunks = Kp / 16;
-  unsigned need = 1u;
-  for (long long it = blockIdx.x * (long long)blockDim.x + threadIdx.x; it < M * chunks;
-       it += (long long)gridDim.x * blockDim.x) {
-    const long long m = it / chunks;
-    const int k0 = 16 * (int)(it - m * chunks);
-    unsigned words[MAXD][4];
-#pragma unroll
-    for (int j = 0; j < MAXD; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) words[j][e] = 0u;
-#pragma unroll
-    for (int e = 0; e < 16; ++e) {
-      const int k = k0 + e;
-      const int v = k < K ? (int)__ldg(x + m * K + k) : 0;
-      const unsigned b = digits::digit_bytes(v);
-      need = max(need, digits::digits_needed(b));
-#pragma unroll
-      for (int j = 0; j < PLANES; ++j)
-        words[j][e / 4] |= ((b >> (8 * j)) & 255u) << (8 * (e % 4));
-    }
-#pragma unroll
-    for (int j = 0; j < PLANES; ++j)
-      *reinterpret_cast<uint4*>(xa + j * plane + m * Kp + k0) =
-          make_uint4(words[j][0], words[j][1], words[j][2], words[j][3]);
-  }
-  __shared__ unsigned warp_need[8];
-  need = __reduce_max_sync(0xffffffffu, need);
-  if (threadIdx.x % 32 == 0) warp_need[threadIdx.x / 32] = need;
-  __syncthreads();
-  if (threadIdx.x == 0) {  // one atomic a block at most (the flag only grows)
-    for (int i = 1; i < 8; ++i) need = max(need, warp_need[i]);
-    if ((int)need > __ldcg(need_out)) atomicMax(need_out, (int)need);
-  }
-}
 
 struct Args {
   const int8_t* wb;      // w's planes WB[j][n][k], rows Kp apart
@@ -319,18 +269,6 @@ __device__ void write_tile(const Out& o, const unsigned* tile, int n0, int m0, i
   }
 }
 
-// The thread's 16 sums in slot `slot`: four 16-byte words, thread-major.
-__device__ __forceinline__ uint4* slot_words(const Out& o, size_t slot) {
-  return reinterpret_cast<uint4*>(o.parts + slot * SLOT) + 4 * threadIdx.x;
-}
-
-__device__ __forceinline__ void add4(unsigned (&tot)[4], uint4 v) {
-  tot[0] += v.x;
-  tot[1] += v.y;
-  tot[2] += v.z;
-  tot[3] += v.w;
-}
-
 // One 64 n × 64 m tile over one split of the contraction.  WIDE false:
 // both operands int8, the one-product variant alone; WIDE true: the
 // variant the flags name.
@@ -360,41 +298,10 @@ matmul_digit_kernel(Args g, Out o) {
       default: run_w<4>(nw, g, smem, w_has, n0, m0, k_begin, nk, tot); break;
     }
   }
-  if (gridDim.z > 1) {
-    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-    uint4* mine = slot_words(o, tile * gridDim.z + blockIdx.z);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) mine[t] = make_uint4(tot[t][0], tot[t][1], tot[t][2], tot[t][3]);
-    __threadfence();  // this block's sums are visible before it counts in
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned* arrival = &o.arrivals[tile];
-      last = atomicAdd(arrival, 1u) == gridDim.z - 1;
-      if (last) *arrival = 0u;  // every split has counted in: reset
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    // the other splits' sums, two slots' loads in flight at a time
-#pragma unroll 1
-    for (unsigned s = 0; s < gridDim.z; s += 2) {
-      const unsigned s1 = s + 1 < gridDim.z ? s + 1 : s;
-      const uint4* a = slot_words(o, tile * gridDim.z + s);
-      const uint4* b = slot_words(o, tile * gridDim.z + s1);
-      uint4 va[4], vb[4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        va[t] = __ldcg(a + t);
-        vb[t] = __ldcg(b + t);
-      }
-      const bool use_a = s != blockIdx.z, use_b = s1 != s && s1 != blockIdx.z;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        if (use_a) add4(tot[t], va[t]);
-        if (use_b) add4(tot[t], vb[t]);
-      }
-    }
-  }
+  if (gridDim.z > 1 &&
+      !digits::sum_splits(o.parts, o.arrivals, (size_t)blockIdx.y * gridDim.x + blockIdx.x, tot,
+                          last))
+    return;
   // stage the whole sums as [m][n] in the ring, free once every warp is done
   unsigned* staged = reinterpret_cast<unsigned*>(smem);
   __syncthreads();
@@ -436,13 +343,15 @@ inline int launch(const Layout& L, const void* x, bool x_int8, const void* w, bo
           (const int32_t*)w, nullptr, s + L.w_off, L.K, L.N, L.Kp, L.w_plane, FastDiv(1),
           &flags->w_digits, map);
     if (L.x_planes > 0) {
-      const int blocks = grid_stride_blocks(L.M * (L.Kp / 16), sms);
+      const int blocks = grid_stride_blocks(L.M * (L.Kp / 4), sms);
       if (x_int8)
-        row_digits_kernel<int8_t><<<blocks, 256, 0, st>>>(
-            (const int8_t*)x, s + L.x_off, L.M, L.K, L.Kp, L.x_plane, &flags->x_digits);
+        digits::row_digits_kernel<false, int8_t><<<blocks, 256, 0, st>>>(
+            (const int8_t*)x, nullptr, FastDiv(1), s + L.x_off, L.M, L.K, L.Kp, L.x_plane,
+            &flags->x_digits);
       else
-        row_digits_kernel<int32_t><<<blocks, 256, 0, st>>>(
-            (const int32_t*)x, s + L.x_off, L.M, L.K, L.Kp, L.x_plane, &flags->x_digits);
+        digits::row_digits_kernel<false, int32_t><<<blocks, 256, 0, st>>>(
+            (const int32_t*)x, nullptr, FastDiv(1), s + L.x_off, L.M, L.K, L.Kp, L.x_plane,
+            &flags->x_digits);
     }
   }
   Args g;

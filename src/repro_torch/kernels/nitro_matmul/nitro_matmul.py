@@ -20,9 +20,11 @@ Sources: ``csrc/nitro_matmul.cu`` (the first two: a split-K GEMM on the
 int8 tensor cores over exact base-256 digits),
 ``csrc/nitro_matmul_grad_w.cu`` and ``csrc/nitro_matmul_grad_w_opt.cu``
 (a shallow GEMM on the int8 tensor cores over exact digits,
-``csrc_common/linear_grad_w.cuh``) and ``csrc/nitro_matmul_grad_x.cu``,
-which note each kernel's bound and design.  The wrappers take CUDA tensors only; the dispatchers in
-``ops.py`` send CPU tensors to the plain versions in ``ref.py``.
+``csrc_common/linear_grad_w.cuh``) and ``csrc/nitro_matmul_grad_x.cu``
+(a split-K GEMM on the int8 tensor cores over exact digits, w split as
+it is staged), which note each kernel's bound and design.  The wrappers
+take CUDA tensors only; the dispatchers in ``ops.py`` send CPU tensors to
+the plain versions in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -277,9 +279,13 @@ def nitro_matmul_grad_x(
     """Fused input gradient on the card: ``relu_bwd(z_star, δ) @ wᵀ``.
 
     delta and z_star (B,N), w (M,N) as it lies (no transposed copy) →
-    (B,M) int32.  The contraction over the fan-out is split across blocks
-    whose partial sums are added with atomics (exact: int32 addition wraps
-    mod 2³² in any order).
+    (B,M) int32.  A pre-pass masks δ and writes its digit planes; the
+    split-K GEMM reads w once and splits it into digits as it builds its
+    fragments, on the int8 tensor cores over exact signed base-256 digits
+    (``csrc/nitro_matmul_grad_x.cu``; the plain model is
+    ``ref.nitro_matmul_grad_x_digits``), only the digit pairs the data
+    needs, decided on the card; the splits' tiles are summed by the last
+    to arrive.  A memset and two device launches per call.
     """
     _check_2d("nitro_matmul_grad_x", delta, w, 1, 1)
     if z_star.shape != delta.shape:
@@ -291,17 +297,25 @@ def nitro_matmul_grad_x(
     delta, z_star, w = cuda_lib.as_int32("nitro_matmul_grad_x", delta, z_star, w)
     b, n = delta.shape
     m = w.shape[0]
-    if b >= 65535 * cuda_lib.GEMM_TILE:
+    if -(-b // cuda_lib.GEMM_TILE) > 65535 or b * m >= 2 ** 31:
         raise ValueError("nitro_matmul_grad_x: batch exceeds the kernel's grid")
-    out = torch.zeros((b, m), dtype=torch.int32, device=delta.device)
+    out = torch.empty((b, m), dtype=torch.int32, device=delta.device)
     if out.numel() == 0:
         return out
-    lib, launch = cuda_lib.entry("nitro_matmul_grad_x", "nitro_matmul_grad_x_launch", 4, 5)
+    lib, launch = cuda_lib.entry("nitro_matmul_grad_x", "nitro_matmul_grad_x_launch", 6, 6)
+    sms = cuda_lib.sm_count(delta.device)
+    fn = lib.nitro_matmul_grad_x_scratch_bytes
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+    scratch = torch.empty(fn(b, m, n, sms), dtype=torch.uint8, device=delta.device)
+    _, arrivals = cuda_lib.split_workspace(delta.device, b, m)
+    w_vec = int(n % 4 == 0 and w.data_ptr() % 16 == 0)
     with torch.cuda.device(delta.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(
             delta.data_ptr(), z_star.data_ptr(), w.data_ptr(), out.data_ptr(),
-            b, m, n, alpha_inv, cuda_lib.sm_count(delta.device), stream,
+            scratch.data_ptr(), arrivals.data_ptr(), b, m, n, alpha_inv, w_vec, sms, stream,
         )
     cuda_lib.check(lib, err, "nitro_matmul_grad_x")
     nitro_matmul_grad_x.launches.add()

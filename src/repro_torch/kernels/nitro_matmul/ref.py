@@ -8,8 +8,10 @@ the weight gradient → IntegerSGD (weight update) exactly as
 for bit; the CPU path of the dispatchers runs them.  Last, plain models
 of the kernels' arithmetic on the card, exact int8 digit products: the
 forward matmuls' split-K (``matmul_w_planes`` to
-``nitro_matmul_fwd_digits``) and the weight gradients' shallow tiles
-(``tile_digits`` to ``grad_w_opt_digits``).
+``nitro_matmul_fwd_digits``), the weight gradients' shallow tiles
+(``tile_digits`` to ``grad_w_opt_digits``) and the input gradient's
+split-K with w split as staged (``grad_x_w_planes``,
+``nitro_matmul_grad_x_digits``).
 """
 
 from __future__ import annotations
@@ -307,3 +309,72 @@ def grad_w_opt_digits(x: torch.Tensor, delta: torch.Tensor, z_star: torch.Tensor
     it: ``grad_w_digits``' sums, then IntegerSGD on each whole sum → W′."""
     grad_w = grad_w_digits(x, delta, z_star, alpha_inv=alpha_inv)
     return integer_sgd_ref(w, grad_w, gamma_inv, eta_inv)
+
+
+# ---------------------------------------------------------------------------
+# The input-gradient kernel's arithmetic (csrc/nitro_matmul_grad_x.cu):
+# grad_xᵀ = w · maskedδᵀ as a split-K GEMM, the masked δ's digit planes
+# from a pre-pass, w split into digits as each warp stages it (its own
+# digit count per 16 rows × 32-deep step), the splits' tiles added mod 2^32
+# by the last to arrive.  Bitwise the same function as
+# nitro_matmul_grad_x_ref.
+# ---------------------------------------------------------------------------
+
+#: What one warp's digit count of w covers: 16 rows by a 32-deep step.
+GRAD_X_WARP = (16, 32)
+
+
+def grad_x_w_planes(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """w (M, N) split into digits as the GEMM stages it: the four planes
+    (4, M, Np), N zero-padded to 64 — no pre-pass writes them, each warp
+    forms its fragments' planes from the int32 values — and each column's
+    count (M, Np): the digits its warp's 16 rows × 32-deep step needs, the
+    products j ≥ count of which the warp skips."""
+    planes = padded_planes(w.to(INT_DTYPE), N_DIGITS)
+    rows, steps = GRAD_X_WARP
+    m, np_ = planes.shape[1:]
+    mp = -(-m // rows) * rows
+    nonzero = torch.zeros((N_DIGITS, mp, np_), dtype=torch.bool)
+    nonzero[:, :m] = planes.ne(0)
+    nonzero = nonzero.view(N_DIGITS, mp // rows, rows, np_ // steps, steps).any(dim=(2, 4))
+    rank = torch.arange(1, N_DIGITS + 1).view(-1, 1, 1)
+    need = (nonzero * rank).amax(dim=0).clamp(min=1)
+    need = need.repeat_interleave(rows, dim=0).repeat_interleave(steps, dim=1)[:m]
+    return planes, need
+
+
+def nitro_matmul_grad_x_digits(delta: torch.Tensor, z_star: torch.Tensor, w: torch.Tensor,
+                               *, alpha_inv: int = 10, slots: int = H100_SLOTS
+                               ) -> torch.Tensor:
+    """``nitro_matmul_grad_x_ref`` computed as the CUDA kernel computes it:
+    (B, M) int32 = Σ over splits of Σ_{i+j ≤ 3, i < nd, j < nw}
+    2^(8(i+j)) · D_i · W_jᵀ (mod 2^32), D the masked δ's planes (nd its
+    digit count), W w's (nw its warp's count at each column), the splits
+    ``plan_splits`` makes for the 64 × 64 tiles of grad_xᵀ.
+
+    Each split's s32 sums (at most four pairs of s8 products over at most
+    16,384 columns) stay below 2^31, which is checked; the splits add mod
+    2^32 in any order, as the last block to arrive adds their slots.
+    """
+    g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
+    db, nd = matmul_x_planes(g)
+    wb, nw = grad_x_w_planes(w)
+    b, m, np_ = g.shape[0], w.shape[0], wb.shape[-1]
+    tiles = -(-m // MATMUL_TILE) * -(-b // MATMUL_TILE)
+    splits, chunk = plan_splits(tiles, np_, slots)
+    total = torch.zeros((b, m), dtype=torch.int64)
+    for s in range(splits):
+        cols = slice(s * chunk, min(np_, (s + 1) * chunk))
+        part = torch.zeros((b, m), dtype=torch.int64)
+        for shift in range(N_DIGITS):
+            acc = torch.zeros((b, m), dtype=torch.int64)
+            for i in range(nd):
+                j = shift - i
+                if 0 <= j < N_DIGITS:
+                    wj = wb[j, :, cols].to(torch.int64) * (nw[:, cols] > j)
+                    acc += db[i, :, cols].to(torch.int64) @ wj.T
+            if acc.numel() and int(acc.abs().max()) >= 2 ** 31:
+                raise AssertionError(f"split {s} shift {shift}: s32 sum {int(acc.abs().max())}")
+            part += acc << (8 * shift)
+        total += part & 0xFFFFFFFF
+    return (((total + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)

@@ -494,10 +494,24 @@ def test_cuda_fuse_opt_steps_match_split_steps(cuda_device):
             assert torch.equal(state.params["output"]["w"], split.params["output"]["w"])
 
 
+#: (B, M, N) of #5's digit-variant cases: ragged (N = 3: 4-byte copies of
+#: w; B of 1, 33 and 1,000), VGG8B's linear, a contraction of 40,000 (three
+#: splits or more) and more splits than tiles (B = 1, M = 10)
+_GRAD_X_MM = [(5, 7, 3), (33, 300, 70), (64, 2048, 1024), (1000, 20, 10), (3, 70, 40000),
+              (1, 10, 20000)]
+#: (N, H, W, C, F, K) of #10's: F = 12 (the masked patch planes), 32 with
+#: odd W, 64 with C = 3 and K = 5, and K²F = 18,432 (the GEMM folds once)
+_GRAD_X_CONV = [(2, 7, 9, 5, 12, 3), (2, 6, 5, 16, 32, 3), (1, 9, 7, 3, 64, 5),
+                (1, 4, 5, 8, 2048, 3)]
+
+
 @pytest.mark.gpu
 def test_nitro_matmul_grad_x_matches_plain(cuda_device):
     """Full-range int32 δ and w (the sum wraps), ragged shapes, VGG8B's
-    linear shape (a split fan-out) and α_inv 1, 2, 10."""
+    linear shape (a split fan-out) and α_inv 1, 2, 10; then every digit
+    path — masked δ and w of one to four digits, 16 variants — at every
+    shape of _GRAD_X_MM, each call twice (the same bits), and w whose rows
+    are not 16-byte aligned (its 4-byte copies)."""
     g = torch.Generator().manual_seed(12)
     for b, m, n in ((5, 7, 3), (33, 300, 70), (64, 2048, 1024), (1000, 20, 10)):
         delta = _wide(g, (b, n), 2 ** 31 - 1, cuda_device)
@@ -508,12 +522,31 @@ def test_nitro_matmul_grad_x_matches_plain(cuda_device):
             want = nitro_matmul_grad_x_ref(delta, z, w, alpha_inv=alpha_inv)
             torch.cuda.synchronize()
             assert got.dtype == want.dtype and torch.equal(got, want)
+    for b, m, n in _GRAD_X_MM:
+        for d_lim in _LIMS:
+            for w_lim in _LIMS:
+                _, delta, z = _grad_w_operands(g, b, 1, n, 1, d_lim, cuda_device)
+                w = _lim_ints(g, (m, n), w_lim, cuda_device)
+                want = nitro_matmul_grad_x_ref(delta, z, w, alpha_inv=10)
+                for _ in range(2):
+                    got = nitro_matmul_grad_x(delta, z, w, alpha_inv=10)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), \
+                        (b, m, n, d_lim, w_lim)
+        buf = _wide(g, (m * n + 1,), 2 ** 31 - 1, cuda_device)
+        w = buf[1:].view(m, n)  # rows 4 bytes off 16-byte alignment
+        got = nitro_matmul_grad_x(delta, z, w, alpha_inv=3)
+        want = nitro_matmul_grad_x_ref(delta, z, w, alpha_inv=3)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (b, m, n, "w misaligned")
 
 
 @pytest.mark.gpu
 def test_stream_conv_grad_x_matches_plain(cuda_device):
     """The masked kernel (#10) and the unmasked route through stream_conv
-    at sf=1, on full-range int32 δ, C = 3 and K = 5 among the shapes."""
+    at sf=1, on full-range int32 δ, C = 3 and K = 5 among the shapes; then
+    every digit path — masked δ and w of one to four digits, 16 variants —
+    at every shape of _GRAD_X_CONV, each call twice (the same bits)."""
     g = torch.Generator().manual_seed(13)
     for n, h, w_sp, c, f, k, _ in _CONV_TRAIN:
         delta = _wide(g, (n, h, w_sp, f), 2 ** 31 - 1, cuda_device)
@@ -528,3 +561,16 @@ def test_stream_conv_grad_x_matches_plain(cuda_device):
         want = stream_conv_grad_x_ref(delta, w)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+    for n, h, w_sp, c, f, k in _GRAD_X_CONV:
+        for d_lim in _LIMS:
+            for w_lim in _LIMS:
+                delta = _lim_ints(g, (n, h, w_sp, f), d_lim, cuda_device)
+                z = _wide(g, (n, h, w_sp, f), 300, cuda_device)
+                z.view(-1)[:2] = 0  # the mask keeps the planted extremes
+                w = _lim_ints(g, (k, k, c, f), w_lim, cuda_device)
+                want = stream_conv_grad_x_ref(delta, w, z_star=z, alpha_inv=10)
+                for _ in range(2):
+                    got = stream_conv_grad_x(delta, z, w, alpha_inv=10)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), \
+                        (n, h, w_sp, c, f, k, d_lim, w_lim)

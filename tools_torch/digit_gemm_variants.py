@@ -2,10 +2,12 @@
 """What bounds the conv digit GEMMs on the card: their device time with the
 tensor-core MMAs, the staging copies or the stores taken out; the matmul
 digit GEMM's epilogue with its floor divides as multiply-highs (as
-built) against divide instructions; and the linear grad_W kernels with
-their loads, their stores or the update's W tile changed.
+built) against divide instructions; the linear grad_W kernels with
+their loads, their stores or the update's W tile changed; and the two
+input-gradient kernels the same way.
 
-    python3 tools_torch/digit_gemm_variants.py     # from a checkout, one CUDA card
+    python3 tools_torch/digit_gemm_variants.py          # from a checkout, one CUDA card
+    python3 tools_torch/digit_gemm_variants.py grad_x   # only the named parts
 
 Builds ``stream_conv_grad_w`` and ``stream_conv_fwd`` from copies of their
 sources and ``csrc_common/`` (under a temporary directory; the checkout is
@@ -47,6 +49,19 @@ Variants:
     in the flush, no cp.async tile), ``no_sgd`` (W − g in place of
     IntegerSGD) and ``sgd_divisors`` (IntegerSGD on the 64-bit
     ``SgdDivisors`` in place of ``SgdMagic``).
+
+  * the input gradients: #10 (``stream_conv_grad_x``: the conv GEMM of
+    ``conv_digits.cuh`` on the masked δ's planes) at VGG8B's six conv
+    shapes (batch 64, δ of ±2²⁰ and z* over every segment: a masked δ of
+    three digits; w of the paper's init range: one) with ``no_mma``,
+    ``no_copy``, ``no_copy_B`` (w's planes) and ``no_store`` (grad_x not
+    written), the pre-passes' device time beside the GEMM's; #5
+    (``nitro_matmul_grad_x``'s ``grad_x_digit_kernel``) at VGG8B's linear
+    and mlp4's two layer shapes on the same digits with ``no_mma``,
+    ``no_w_copy`` (w's rows not copied: the fragments split whatever
+    shared memory holds), ``no_split`` (the fragments take w's low byte
+    as its one digit: no byte transposes, one product per δ digit; a
+    wrong result) and ``no_store``, in turns with the kernel as built.
 
 The conv and grad_W variants' results are garbage (but those of
 ``plain_store``, ``one_block`` and ``sgd_divisors``); only their times are
@@ -147,6 +162,36 @@ TARGETS = {
                           "(sgd_bytes);")],
     }),
 }
+GX_NO_STORE = ("stream_conv_grad_x.cu",
+               "    write_tile(tile, BM, row0, g.R, g.F, col0, out, same);",
+               "    if (tile[threadIdx.x] == 0x7fffffff) out[threadIdx.x] = tile[0];")
+TARGETS["grad_x_conv"] = ("stream_conv_grad_x", "conv_digit_gemm", {
+    "base": [],
+    "no_mma": [MMA],
+    "no_copy": TARGETS["fwd"][2]["no_copy"],
+    "no_copy_B": TARGETS["fwd"][2]["no_copy_B"],
+    "no_store": [GX_NO_STORE],
+})
+TARGETS["grad_x_linear"] = ("nitro_matmul_grad_x", "grad_x_digit_kernel", {
+    "base": [],
+    "no_mma": [("nitro_matmul_grad_x.cu",
+                "for (int t = 0; t < 4; ++t) digits::mma_s8(acc[i + j][t], a[j], b[i][t]);",
+                "for (int t = 0; t < 4; ++t) acc[i + j][t][0] ^= a[j][0] ^ b[i][t][0];")],
+    "no_w_copy": [
+        ("nitro_matmul_grad_x.cu",
+         "      digits::cp16(st + r * WROW + 4 * k, ok ? g.w + (size_t)(m0 + r) * g.N + k0 + k "
+         ": g.w, ok);", ""),
+        ("nitro_matmul_grad_x.cu",
+         "      digits::cp4(st + r * WROW + 4 * k, ok ? g.w + (size_t)(m0 + r) * g.N + k0 + k "
+         ": g.w, ok);", "")],
+    "no_split": [("nitro_matmul_grad_x.cu", "  any |= d0 | d1 | d2 | d3;\n  unsigned pl[4];\n"
+                  "  digits::plane_words(d0, d1, d2, d3, pl);",
+                  "  any |= 0u;\n  unsigned pl[4] = {(unsigned)v.x, 0u, 0u, 0u};")],
+    "no_store": [("nitro_matmul_grad_x.cu",
+                  "    if (b < g.B && m < g.M) g.out[(size_t)b * g.M + m] = "
+                  "(int)staged[(i / TM) * (TM + 1) + i % TM];",
+                  "    if (staged[i] == 0x7fffffffu) g.out[i] = 0;")],
+})
 #: (M, K, N, int8 operands, kernel): #1's served linear and output layer,
 #: #2's VGG8B linear and mlp4's layers (the second twice in a step)
 MATMUL_SHAPES = [(32, 2048, 1024, True, "#1"), (32, 1024, 10, True, "#1"),
@@ -155,6 +200,11 @@ MATMUL_SHAPES = [(32, 2048, 1024, True, "#1"), (32, 1024, 10, True, "#1"),
 GRAD_W_SHAPES = [((64, 32, 32, 128, 256), 2 ** 20), ((64, 16, 16, 256, 512), 2 ** 20),
                  ((64, 16, 16, 256, 512), 100)]
 FWD_SHAPES = [(64, 32, 32, 128, 256), (64, 16, 16, 256, 512), (64, 4, 4, 512, 512)]
+#: #10 at VGG8B's six convs, batch 64: δ (N, H, W, F) and grad_x's C
+GRAD_X_CONV = [((64, 32, 32, 128), 3), ((64, 32, 32, 256), 128), ((64, 16, 16, 256), 256),
+               ((64, 16, 16, 512), 256), ((64, 8, 8, 512), 512), ((64, 4, 4, 512), 512)]
+#: #5 at VGG8B's linear and mlp4's layers: (B, N, M), δ (B, N) and w (M, N)
+GRAD_X_LINEAR = [(64, 1024, 2048), (64, 3000, 3072), (64, 3000, 3000)]
 
 
 def build(tmp: Path, target: str) -> dict[str, ctypes.CDLL]:
@@ -239,41 +289,52 @@ def main() -> int:
 
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parts = sys.argv[1:] or ["grad_w", "fwd", "matmul", "linear", "grad_x"]
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp), "grad_w")
-        for (n, h, w, c, f), lim in GRAD_W_SHAPES:
-            x, d, z = ints((n, h, w, c), 128), ints((n, h, w, f), lim), ints((n, h, w, f), 300)
-            times = []
-            for name, lib in libs.items():
-                launch, nbytes = bind(lib, "stream_conv_grad_w", 5, 8, 6)
-                scratch = torch.empty(nbytes(n, h, w, c, f, 3), dtype=torch.uint8, device="cuda")
-                out = torch.zeros((9 * c, f), dtype=torch.int32, device="cuda")
-                args = (x.data_ptr(), d.data_ptr(), z.data_ptr(), out.data_ptr(),
-                        scratch.data_ptr(), n, h, w, c, f, 3, 10, sms, stream)
-                if launch(*args):
-                    raise SystemExit(f"variant {name}: launch failed")
-                times.append(f"{name} {gemm_ms(lambda: launch(*args), 'digit_gemm'):.4f}")
-            print(f"[variant] x{(n, h, w, c)} delta +-{lim} F={f}: digit_gemm_kernel ms "
-                  + " | ".join(times))
-        libs = build(Path(tmp), "fwd")
-        for n, h, w, c, f in FWD_SHAPES:
-            x, wt = ints((n, h, w, c), 128), ints((3, 3, c, f), 6)
-            a = torch.empty((n, h, w, f), dtype=torch.int32, device="cuda")
-            z = torch.empty_like(a)
-            times = []
-            for name, lib in libs.items():
-                launch, nbytes = bind(lib, "stream_conv_fwd", 5, 13, 7)
-                scratch = torch.empty(nbytes(n, h, w, c, f, 3, 0), dtype=torch.uint8,
-                                      device="cuda")
-                args = (x.data_ptr(), wt.data_ptr(), a.data_ptr(), z.data_ptr(),
-                        scratch.data_ptr(), n, h, w, c, f, 3, 0, 0, 9, 1, 10, 0, sms, stream)
-                if launch(*args):
-                    raise SystemExit(f"variant {name}: launch failed")
-                times.append(f"{name} {gemm_ms(lambda: launch(*args), 'conv_digit_gemm'):.4f}")
-            print(f"[variant] fwd x{(n, h, w, c)} w +-6 F={f}: conv_digit_gemm_kernel ms "
-                  + " | ".join(times))
-        matmul_epilogues(Path(tmp), ints, sms, stream)
-        linear_grad_w(Path(tmp), ints, sms, stream)
+        if "grad_x" in parts:
+            grad_x_conv(Path(tmp), ints, sms, stream)
+            grad_x_linear(Path(tmp), ints, sms, stream)
+        if "grad_w" in parts:
+            libs = build(Path(tmp), "grad_w")
+            for (n, h, w, c, f), lim in GRAD_W_SHAPES:
+                x, d = ints((n, h, w, c), 128), ints((n, h, w, f), lim)
+                z = ints((n, h, w, f), 300)
+                times = []
+                for name, lib in libs.items():
+                    launch, nbytes = bind(lib, "stream_conv_grad_w", 5, 8, 6)
+                    scratch = torch.empty(nbytes(n, h, w, c, f, 3), dtype=torch.uint8,
+                                          device="cuda")
+                    out = torch.zeros((9 * c, f), dtype=torch.int32, device="cuda")
+                    args = (x.data_ptr(), d.data_ptr(), z.data_ptr(), out.data_ptr(),
+                            scratch.data_ptr(), n, h, w, c, f, 3, 10, sms, stream)
+                    if launch(*args):
+                        raise SystemExit(f"variant {name}: launch failed")
+                    times.append(f"{name} {gemm_ms(lambda: launch(*args), 'digit_gemm'):.4f}")
+                print(f"[variant] x{(n, h, w, c)} delta +-{lim} F={f}: digit_gemm_kernel ms "
+                      + " | ".join(times))
+        if "fwd" in parts:
+            libs = build(Path(tmp), "fwd")
+            for n, h, w, c, f in FWD_SHAPES:
+                x, wt = ints((n, h, w, c), 128), ints((3, 3, c, f), 6)
+                a = torch.empty((n, h, w, f), dtype=torch.int32, device="cuda")
+                z = torch.empty_like(a)
+                times = []
+                for name, lib in libs.items():
+                    launch, nbytes = bind(lib, "stream_conv_fwd", 5, 13, 7)
+                    scratch = torch.empty(nbytes(n, h, w, c, f, 3, 0), dtype=torch.uint8,
+                                          device="cuda")
+                    args = (x.data_ptr(), wt.data_ptr(), a.data_ptr(), z.data_ptr(),
+                            scratch.data_ptr(), n, h, w, c, f, 3, 0, 0, 9, 1, 10, 0, sms, stream)
+                    if launch(*args):
+                        raise SystemExit(f"variant {name}: launch failed")
+                    t = gemm_ms(lambda: launch(*args), "conv_digit_gemm")
+                    times.append(f"{name} {t:.4f}")
+                print(f"[variant] fwd x{(n, h, w, c)} w +-6 F={f}: conv_digit_gemm_kernel ms "
+                      + " | ".join(times))
+        if "matmul" in parts:
+            matmul_epilogues(Path(tmp), ints, sms, stream)
+        if "linear" in parts:
+            linear_grad_w(Path(tmp), ints, sms, stream)
     return 0
 
 
@@ -358,6 +419,92 @@ def matmul_epilogues(tmp: Path, ints, sms: int, stream: int) -> None:
         print(f"[fastdiv] {what} per {per}: multiply-highs "
               f"{totals[(what, 'multiply-highs')]:.4f} ms, divides "
               f"{totals[(what, 'divides')]:.4f} ms (GEMM device time, best of two turns)")
+
+
+def device_split(call, kernel: str) -> tuple[float, float]:
+    """(every device operation of one call, ``kernel``'s share), ms, from
+    one profiler session of 10 calls that saw every launch of ``kernel``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        hits = [e for e in events if kernel in e.key]
+        if sum(e.count for e in hits) == 10:
+            return (sum(e.self_device_time_total for e in events) / 1e4,
+                    sum(e.self_device_time_total for e in hits) / 1e4)
+    raise SystemExit(f"the profiler missed launches of {kernel} in 5 sessions")
+
+
+def grad_x_conv(tmp: Path, ints, sms: int, stream: int) -> None:
+    """#10 with each variant at VGG8B's six conv shapes, in turns (the
+    order of the variants, then reversed; the best of each), and the whole
+    call's device time (memset and pre-passes) as built."""
+    import torch
+
+    libs = build(tmp, "grad_x_conv")
+    totals: dict[str, float] = {}
+    for (n, h, w, f), c in GRAD_X_CONV:
+        d, z, wt = ints((n, h, w, f), 2 ** 20), ints((n, h, w, f), 301), ints((3, 3, c, f), 6)
+        out = torch.empty((n, h, w, c), dtype=torch.int32, device="cuda")
+        best, calls = {}, {}
+        for name in [*libs, *reversed(libs)]:
+            launch, nbytes = bind(libs[name], "stream_conv_grad_x", 5, 8, 6)
+            scratch = torch.empty(nbytes(n, h, w, f, c, 3), dtype=torch.uint8, device="cuda")
+            args = (d.data_ptr(), z.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), n, h, w, f, c, 3, 10, sms, stream)
+            if launch(*args):
+                raise SystemExit(f"grad_x_conv variant {name}: launch failed")
+            calls[name] = (launch, args, scratch)
+            t = gemm_ms(lambda: launch(*args), "conv_digit_gemm")
+            best[name] = min(best.get(name, t), t)
+        launch, args, _ = calls["base"]
+        total, gemm = device_split(lambda: launch(*args), "conv_digit_gemm")
+        totals["call"] = totals.get("call", 0.0) + total
+        for name, t in best.items():
+            totals[name] = totals.get(name, 0.0) + t
+        print(f"[variant] #10 delta{(n, h, w, f)} -> C={c}: call {total:.4f} ms (GEMM "
+              f"{gemm:.4f}, pre-passes and memset {total - gemm:.4f}) | conv_digit_gemm_kernel "
+              f"ms " + " | ".join(f"{a} {b:.4f}" for a, b in best.items()))
+    print("[variant] #10 per pass of the six: " + " | ".join(
+        f"{a} {b:.4f}" for a, b in totals.items()) + " ms")
+
+
+def grad_x_linear(tmp: Path, ints, sms: int, stream: int) -> None:
+    """#5 with each variant at VGG8B's linear and mlp4's layers, in turns,
+    and the whole call's device time as built."""
+    import torch
+
+    libs = build(tmp, "grad_x_linear")
+    arrivals = torch.zeros(64, dtype=torch.int32, device="cuda")
+    for b, n, m in GRAD_X_LINEAR:
+        d, z, w = ints((b, n), 2 ** 20), ints((b, n), 301), ints((m, n), 6)
+        out = torch.empty((b, m), dtype=torch.int32, device="cuda")
+        best, calls = {}, {}
+        for name in [*libs, *reversed(libs)]:
+            lib = libs[name]
+            launch = lib.nitro_matmul_grad_x_launch
+            launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+            launch.restype = ctypes.c_int
+            nbytes = lib.nitro_matmul_grad_x_scratch_bytes
+            nbytes.argtypes, nbytes.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+            scratch = torch.empty(nbytes(b, m, n, sms), dtype=torch.uint8, device="cuda")
+            args = (d.data_ptr(), z.data_ptr(), w.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                    arrivals.data_ptr(), b, m, n, 10, 1, sms, stream)
+            if launch(*args):
+                raise SystemExit(f"grad_x_linear variant {name}: launch failed")
+            calls[name] = (launch, args, scratch)
+            t = gemm_ms(lambda: launch(*args), "grad_x_digit_kernel")
+            best[name] = min(best.get(name, t), t)
+        launch, args, _ = calls["base"]
+        total, gemm = device_split(lambda: launch(*args), "grad_x_digit_kernel")
+        print(f"[variant] #5 delta({b}, {n}) w({m}, {n}): call {total:.4f} ms (GEMM {gemm:.4f}, "
+              f"pre-pass and memset {total - gemm:.4f}) | grad_x_digit_kernel ms "
+              + " | ".join(f"{a} {b:.4f}" for a, b in best.items()))
 
 
 if __name__ == "__main__":

@@ -21,8 +21,14 @@ VGG8B's linear (64 × 2048 → 1024) and mlp4's two layer shapes, every
 device operation of the call summed (the parent's #3 zero-fills its
 output first), from ``torch.profiler`` over 20 calls, on operands of the
 main path's digits (x in ±127: one digit; δ in ±170 with z* over every
-NITRO-ReLU segment: two).  The card's name and power limit come first.
-Needs one card; no network.
+NITRO-ReLU segment: two).  Then one ``[ab-grad-x]`` line: the device time
+of one grad_x pass of ``stream_conv_grad_x`` (#10) over VGG8B's six conv
+shapes at batch 64 and of one ``nitro_matmul_grad_x`` (#5) call at VGG8B's
+linear and mlp4's two layer shapes, every device operation summed, from
+``torch.profiler`` over 5 passes (20 calls for #5), on the operands
+``chip_smoke.py`` times them on (δ in ±2²⁰ with z* over every segment: a
+masked δ of three digits; w in ±2¹⁵: three).  The card's name and power
+limit come first.  Needs one card; no network.
 """
 
 from __future__ import annotations
@@ -33,7 +39,11 @@ import time
 from pathlib import Path
 
 TRAIN_LIBS = ["stream_conv", "stream_conv_fwd", "nitro_matmul", "stream_conv_grad_w",
-              "stream_conv_grad_w_opt", "nitro_matmul_grad_w", "nitro_matmul_grad_w_opt"]
+              "stream_conv_grad_w_opt", "nitro_matmul_grad_w", "nitro_matmul_grad_w_opt",
+              "stream_conv_grad_x", "nitro_matmul_grad_x"]
+#: #10's six VGG8B shapes at batch 64: δ (N, H, W, F), grad_x's C
+GRAD_X_CONVS = [((64, 32, 32, 128), 3), ((64, 32, 32, 256), 128), ((64, 16, 16, 256), 256),
+                ((64, 16, 16, 512), 256), ((64, 8, 8, 512), 512), ((64, 4, 4, 512), 512)]
 
 
 def turn(root: str) -> None:
@@ -108,6 +118,59 @@ def turn(root: str) -> None:
     print(f"[ab-kernels] {root}: " + " | ".join(grad_w_kernel_ms(torch, profile,
                                                                    ProfilerActivity)),
           flush=True)
+    print(f"[ab-grad-x] {root}: " + " | ".join(grad_x_kernel_ms(torch, profile,
+                                                                 ProfilerActivity)),
+          flush=True)
+
+
+def device_ms_per(torch, profile, activity, fn, calls: int, kernel: tuple, launches: int):
+    """Device ms of one ``fn()``: every device operation over ``calls``
+    calls, from a profiler session that saw ``launches`` launches whose
+    name holds one of ``kernel`` (one that missed some runs again)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[activity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if sum(e.count for e in events if any(k in e.key for k in kernel)) == launches:
+            return sum(e.self_device_time_total for e in events
+                       if e.self_device_time_total > 0) / 1e3 / calls
+    raise SystemExit(f"the profiler missed launches of {kernel}")
+
+
+def grad_x_kernel_ms(torch, profile, activity) -> list[str]:
+    """Device ms of one #10 pass over VGG8B's convs and of one #5 call at
+    each main-path linear shape."""
+    from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv_grad_x
+    from repro_torch.kernels.nitro_matmul.nitro_matmul import nitro_matmul_grad_x
+
+    g = torch.Generator().manual_seed(1)
+
+    def ints(shape, lim):
+        return torch.randint(-lim, lim + 1, shape, generator=g).to(torch.int32).cuda()
+
+    convs = [(ints(d, 2 ** 20), ints(d, 300), ints((3, 3, c, d[-1]), 2 ** 15))
+             for d, c in GRAD_X_CONVS]
+
+    def conv_pass():
+        for delta, z, w in convs:
+            stream_conv_grad_x(delta, z, w)
+
+    # #10's GEMM, once a call: the parent's kernel, or the digit GEMM's
+    # epilogue type
+    gemm = ("stream_conv_grad_x_kernel", "GradXOut")
+    parts = [f"#10 VGG8B pass of six "
+             f"{device_ms_per(torch, profile, activity, conv_pass, 5, gemm, 30):.4f} ms"]
+    for tag, (b, m, n) in (("VGG8B", (64, 2048, 1024)), ("mlp4 3072x3000", (64, 3072, 3000)),
+                           ("mlp4 3000x3000", (64, 3000, 3000))):
+        delta, z, w = ints((b, n), 2 ** 20), ints((b, n), 300), ints((m, n), 2 ** 15)
+        ms = device_ms_per(torch, profile, activity, lambda: nitro_matmul_grad_x(delta, z, w),
+                           20, ("grad_x",), 20)
+        parts.append(f"#5 {tag} {ms:.4f} ms")
+    return parts
 
 
 def grad_w_kernel_ms(torch, profile, activity) -> list[str]:
