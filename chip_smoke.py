@@ -30,11 +30,19 @@ Phases, each fatal on failure:
      — masked δ and w of one to four digits, 16 variants — each call
      twice, the arrival counters left zero; #6 at sf=1 (the route without
      z*) at every VGG8B conv;
+  3c. the update kernels under each optimiser state of ``opt_states``: #4
+     and #9 at every VGG8B training shape and ragged ones (#9 on every
+     digit path, twice each); #11 on each VGG8B weight tensor alone and on
+     whole trees in one call — VGG8B's 15 tensors under the forward and
+     the learning layers' states (one launch), mlp4's 7 (one launch), 150
+     ragged tensors (three launches: 64 a table), aligned tensors beside
+     ``base[1:]`` views, all on full-range int32 W and g;
   3e. each forward conv and matmul kernel, each linear grad_W kernel and
-     each input-gradient kernel called once per main-path shape under
+     each input-gradient kernel called once per main-path shape, and the
+     VGG8B fused apply (#11, one launch), under
      ``torch.cuda.set_sync_debug_mode("error")`` (no host sync in its
-     wrapper: the digit counts are decided on the card), then held against
-     its plain version;
+     wrapper: the digit counts are decided on the card, γ_inv and η_inv
+     read there), then held against its plain version;
   3f. the matmul kernels (split-K over exact digits on the int8 tensor
      cores) on every digit path — x and w of one to four digits, 16
      variants — at every main-path shape (the served linear and output
@@ -67,8 +75,9 @@ Phases, each fatal on failure:
      equal the split run's bitwise;
   5c. the fused apply: the CLI's 4 batches and keys through
      ``compute_gradients`` then ``apply_gradients(fuse_opt=True)``,
-     counted; each step must launch integer_sgd_update 15× and the state
-     must equal the split run's bitwise;
+     counted; each step must launch integer_sgd_update once (one launch
+     for all 15 weight tensors) and the state must equal the split run's
+     bitwise;
      (phases 5, 5b and 5c launch no grad_x kernel: the LES step discards
      grad_x, as the compiled JAX step does);
   5d. the grad_x path: full-width VGG8B's forward with caches on the CLI's
@@ -93,7 +102,8 @@ Phases, each fatal on failure:
      its plain version (#1–#5 by their device time, with the
      ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3, #4 and #5
      at mlp4's shapes too; #10's device time split into its GEMM and
-     pre-passes beside #6 at sf=1), the serving batch latency, the split and
+     pre-passes beside #6 at sf=1; #11 per fused apply over VGG8B's 15
+     and mlp4's 7 tensors), the serving batch latency, the split and
      ``fuse_opt`` training steps host to host in turns, and the mlp4 step.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
@@ -107,7 +117,9 @@ path: there it is the device time ``torch.profiler`` reports (for #1–#5
 every device operation of the call: the memset, the pre-passes and the
 GEMM, where there are; the back-to-back time is printed beside it).  The
 grad_x kernels' ``ms`` is one pass of VGG8B's shapes (one call each) and
-their ``launches`` phase 5d's (a backward and an update per block).  Exits non-zero,
+their ``launches`` phase 5d's (a backward and an update per block);
+integer_sgd_update's is one fused apply over VGG8B's 15 weight tensors
+(one launch) and its ``launches`` phase 5c's.  Exits non-zero,
 without that line, when CUDA is absent or the script is not inside a
 checkout.
 
@@ -190,7 +202,7 @@ PER_STEP = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
             "stream_conv_grad_w": 6, "nitro_matmul_grad_w": 1}
 PER_STEP_FUSE_OPT = {"stream_conv_fwd": 6, "nitro_matmul_fwd": 1,
                      "stream_conv_grad_w_opt": 6, "nitro_matmul_grad_w_opt": 1}
-PER_STEP_FUSED_APPLY = {**PER_STEP, "integer_sgd_update": 15}
+PER_STEP_FUSED_APPLY = {**PER_STEP, "integer_sgd_update": 1}
 #: launches of one grad_x pass over VGG8B's blocks (backward, then update)
 PER_GRAD_X_PASS = {"stream_conv_grad_x": 12, "nitro_matmul_grad_x": 2,
                    "stream_conv_grad_w": 6, "nitro_matmul_grad_w": 1,
@@ -230,6 +242,7 @@ PTXAS_KERNELS = {
     "row_digits_kernelILb0Ei": "row_digits_kernel<int32>",
     "row_digits_kernelILb1Ei": "row_digits_kernel<masked>",
     "w_rot_digits_kernel": "w_rot_digits_kernel",
+    "integer_sgd_many_kernel": "integer_sgd_many_kernel",
 }
 I32 = (-(2 ** 31), 2 ** 31)
 #: bounds of x and w whose values need one to four base-256 digits (the
@@ -789,6 +802,92 @@ def opt_parity(shapes, cfg, params, errs: dict) -> None:
                   lambda: apply_tree_fused(tree, grads, state, backend="cuda")["w"],
                   lambda: apply_tree_fused(tree, grads, state, backend="reference")["w"],
                   errs)
+    sgd_tree_parity(params, states, g, errs)
+
+
+def full_range(shape, g):
+    """Full-range int32 on the card, INT32_MIN and INT32_MAX among them."""
+    import torch
+
+    t = torch.randint(*I32, shape, generator=g).to(torch.int32)
+    t.view(-1)[:2] = torch.tensor([I32[0], I32[1] - 1], dtype=torch.int32)[:t.numel()]
+    return t.cuda()
+
+
+def sgd_groups(p, fw_state, lr_state, grad):
+    """The fused apply's ``(params, grads, state)`` groups of the tree
+    ``p`` on the card: each block's fw under ``fw_state``, its lr and the
+    output layer under ``lr_state``; ``grad(shape)`` makes each gradient."""
+    groups = [({"w": b[k]["w"].cuda()}, {"w": grad(b[k]["w"].shape)}, s)
+              for b in p["blocks"] for k, s in (("fw", fw_state), ("lr", lr_state))]
+    w = p["output"]["w"]
+    groups.append(({"w": w.cuda()}, {"w": grad(w.shape)}, lr_state))
+    return groups
+
+
+def sgd_trees(params, g):
+    """(what, weight shapes, which of two states each, expected launches)
+    of the whole-tree #11 cases: VGG8B's (``params``) and mlp4's
+    fused-apply trees (each block's fw under the first state, its lr and
+    the output layer under the second), and 150 ragged tensors."""
+    import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import model as M
+    from repro_torch.core import prng
+
+    mlp4 = M.init_params(prng.PRNGKey(0), get_paper_config("mlp4", scale=1.0), device="cuda")
+    out = []
+    for arch, p in (("vgg8b", params), ("mlp4", mlp4)):
+        shapes = [b[k]["w"].shape for b in p["blocks"] for k in ("fw", "lr")]
+        shapes.append(p["output"]["w"].shape)
+        which = [i % 2 for i in range(len(shapes) - 1)] + [1]
+        out.append((f"{arch} tree", shapes, which, 1))
+    sizes = [int(n) for n in torch.randint(1, 20_000, (150,), generator=g)]
+    out.append(("150 ragged tensors", [(n,) for n in sizes], [i % 2 for i in range(150)], 3))
+    return out
+
+
+def sgd_tree_parity(params, states, g, errs: dict) -> None:
+    """Phase 3c, #11 on whole trees: one ``apply_groups_fused`` call over
+    every tensor of a tree ≡ the plain version, bitwise, under each
+    optimiser state of ``opt_states`` (beside the next one), on full-range
+    int32 W and g, with the launches each call must take; and a list that
+    mixes aligned tensors with ``base[1:]`` views (the 4-byte path)."""
+    import torch
+    from repro_torch.kernels.integer_sgd import integer_sgd_update
+    from repro_torch.kernels.integer_sgd.ops import apply_groups_fused
+
+    def check(what, ws, gs, ss, launches):
+        groups = [({"w": w}, {"w": gr}, s) for w, gr, s in zip(ws, gs, ss)]
+        integer_sgd_update.launches.reset()
+        got = [d["w"] for d in apply_groups_fused(groups, backend="cuda")]
+        n = integer_sgd_update.launches.value
+        want = [d["w"] for d in apply_groups_fused(groups, backend="reference")]
+        torch.cuda.synchronize()
+        if n != launches:
+            die(f"integer_sgd_update {what}: {n} launches, expected {launches}")
+        for a, b in zip(got, want):
+            if a.dtype != b.dtype or a.shape != b.shape:
+                die(f"integer_sgd_update {what}: {a.dtype}{tuple(a.shape)} vs plain "
+                    f"{b.dtype}{tuple(b.shape)}")
+        compare(f"integer_sgd_update {what} ({len(ws)} tensors, {launches} launch"
+                f"{'es' if launches > 1 else ''})", torch.cat([a.flatten() for a in got]),
+                torch.cat([b.flatten() for b in want]), errs)
+
+    trees = sgd_trees(params, g)
+    for i, (state, _) in enumerate(states):
+        pair = (state, states[(i + 1) % len(states)][0])
+        tag = "/".join(f"{int(s.gamma_inv)},{int(s.eta_inv)}" for s in pair)
+        for what, shapes, which, launches in trees:
+            ws = [full_range(sh, g) for sh in shapes]
+            gs = [full_range(sh, g) for sh in shapes]
+            check(f"{what} states {tag}", ws, gs, [pair[k] for k in which], launches)
+        bases = [(full_range((n + 1,), g), full_range((n + 1,), g))
+                 for n in (1, 3, 4, 5, 1001, 4096, 4097, 70_000, 300_001)]
+        ws = [b[1:] if j % 2 else b[:-1] for j, (b, _) in enumerate(bases)]
+        gs = [b[1:] if j % 3 else b[:-1] for j, (_, b) in enumerate(bases)]
+        check(f"aligned beside base[1:] views states {tag}", ws, gs,
+              [pair[j % 2] for j in range(len(ws))], 1)
 
 
 RAGGED_GRAD_X = [  # (kind, x shape, w shape): C = 3, odd batches, F % 64 != 0
@@ -900,13 +999,14 @@ def grad_x_parity(shapes, errs: dict) -> None:
           "main-path and ragged shape, twice each; arrival counters left zero")
 
 
-def no_sync_phase(steps, shapes, errs: dict) -> None:
+def no_sync_phase(steps, shapes, cfg, params, errs: dict) -> None:
     """Phase 3e: each forward conv and matmul kernel, each linear grad_W
     kernel and each input-gradient kernel called once at each main-path
     shape (#6 and #1 at the serving steps' inputs, #7 and #2 at int32
     training operands, #2, #3 and #4 at VGG8B's linear and mlp4's shapes,
     #4 with the optimiser state's tensors, #10 at VGG8B's convs and #5 at
-    its linear and mlp4's shapes) with
+    its linear and mlp4's shapes), and #11 as the VGG8B fused apply (its 15
+    tensors under the forward and learning layers' states), with
     ``torch.cuda.set_sync_debug_mode("error")``: its wrapper must not
     synchronise with the host (the digit counts are read on the card).
     The outputs are then held against the plain versions."""
@@ -986,6 +1086,16 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
                                                                               alpha_inv=ai),
                           lambda w=w, d=delta, z=z, ai=ai: stream_conv_grad_x_ref(
                               d, w, z_star=z, alpha_inv=ai)))
+    from repro_torch.kernels.integer_sgd.ops import apply_groups_fused
+
+    (fw, eta_fw, _), _, _, (lr, eta_lr, _) = opt_states(cfg)
+    sgd = {"fw": opt.init_state(fw, eta_fw, device="cuda"),
+           "lr": opt.init_state(lr, eta_lr, device="cuda")}
+    groups = sgd_groups(params, sgd["fw"], sgd["lr"], lambda shape: full_range(shape, g))
+    calls.append(("integer_sgd_update VGG8B fused apply of 15 tensors",
+                  lambda: tuple(d["w"] for d in apply_groups_fused(groups, backend="cuda")),
+                  lambda: tuple(d["w"] for d in apply_groups_fused(groups,
+                                                                   backend="reference"))))
     torch.cuda.synchronize()
     outs = []
     torch.cuda.set_sync_debug_mode("error")
@@ -1001,7 +1111,7 @@ def no_sync_phase(steps, shapes, errs: dict) -> None:
               plain_fn, errs)
     print(f"[no-sync] {len(calls)} calls of stream_conv / stream_conv_fwd / nitro_matmul / "
           f"nitro_matmul_fwd / nitro_matmul_grad_w / nitro_matmul_grad_w_opt / "
-          f"nitro_matmul_grad_x / stream_conv_grad_x ran under "
+          f"nitro_matmul_grad_x / stream_conv_grad_x / integer_sgd_update ran under "
           f"torch.cuda.set_sync_debug_mode('error') without a host sync")
 
 
@@ -1766,12 +1876,16 @@ def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
 def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
     """Phase 6c: per-shape kernel / plain / bound times of the update
     kernels — #9 at each conv layer of a step (the forward layers'
-    optimiser state; #4 in ``linear_grad_w_timing``), #11 on each of a
-    step's 15 weight tensors."""
+    optimiser state; #4 in ``linear_grad_w_timing``), #11 per fused apply
+    over VGG8B's 15 weight tensors (the kernels line's row) and mlp4's 7,
+    each block's fw under the forward layers' state and the rest under the
+    learning layers'."""
     import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import model as M
     from repro_torch.core import optimizer as opt
-    from repro_torch.kernels.integer_sgd.integer_sgd import integer_sgd_update
-    from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
+    from repro_torch.core import prng
+    from repro_torch.kernels.integer_sgd.ops import apply_groups_fused
 
     g = torch.Generator().manual_seed(6)
     gamma, eta, _ = opt_states(cfg)[0]
@@ -1791,24 +1905,37 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
               f"{ms:.4f} ms{how} | plain {plain_ms:.4f} ms | bound {bound:.5f} ms ({by}: "
               f"{ops / 1e9:.3f} Gop, {nbytes / 1e6:.3f} MB) | {100 * bound / ms:.2f}% "
               f"of bound | library none")
-    leaves = [b[k]["w"] for b in params["blocks"] for k in ("fw", "lr")]
-    leaves.append(params["output"]["w"])
-    for w in leaves:
-        w = w.cuda()
-        grad = torch.randint(-(2 ** 24), 2 ** 24, w.shape, generator=g).to(torch.int32).cuda()
-        call = lambda: integer_sgd_update(w, grad, state.gamma_inv, state.eta_inv)  # noqa: E731
+    lr_state = opt.init_state(*opt_states(cfg)[3][:2], device="cuda")
+    mlp4 = M.init_params(prng.PRNGKey(0), get_paper_config("mlp4", scale=1.0), device="cuda")
+    for arch, p in (("VGG8B", params), ("mlp4", mlp4)):
+        groups = sgd_groups(p, state, lr_state, lambda shape: torch.randint(
+            -(2 ** 24), 2 ** 24, shape, generator=g).to(torch.int32).cuda())
+        call = lambda: apply_groups_fused(groups, backend="cuda")  # noqa: E731
         ms = device_ms(call, "integer_sgd", 50)
         per_call = time_cuda(call, iters=50, warmup=5)
-        plain_ms = time_cuda(lambda: integer_sgd_ref(w, grad, state.gamma_inv,
-                                                     state.eta_inv), iters=10, warmup=2)
+        plain_ms = time_cuda(lambda: apply_groups_fused(groups, backend="reference"),
+                             iters=10, warmup=2)
         # W and g read, W′ written; 2 floor divides + 2 adds per weight
-        ops, nbytes = 4 * w.numel(), 12 * w.numel()
-        bound, by = add_time(per_kernel, "integer_sgd_update", ms, plain_ms, ops, nbytes)
-        print(f"[time] {card} | integer_sgd_update w{tuple(w.shape)} int32 | kernel "
-              f"{ms:.4f} ms (device, profiler; back to back through the wrapper "
-              f"{per_call:.4f} ms per call) | plain {plain_ms:.4f} ms | bound "
-              f"{bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB) | {100 * bound / ms:.2f}% "
-              f"of bound | library none")
+        n = sum(grp[0]["w"].numel() for grp in groups)
+        ops, nbytes = 4 * n, 12 * n
+        if arch == "VGG8B":  # the kernels line's row
+            bound, by = add_time(per_kernel, "integer_sgd_update", ms, plain_ms, ops, nbytes)
+        else:
+            bound, by = nbytes / PEAK_BYTES * 1e3, "bytes"
+        print(f"[time] {card} | integer_sgd_update {arch} fused apply, {len(groups)} tensors "
+              f"({n:,} weights) int32, one launch | kernel {ms:.4f} ms (device, profiler; "
+              f"back to back through the wrapper {per_call:.4f} ms per call) | plain "
+              f"{plain_ms:.4f} ms | bound {bound:.5f} ms ({by}: {nbytes / 1e6:.3f} MB) | "
+              f"{100 * bound / ms:.2f}% of bound | library none")
+        # what a stream of the same bytes reaches here: torch.add reads two
+        # int32 tensors and writes one, 12 bytes a weight, over one flat tensor
+        flat_w = torch.cat([grp[0]["w"].flatten() for grp in groups])
+        flat_g = torch.cat([grp[1]["w"].flatten() for grp in groups])
+        _, kernels = device_profile(lambda: torch.add(flat_w, flat_g), 50)
+        add_ms = sum(v for v, _ in kernels.values()) / 50
+        print(f"[yardstick] {card} | {arch} fused apply's bytes as one torch.add of two flat "
+              f"int32 tensors of {n:,}: " + (f"{add_ms:.4f} ms device, {nbytes / add_ms / 1e6:.1f} "
+                                             f"GB/s" if add_ms else "not measured"))
 
 
 def linear_grad_w_timing(card: str, per_kernel: dict) -> None:
@@ -2073,7 +2200,7 @@ def main() -> int:
     grad_x_parity(shapes, errs)
     matmul_digit_parity(errs)
     grad_w_digit_parity(errs)
-    no_sync_phase(steps, shapes, errs)
+    no_sync_phase(steps, shapes, cfg, params, errs)
     res, launches = main_path()
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})

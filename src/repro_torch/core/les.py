@@ -122,28 +122,30 @@ def apply_gradients(state: TrainState, grads: StepGrads, *,
                     fuse_opt: bool = False, backend: str = "auto") -> TrainState:
     """IntegerSGD update of every parameter group from raw gradients.
 
-    ``fuse_opt=True`` runs each update through the fused IntegerSGD kernel
-    (``kernels.integer_sgd.apply_tree_fused``: W and g read once, W′
-    written once, one launch per weight tensor) instead of the tensor ops
-    of ``optimizer.apply_tree`` — bitwise the same.  ``backend`` is only
-    read with ``fuse_opt``.
+    ``fuse_opt=True`` runs the update through the fused IntegerSGD kernel
+    (``kernels.integer_sgd.apply_groups_fused``: every group's W and g
+    read once and W′ written once, in one launch for all of them) instead
+    of the tensor ops of ``optimizer.apply_tree`` — bitwise the same.
+    ``backend`` is only read with ``fuse_opt``.
     """
+    pairs = list(zip(state.params["blocks"], grads.blocks))
     if fuse_opt:
         # lazy: core imports no kernel package at module scope
-        from repro_torch.kernels.integer_sgd.ops import apply_tree_fused
+        from repro_torch.kernels.integer_sgd.ops import apply_groups_fused
 
-        def _apply(p, g, s):
-            return apply_tree_fused(p, g, s, backend=backend)
+        groups = [grp for p, g in pairs for grp in ((p["fw"], g["fw"], state.opt_fw),
+                                                    (p["lr"], g["lr"], state.opt_lr))]
+        groups.append((state.params["output"], grads.output, state.opt_lr))
+        new = apply_groups_fused(groups, backend=backend)
+        new_blocks = [{"fw": fw, "lr": lr} for fw, lr in zip(new[:-1:2], new[1:-1:2])]
+        new_output = new[-1]
     else:
-        _apply = opt.apply_tree
-    new_blocks = [
-        {
-            "fw": _apply(p["fw"], g["fw"], state.opt_fw),
-            "lr": _apply(p["lr"], g["lr"], state.opt_lr),
-        }
-        for p, g in zip(state.params["blocks"], grads.blocks)
-    ]
-    new_output = _apply(state.params["output"], grads.output, state.opt_lr)
+        new_blocks = [
+            {"fw": opt.apply_tree(p["fw"], g["fw"], state.opt_fw),
+             "lr": opt.apply_tree(p["lr"], g["lr"], state.opt_lr)}
+            for p, g in pairs
+        ]
+        new_output = opt.apply_tree(state.params["output"], grads.output, state.opt_lr)
     new_params = {"blocks": new_blocks, "output": new_output}
     return state._replace(params=new_params, step=state.step + 1)
 

@@ -577,13 +577,14 @@ struct SgdOut {
 // false) or from the split-K workspace, read from L2 (__ldcg: the other
 // splits' atomics resolve there) and returned to zero.  All loads go
 // before the stores: the compiler cannot tell W′ from W or the workspace.
-// The divisors are copied out of shared memory first: for the same
-// reason every store would otherwise reload them.
+// The divisors (SgdMagic's 32-bit multiply-highs) are copied out of shared
+// memory first: for the same reason every store would otherwise reload
+// them.
 template <bool FROM_WS>
-__device__ __forceinline__ void flush_sgd(const SgdOut& o, const SgdDivisors& shared,
+__device__ __forceinline__ void flush_sgd(const SgdOut& o, const unsigned char* sgd_bytes,
                                           unsigned (&tot)[2][4][4], int row0, int col0,
                                           int M, int F) {
-  const SgdDivisors sgd = shared;
+  const SgdMagic sgd = *reinterpret_cast<const SgdMagic*>(sgd_bytes);
   int wv[2][4][4];
   for_each_out(row0, col0, M, F, [&](size_t idx, int mt, int nt, int e) {
     if (FROM_WS) tot[mt][nt][e] = __ldcg(&o.ws[idx]);
@@ -605,10 +606,10 @@ template <bool OPT>
 __global__ void __launch_bounds__(THREADS, 1)
 digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, SgdOut o) {
   extern __shared__ __align__(128) int8_t smem[];
-  __shared__ __align__(8) unsigned char sgd_bytes[sizeof(SgdDivisors)];
+  __shared__ __align__(8) unsigned char sgd_bytes[sizeof(SgdMagic)];
   __shared__ bool last;
-  SgdDivisors& sgd = *reinterpret_cast<SgdDivisors*>(sgd_bytes);
-  if (OPT && threadIdx.x == 0) sgd = SgdDivisors(o.gamma_inv, o.eta_inv);
+  if (OPT && threadIdx.x == 0)  // the divisors (a 64-bit division each) once a block
+    *reinterpret_cast<SgdMagic*>(sgd_bytes) = SgdMagic(o.gamma_inv, o.eta_inv);
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const long long k_begin = (long long)blockIdx.z * g.p_chunk;
   const long long k_end = min(g.Pp, k_begin + g.p_chunk);
@@ -639,7 +640,7 @@ digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, SgdOut o) {
   }
   __syncthreads();  // sgd built
   if (gridDim.z == 1) {
-    flush_sgd<false>(o, sgd, tot, row0, col0, g.M, g.F);
+    flush_sgd<false>(o, sgd_bytes, tot, row0, col0, g.M, g.F);
     return;
   }
   for_each_out(row0, col0, g.M, g.F, [&](size_t idx, int mt, int nt, int e) {
@@ -655,7 +656,7 @@ digit_gemm_kernel(GemmArgs g, unsigned* __restrict__ out, SgdOut o) {
   __syncthreads();
   if (!last) return;
   __threadfence();
-  flush_sgd<true>(o, sgd, tot, row0, col0, g.M, g.F);
+  flush_sgd<true>(o, sgd_bytes, tot, row0, col0, g.M, g.F);
 }
 
 // Split-K for a GEMM whose epilogue is not linear (the forward matmuls,

@@ -52,7 +52,7 @@
 //     blocks: the gradient is stored once (no zero-fill, no atomics) and
 //     the update applies IntegerSGD from the registers (no workspace, no
 //     arrival counter), with SgdMagic's 32-bit multiply-high divisors
-//     (SgdDivisors' 64-bit ones made the update ALU-bound).
+//     (64-bit ones made the update ALU-bound).
 //   * Two blocks an SM (at most 128 registers a thread, 60 KB of planes,
 //     96 KB with the update's W tile), so one block's loads and arithmetic
 //     overlap the other's stores; each warp store writes eight whole

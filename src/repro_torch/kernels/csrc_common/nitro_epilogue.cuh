@@ -96,57 +96,13 @@ struct FastEpilogue {
   }
 };
 
-// ⌊a / d⌋ for a divisor d ≠ 0 of either sign that is only known on the
-// device (γ_inv): |d| by FastDiv, the sign folded into the dividend, which
-// is negated in 64 bits so that a = −2³¹ wraps as XLA's int32 floor
-// division does (⌊−2³¹ / −1⌋ = −2³¹).
-struct FloorDivBy {
-  FastDiv mag;  // |d| ≤ 2³¹
-  bool neg;
-
-  __device__ explicit FloorDivBy(int d)
-      : mag(d < 0 ? 0u - (unsigned)d : (unsigned)d), neg(d < 0) {}
-
-  __device__ __forceinline__ int operator()(int a) const {
-    const long long b = neg ? -(long long)a : (long long)a;  // |b| ≤ 2³¹
-    if (b >= 0) return (int)mag.div((unsigned)b);
-    return (int)(0u - mag.div((unsigned)(-b) + mag.d - 1u));  // −⌈|b| / |d|⌉
-  }
-};
-
-// IntegerSGD's two divisors, built on the device from the values read
-// there: γ_inv and η_inv are the optimiser state's 0-d int32 tensors,
-// which the lr schedule changes on the device, so no host value exists to
-// build them from (the counterpart of the TPU kernels' SMEM scalars).
-struct SgdDivisors {
-  FloorDivBy gamma;  // γ_inv ≠ 0
-  FastDiv eta;       // max(η_inv, 1)
-  bool decay;        // η_inv ≠ 0
-
-  __device__ SgdDivisors(const int32_t* gamma_inv, const int32_t* eta_inv)
-      : gamma(__ldg(gamma_inv)),
-        eta((unsigned)max(__ldg(eta_inv), 1)),
-        decay(__ldg(eta_inv) != 0) {}
-};
-
-// IntegerSGD on one weight (paper Algorithm 1, the counterpart of
-// integer_sgd_tile): W − (⌊g/γ_inv⌋ + ⌊W/η_inv⌋), no decay for η_inv = 0.
-// Both divides floor (so −η_inv ≤ W < 0 decays by −1, 0 ≤ W < η_inv by 0);
-// the sum and difference wrap mod 2³² in unsigned.  integer_sgd_update and
-// stream_conv_grad_w_opt call it; nitro_matmul_grad_w_opt, which applies
-// it to every weight of its output tile, the overload on SgdMagic below.
-__device__ __forceinline__ int integer_sgd(int w, int g, const SgdDivisors& s) {
-  const unsigned delta = (unsigned)s.gamma(g);
-  const unsigned decay = s.decay ? (unsigned)s.eta.floor_div(w) : 0u;
-  return (int)((unsigned)w - (delta + decay));
-}
-
 // Unsigned n / d for a divisor d in [1, 2^31] and n ≤ 2^31, as a 32-bit
 // multiply-high, an add and a shift (Granlund and Montgomery, "Division by
 // invariant integers using multiplication", 1994): with l = ⌈log2 d⌉ and
 // m = ⌊2^32·(2^l − d)/d⌋ + 1 < 2^32, n / d = (umulhi(m, n) + n) >> l, and
 // the sum cannot overflow (umulhi(m, n) < n ≤ 2^31).  FastDiv takes every
-// 32-bit n but multiplies in 64 bits, several instructions more.
+// 32-bit n but multiplies in 64 bits, several instructions more (an
+// IntegerSGD flush on it was ALU-bound).
 struct Div31 {
   int l;
   unsigned m;
@@ -168,8 +124,12 @@ struct Div31 {
   }
 };
 
-// SgdDivisors' values as Div31 multipliers, built on the device the same
-// way: |γ_inv| ≤ 2^31 and max(η_inv, 1).
+// IntegerSGD's two divisors as Div31 multipliers, built on the device from
+// the values read there: γ_inv and η_inv are the optimiser state's 0-d
+// int32 tensors, which the lr schedule changes on the device, so no host
+// value exists to build them from (the counterpart of the TPU kernels'
+// SMEM scalars).  |γ_inv| ≤ 2^31 and max(η_inv, 1); each build is a 64-bit
+// division, so a kernel builds them once a block, in shared memory.
 struct SgdMagic {
   Div31 gamma;
   Div31 eta;
@@ -183,8 +143,11 @@ struct SgdMagic {
         decay(__ldg(eta_inv) != 0) {}
 };
 
-// integer_sgd with SgdMagic's divisors: the same bits in fewer
-// instructions (no 64-bit multiply, no branch on the signs).
+// IntegerSGD on one weight (paper Algorithm 1, the counterpart of
+// integer_sgd_tile): W − (⌊g/γ_inv⌋ + ⌊W/η_inv⌋), no decay for η_inv = 0.
+// Both divides floor (so −η_inv ≤ W < 0 decays by −1, 0 ≤ W < η_inv by 0);
+// the sum and difference wrap mod 2³² in unsigned.  integer_sgd_update,
+// stream_conv_grad_w_opt and nitro_matmul_grad_w_opt all call it.
 __device__ __forceinline__ int integer_sgd(int w, int g, const SgdMagic& s) {
   const unsigned delta = (unsigned)s.gamma.floor_div(s.gamma_neg ? -(long long)g : g);
   const unsigned decay = s.decay ? (unsigned)s.eta.floor_div(w) : 0u;

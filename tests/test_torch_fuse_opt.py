@@ -394,12 +394,17 @@ def test_fuse_opt_step_matches_jax_interpret_kernels():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("backend", ["auto", "reference"])
-def test_apply_gradients_fuse_opt_matches_jax(backend):
-    """The fused apply (one integer_sgd per weight tensor) ≡ JAX's
-    apply_gradients(fuse_opt=True) on its Pallas kernel in interpret mode
-    ≡ the port's split apply."""
-    tcfg, jcfg, ts, js = _train_states("vgg8b", seed=3)
+@pytest.mark.parametrize("backend,arch", [
+    pytest.param("auto", "vgg8b", id="auto"),
+    pytest.param("reference", "vgg8b", id="reference"),
+    *(pytest.param(b, a, id=f"{b}-{a}") for a in ("vgg11b", "mlp1", "mlp2", "mlp3", "mlp4")
+      for b in ("auto", "reference")),
+])
+def test_apply_gradients_fuse_opt_matches_jax(backend, arch):
+    """The fused apply (every group's tensors through one apply_groups_fused
+    call) ≡ JAX's apply_gradients(fuse_opt=True) on its Pallas kernel in
+    interpret mode ≡ the port's split apply."""
+    tcfg, jcfg, ts, js = _train_states(arch, seed=3)
     x, y = _batch(tcfg, 0, seed=3)
     tg, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(2))
     jg, _, _ = jles.compute_gradients(js, jcfg, jnp.asarray(x), jnp.asarray(y),

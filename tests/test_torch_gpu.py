@@ -20,7 +20,16 @@ from repro_torch.infer import compile_plan, freeze
 from repro_torch.core import les
 from repro_torch.core import optimizer as opt
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.integer_sgd import integer_sgd_ref, integer_sgd_update
+from repro_torch.kernels.integer_sgd import (
+    integer_sgd_ref,
+    integer_sgd_update,
+    integer_sgd_update_many,
+)
+from repro_torch.kernels.integer_sgd.integer_sgd import (
+    TABLE_STATES,
+    TABLE_TENSORS,
+    plan_tables,
+)
 from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
     stream_conv_fwd,
@@ -390,7 +399,9 @@ _SGD_STATES = [(512, 12000), (1, 0), (-3, 5), (512 * 640 * 9, 3), (2 ** 31 - 1, 
 def test_integer_sgd_update_matches_plain(cuda_device):
     """Full-range int32 W and g (the update wraps), ragged sizes, a view
     whose start is not 16-byte aligned (the scalar path), γ_inv as a 0-d
-    tensor on the card or an int."""
+    tensor on the card or an int; then many-tensor calls: aligned tensors
+    beside base[1:] views, two states in one launch, and more tensors than
+    a table holds (one launch per table)."""
     g = torch.Generator().manual_seed(8)
     for shape in ((1,), (7,), (129,), (3, 3, 3, 128), (2048, 1024)):
         w = _wide(g, shape, 2 ** 31 - 1, cuda_device)
@@ -405,6 +416,30 @@ def test_integer_sgd_update_matches_plain(cuda_device):
     got = integer_sgd_update(w[1:], grad[1:], 7, 3)
     assert torch.equal(got, integer_sgd_ref(w[1:], grad[1:], 7, 3))
     assert integer_sgd_update.launches.value > 0
+    states = [opt.init_state(gamma, eta, device=cuda_device) for gamma, eta in _SGD_STATES]
+    for n_tensors, n_states in ((5, 2), (TABLE_TENSORS, 2), (2 * TABLE_TENSORS + 3, 2),
+                                (12, len(states))):
+        ws, gs, ss = [], [], []
+        for i in range(n_tensors):
+            n = [1, 3, 4, 5, 1001, 4096, 4097, 70_000][i % 8]
+            base_w, base_g = (_wide(g, (n + 1,), 2 ** 31 - 1, cuda_device) for _ in range(2))
+            cut = slice(1, None) if i % 3 == 1 else slice(0, n)  # every third a view
+            ws.append(base_w[cut])
+            gs.append(base_g[cut])
+            ss.append(states[i % n_states])
+        ws.append(torch.empty(0, dtype=torch.int32, device=cuda_device))
+        gs.append(ws[-1])
+        ss.append(states[0])
+        integer_sgd_update.launches.reset()
+        got = integer_sgd_update_many(ws, gs, ss)
+        torch.cuda.synchronize()
+        tables = len(plan_tables([t.numel() for t in ws], [id(s) for s in ss]))
+        assert integer_sgd_update.launches.value == tables
+        assert n_states > TABLE_STATES or tables == -(-n_tensors // TABLE_TENSORS)
+        for w_, g_, s_, out in zip(ws, gs, ss, got):
+            want = integer_sgd_ref(w_, g_, s_.gamma_inv, s_.eta_inv)
+            assert out.dtype == torch.int32 and torch.equal(out, want)
+            assert out.numel() == 0 or out.data_ptr() != w_.data_ptr()
 
 
 @pytest.mark.gpu

@@ -46,9 +46,8 @@ Variants:
     indices), ``one_block`` (shared memory padded to one block an SM),
     ``no_io`` (neither loads nor stores: the staging arithmetic, MMAs and
     flush alone); for the update ``w_global`` (W read from device memory
-    in the flush, no cp.async tile), ``no_sgd`` (W − g in place of
-    IntegerSGD) and ``sgd_divisors`` (IntegerSGD on the 64-bit
-    ``SgdDivisors`` in place of ``SgdMagic``).
+    in the flush, no cp.async tile) and ``no_sgd`` (W − g in place of
+    IntegerSGD).
 
   * the input gradients: #10 (``stream_conv_grad_x``: the conv GEMM of
     ``conv_digits.cuh`` on the masked δ's planes) at VGG8B's six conv
@@ -64,7 +63,7 @@ Variants:
     wrong result) and ``no_store``, in turns with the kernel as built.
 
 The conv and grad_W variants' results are garbage (but those of
-``plain_store``, ``one_block`` and ``sgd_divisors``); only their times are
+``plain_store`` and ``one_block``); only their times are
 read.  Prints the
 card's name and power limit, each variant's ptxas registers, then one line
 per shape.
@@ -153,13 +152,6 @@ TARGETS = {
                       "          const int32_t* w = a.w + idx;")],
         "no_sgd": [("linear_grad_w.cuh", "v0 = integer_sgd(w[0], v0, sgd);", "v0 = w[0] - v0;"),
                    ("linear_grad_w.cuh", "v1 = integer_sgd(w[1], v1, sgd);", "v1 = w[1] - v1;")],
-        "sgd_divisors": [("linear_grad_w.cuh", "sizeof(SgdMagic)", "sizeof(SgdDivisors)"),
-                         ("linear_grad_w.cuh", "<SgdMagic*>(sgd_bytes) = SgdMagic(",
-                          "<SgdDivisors*>(sgd_bytes) = SgdDivisors("),
-                         ("linear_grad_w.cuh",
-                          "const SgdMagic sgd = *reinterpret_cast<const SgdMagic*>(sgd_bytes);",
-                          "const SgdDivisors sgd = *reinterpret_cast<const SgdDivisors*>"
-                          "(sgd_bytes);")],
     }),
 }
 GX_NO_STORE = ("stream_conv_grad_x.cu",

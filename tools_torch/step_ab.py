@@ -27,8 +27,17 @@ shapes at batch 64 and of one ``nitro_matmul_grad_x`` (#5) call at VGG8B's
 linear and mlp4's two layer shapes, every device operation summed, from
 ``torch.profiler`` over 5 passes (20 calls for #5), on the operands
 ``chip_smoke.py`` times them on (δ in ±2²⁰ with z* over every segment: a
-masked δ of three digits; w in ±2¹⁵: three).  The card's name and power
-limit come first.  Needs one card; no network.
+masked δ of three digits; w in ±2¹⁵: three).  Then one ``[ab-sgd]`` line:
+one fused apply (``les.apply_gradients(fuse_opt=True)``, every weight
+tensor through ``integer_sgd_update``, #11) on VGG8B's and mlp4's trees,
+from the step's own gradients: its device time (every device operation,
+``torch.profiler`` over 20 applies) and its host-to-host time (best of
+three runs of 20, ``torch.cuda.synchronize`` at the end); and the device
+time of one ``fuse_opt`` step's six ``stream_conv_grad_w_opt`` calls (#9)
+at VGG8B's conv shapes, every device operation summed, on the operands
+``chip_smoke.py`` times it on (x in ±127, δ in ±2²⁰, z* over every
+segment).  The card's name and power limit come first.  Needs one card;
+no network.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from pathlib import Path
 
 TRAIN_LIBS = ["stream_conv", "stream_conv_fwd", "nitro_matmul", "stream_conv_grad_w",
               "stream_conv_grad_w_opt", "nitro_matmul_grad_w", "nitro_matmul_grad_w_opt",
-              "stream_conv_grad_x", "nitro_matmul_grad_x"]
+              "stream_conv_grad_x", "nitro_matmul_grad_x", "integer_sgd"]
 #: #10's six VGG8B shapes at batch 64: δ (N, H, W, F), grad_x's C
 GRAD_X_CONVS = [((64, 32, 32, 128), 3), ((64, 32, 32, 256), 128), ((64, 16, 16, 256), 256),
                 ((64, 16, 16, 512), 256), ((64, 8, 8, 512), 512), ((64, 4, 4, 512), 512)]
@@ -121,6 +130,9 @@ def turn(root: str) -> None:
     print(f"[ab-grad-x] {root}: " + " | ".join(grad_x_kernel_ms(torch, profile,
                                                                  ProfilerActivity)),
           flush=True)
+    trees = {"VGG8B": (state, cfg, x), "mlp4": (mstate, mcfg, mx)}
+    print(f"[ab-sgd] {root}: " + " | ".join(sgd_ms(torch, profile, ProfilerActivity, trees,
+                                                   y, key)), flush=True)
 
 
 def device_ms_per(torch, profile, activity, fn, calls: int, kernel: tuple, launches: int):
@@ -139,6 +151,54 @@ def device_ms_per(torch, profile, activity, fn, calls: int, kernel: tuple, launc
             return sum(e.self_device_time_total for e in events
                        if e.self_device_time_total > 0) / 1e3 / calls
     raise SystemExit(f"the profiler missed launches of {kernel}")
+
+
+def sgd_ms(torch, profile, activity, trees: dict, y, key) -> list[str]:
+    """Device and host-to-host ms of one fused apply per tree, and the
+    device ms of #9 over VGG8B's six conv shapes."""
+    from repro_torch.core import les
+    from repro_torch.core import optimizer as opt
+    from repro_torch.kernels.integer_sgd import integer_sgd_update
+    from repro_torch.kernels.nitro_conv.ops import conv_grad_w_opt
+
+    parts = []
+    for tag, (state, cfg, x) in trees.items():
+        grads, _ = les.compute_gradients(state, cfg, x, y, key)
+
+        def apply():
+            return les.apply_gradients(state, grads, fuse_opt=True)
+
+        integer_sgd_update.launches.reset()
+        apply()
+        per = integer_sgd_update.launches.value  # launches of #11 per apply
+        device = device_ms_per(torch, profile, activity, apply, 20, ("integer_sgd",), 20 * per)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                apply()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3 / 20)
+        parts.append(f"#11 {tag} fused apply ({per} launch{'es' if per > 1 else ''}) device "
+                     f"{device:.4f} ms, host to host {min(host):.4f} ms")
+    g = torch.Generator().manual_seed(2)
+
+    def ints(shape, lim):
+        return torch.randint(-lim, lim + 1, shape, generator=g).to(torch.int32).cuda()
+
+    sgd = opt.init_state(327680, 25000, device="cuda")
+    convs = [(ints((*d[:3], c), 127), ints(d, 2 ** 20), ints(d, 300),
+              ints((3, 3, c, d[-1]), 2 ** 15)) for d, c in GRAD_X_CONVS]
+
+    def opt_pass():
+        for xc, delta, z, w in convs:
+            conv_grad_w_opt(xc, delta, w, sgd.gamma_inv, sgd.eta_inv, kernel_size=3,
+                            z_star=z, backend="cuda")
+
+    ms = device_ms_per(torch, profile, activity, opt_pass, 5, ("digit_gemm",), 30)
+    parts.append(f"#9 VGG8B fuse_opt step's six {ms:.4f} ms")
+    return parts
 
 
 def grad_x_kernel_ms(torch, profile, activity) -> list[str]:
