@@ -57,10 +57,23 @@ Phases, each fatal on failure:
      tile), each case twice, nitro_matmul_grad_w_opt under two optimiser
      states;
   4. the serving path: ``repro_torch.launch.serve_vision.main`` serves
-     full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine)
-     with the launch counts reset just before and read just after; every
-     request's logits must equal the ``backend='reference'`` plan's, and
-     each batch must launch stream_conv 6× and nitro_matmul 2×;
+     full-width VGG8B (seeded init → freeze → compile_plan → VisionEngine,
+     ``--scheduler static``) with the launch counts reset just before and
+     read just after; every request's logits must equal the
+     ``backend='reference'`` plan's, and each batch must launch
+     stream_conv 6× and nitro_matmul 2×;
+  4b. the fleet path: two full-width VGG8B arms (``PRNGKey(0)``, ``(1)``)
+     through ``save_frozen`` and a 90/10 ``FLEET.json``, 256 requests
+     through ``serve_vision.main --fleet-dir`` (the continuous
+     ``FleetEngine``, the default scheduler) with a 50 ms SLO, counted
+     (stream_conv 6× and nitro_matmul 2× per batch, nothing else); every
+     answer equals the reference plan of the arm the router names, the
+     per-model ``[serve]``/``[slo]`` lines print and the SLO counts all
+     256; the fleet's staging and dispatch (page-locked slot, non-blocking
+     copy, ``plan.logits``) under ``set_sync_debug_mode("error")``; a hot
+     swap of arm b to ``PRNGKey(2)`` under four client threads: every
+     answer is b's old or new reference logits, version 1 after, and a
+     request after ``swap`` returns gets the new plan;
   5. the training path: ``repro_torch.launch.train.main`` takes 4 steps of
      full-width VGG8B at batch 64, counts reset just before and read just
      after; each step must launch stream_conv_fwd 6×, nitro_matmul_fwd 1×,
@@ -104,7 +117,12 @@ Phases, each fatal on failure:
      at mlp4's shapes too; #10's device time split into its GEMM and
      pre-passes beside #6 at sf=1; #11 per fused apply over VGG8B's 15
      and mlp4's 7 tensors), the serving batch latency, the split and
-     ``fuse_opt`` training steps host to host in turns, and the mlp4 step.
+     ``fuse_opt`` training steps host to host in turns, and the mlp4 step;
+     ``[e2e-fleet]``: 512 requests at once to one full-width VGG8B, the
+     static ``VisionEngine`` against the continuous ``FleetEngine`` in
+     turns A B B A (req/s, p50/p99, batches, fill), each once more under
+     the profiler for the device busy share of the timed window, and the
+     4b split run's per-model stats.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -145,6 +163,8 @@ PEAK_OPS = 1979e12   # int8 dense ops/s, H100 SXM data sheet
 PEAK_BYTES = 3.35e12  # device memory bytes/s, H100 SXM data sheet
 BATCH = 32
 REQUESTS = 64
+FLEET_REQUESTS = 256
+FLEET_E2E = 512
 TRAIN_BATCH = 64
 TRAIN_STEPS = 4
 
@@ -465,9 +485,10 @@ def fwd_digits_run(x, w) -> str:
     return f"x {nx} digits, w {nw} digits: {pairs} products"
 
 
-def main_path():
-    """Phase 4: the port's serving CLI at full width, counted."""
-    import numpy as np
+def main_path(fm):
+    """Phase 4: the port's serving CLI at full width with the static
+    scheduler, counted; ``fm`` is the same seeded init frozen by the
+    smoke, the reference plan's weights."""
     import torch
     from repro_torch.infer import compile_plan
     from repro_torch.kernels.nitro_conv.nitro_conv import stream_conv
@@ -479,6 +500,7 @@ def main_path():
     res = serve_vision.main([
         "--arch", "vgg8b", "--scale", "1", "--batch", str(BATCH),
         "--requests", str(REQUESTS), "--seed", "0", "--device", "cuda",
+        "--scheduler", "static",
     ])
     launches = {"stream_conv": stream_conv.launches.value,
                 "nitro_matmul": nitro_matmul.launches.value}
@@ -487,18 +509,299 @@ def main_path():
     if launches != {"stream_conv": 6 * batches, "nitro_matmul": 2 * batches}:
         die(f"expected 6 stream_conv + 2 nitro_matmul per batch over {batches} "
             f"batches, got {launches}")
-    ref_plan = compile_plan(res["fm"], device="cuda", backend="reference")
-    images, results = res["images"], res["results"]
+    served = res["plan"].frozen_weights
+    if not all(torch.equal(a, layer.w) for a, layer in zip(served, fm.layers)):
+        die("the CLI's PRNGKey(0) init differs from the smoke's")
+    ref_plan = compile_plan(fm, device="cuda", backend="reference")
+    check_served(ref_plan, res["images"], res["results"], "[main]")
+    return res, launches
+
+
+def check_served(ref_plan, images, results, what: str) -> None:
+    """Every result's logits (int32, shape (10,)) and label equal the
+    reference plan's on the same images, in batches of BATCH."""
+    import numpy as np
+
+    if len(results) != len(images):
+        die(f"{what} {len(results)} results for {len(images)} requests")
     for s in range(0, len(images), BATCH):
         want = ref_plan.logits(np.stack(images[s:s + BATCH])).cpu().numpy()
         for j, r in enumerate(results[s:s + BATCH]):
             got = r.logits
             if got.dtype != np.int32 or got.shape != (10,) or not np.array_equal(got, want[j]):
-                die(f"request {s + j}: logits {got} != reference {want[j]}")
+                die(f"{what} request {s + j}: logits {got} != reference {want[j]}")
             if r.label != int(np.argmax(want[j])):
-                die(f"request {s + j}: label {r.label} != reference")
-    print(f"[main] {len(results)} requests: logits equal the reference plan's")
-    return res, launches
+                die(f"{what} request {s + j}: label {r.label} != reference")
+    print(f"{what} {len(results)} requests: logits equal the reference plan's")
+
+
+def frozen_init(seed: int):
+    """Full-width VGG8B from ``PRNGKey(seed)`` (initialised on the card),
+    frozen."""
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import model as M
+    from repro_torch.core import prng
+    from repro_torch.infer import freeze
+
+    cfg = get_paper_config("vgg8b", scale=1.0)
+    return freeze(M.init_params(prng.PRNGKey(seed), cfg, device="cuda"), cfg)
+
+
+def fleet_path(fm_a, root: str):
+    """Phase 4b: two full-width VGG8B arms (``PRNGKey(0)``, ``PRNGKey(1)``)
+    written with ``save_frozen`` and a 90/10 ``FLEET.json``, served by the
+    CLI's default continuous scheduler with a 50 ms SLO, counted; every
+    answer equals the reference plan of the arm the router names."""
+    import contextlib
+    import io
+
+    from repro_torch.infer import compile_plan, save_fleet_manifest, save_frozen
+    from repro_torch.launch import serve_vision
+    from repro_torch.serving import VisionResult
+
+    fm_b = frozen_init(1)
+    save_frozen(f"{root}/a", fm_a)
+    save_frozen(f"{root}/b", fm_b)
+    save_fleet_manifest(root, {"a": "a", "b": "b"},
+                        splits={"split": {"a": 0.9, "b": 0.1}})
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res, launches = counted(lambda: serve_vision.main([
+            "--fleet-dir", root, "--batch", str(BATCH), "--requests", str(FLEET_REQUESTS),
+            "--slo", "50", "--device", "cuda"]))
+    print(out.getvalue(), end="")
+    batches = res["batches_total"]
+    want = {k: 0 for k in launches}
+    want.update(stream_conv=6 * batches, nitro_matmul=2 * batches)
+    print(f"[fleet] {batches} batches (warm-up included), launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        die(f"fleet: expected 6 stream_conv + 2 nitro_matmul per batch over {batches} "
+            f"batches and nothing else, got {launches}")
+    results = res["results"]
+    if len(results) != FLEET_REQUESTS or not all(isinstance(r, VisionResult)
+                                                 for r in results):
+        die(f"fleet: {len(results)} results for {FLEET_REQUESTS} requests")
+    arms = [res["router"].resolve(res["target"], rid) for rid in res["request_ids"]]
+    refs = {"a": fm_a, "b": fm_b}
+    for arm in ("a", "b"):
+        idx = [i for i, a in enumerate(arms) if a == arm]
+        if not idx:
+            die(f"fleet: the 90/10 split sent no request to arm {arm}")
+        check_served(compile_plan(refs[arm], device="cuda", backend="reference"),
+                     [res["images"][i] for i in idx], [results[i] for i in idx],
+                     f"[fleet] arm {arm}:")
+    text = out.getvalue()
+    for arm in ("a", "b"):
+        if f"[serve]   {arm}: " not in text or f"[slo]   {arm}: " not in text:
+            die(f"fleet: no [serve]/[slo] line for arm {arm}")
+    slo_requests = sum(v["requests"] for v in res["snapshot"]["slo"].values())
+    if slo_requests != FLEET_REQUESTS:
+        die(f"fleet: SLO attribution counted {slo_requests} of {FLEET_REQUESTS} requests")
+    per_arm = {m: s["requests"] for m, s in res["snapshot"]["models"].items()}
+    if per_arm != {"a": arms.count("a"), "b": arms.count("b")}:
+        die(f"fleet: per-model requests {per_arm} != the router's split")
+    return res, fm_b
+
+
+def hot_swap_path(res, fm_b) -> None:
+    """Phase 4b, hot swap under load: client threads submit to arm b while
+    ``registry.swap("b", PRNGKey(2))`` runs; every answer equals arm b's
+    old or new reference logits, ``version`` is 1 after, and a request
+    submitted after the swap returns is answered by the new plan."""
+    import threading
+
+    import numpy as np
+    from repro_torch.infer import compile_plan
+    from repro_torch.serving import FleetEngine
+
+    registry = res["registry"]
+    fm_new = frozen_init(2)
+    rng = np.random.default_rng(7)
+    imgs = [rng.integers(-127, 128, fm_b.input_shape).astype(np.int32)
+            for _ in range(2 * BATCH)]
+    old = compile_plan(fm_b, device="cuda", backend="reference").logits(
+        np.stack(imgs)).cpu().numpy()
+    new = compile_plan(fm_new, device="cuda", backend="reference").logits(
+        np.stack(imgs)).cpu().numpy()
+    clients, per_client = 4, 3 * BATCH
+    answers = [[] for _ in range(clients)]
+    errors = []
+    under_load = threading.Event()  # set once the clients have 2 batches' answers
+
+    def client(w):
+        try:
+            for k in range(per_client):
+                i = (w * per_client + k) % len(imgs)
+                answers[w].append((i, engine.submit(imgs[i], model="b").result(
+                    timeout=60).logits))
+                if sum(map(len, answers)) >= 2 * BATCH:
+                    under_load.set()
+        except Exception as e:  # reported below: any failure is fatal
+            errors.append(repr(e))
+            under_load.set()
+
+    with FleetEngine(registry, batch_size=BATCH) as engine:
+        engine.classify(imgs[:1], model="b")
+        threads = [threading.Thread(target=client, args=(w,)) for w in range(clients)]
+        for t in threads:
+            t.start()
+        if not under_load.wait(120):
+            die("hot swap: the clients got no answers")
+        entry = registry.swap("b", fm_new)
+        after = engine.submit(imgs[0], model="b").result(timeout=60).logits
+        for t in threads:
+            t.join(120)
+    if errors or any(t.is_alive() for t in threads):
+        die(f"hot swap: clients failed or hung: {errors}")
+    n_old = n_new = 0
+    for w in range(clients):
+        if len(answers[w]) != per_client:
+            die(f"hot swap: client {w} got {len(answers[w])} of {per_client} answers")
+        for i, logits in answers[w]:
+            if np.array_equal(logits, old[i]):
+                n_old += 1
+            elif np.array_equal(logits, new[i]):
+                n_new += 1
+            else:
+                die(f"hot swap: image {i} answered neither by arm b's old nor new plan")
+    if not (n_old and n_new):
+        die(f"hot swap: {n_old} old and {n_new} new answers: the swap did not land "
+            f"under load")
+    if entry.version != 1 or registry.get("b").version != 1:
+        die(f"hot swap: version {entry.version} after one swap")
+    if not np.array_equal(after, new[0]):
+        die("hot swap: a request submitted after swap() returned was not "
+            "answered by the new plan")
+    print(f"[swap] {clients} clients x {per_client} requests to arm b across "
+          f"registry.swap: {n_old} answered by the old plan, {n_new} by the new, "
+          f"none torn; version 1; a request after swap() returned got the new plan")
+
+
+def fleet_no_sync(res) -> None:
+    """Phase 4b: the fleet's staging and dispatch (page-locked slot,
+    non-blocking copy, ``plan.logits``) on this thread under
+    ``torch.cuda.set_sync_debug_mode("error")``, with no worker batch in
+    flight, then held against the reference plan."""
+    import time
+    from concurrent.futures import Future
+
+    import numpy as np
+    import torch
+    from repro_torch.serving import FleetEngine
+    from repro_torch.serving.vision import Request
+
+    registry = res["registry"]
+    imgs = res["images"][:BATCH]
+    with FleetEngine(registry, batch_size=BATCH) as engine:
+        engine.classify(imgs[:2], model="a")  # the slots exist, the worker idles
+        items = [Request(np.asarray(im, np.int32), Future(), time.perf_counter())
+                 for im in imgs]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            assembled = engine._assemble("a", items)
+            inflight = engine._dispatch(assembled) if assembled else None
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if inflight is None:
+            die(f"fleet dispatch synchronised with the host or failed: "
+                f"{items[0].future.exception()}")
+        got = inflight[2].cpu().numpy()
+    want = registry.get("a").plan.logits(np.stack(imgs)).cpu().numpy()
+    if got.dtype != np.int32 or not np.array_equal(got, want):
+        die("fleet dispatch under sync debug mode: logits differ from the plan's")
+    print(f"[no-sync] fleet staging + dispatch of a batch of {BATCH} (page-locked "
+          f"slot, non-blocking copy, plan.logits) ran under "
+          f"torch.cuda.set_sync_debug_mode('error') without a host sync; logits equal")
+
+
+def fleet_end_to_end(res, fm_a, card: str) -> None:
+    """``[e2e-fleet]``: one model (arm a), FLEET_E2E requests submitted at
+    once, the static VisionEngine against the continuous FleetEngine in
+    turns A B B A, then each once more under ``torch.profiler`` for the
+    device busy share of the timed window (device time of every kernel,
+    memset and copy over the host clock).  Also the split run's
+    per-model stats."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import (FleetEngine, ModelRegistry, VisionEngine,
+                                     latency_summary_ms, snapshot_delta)
+
+    reg = ModelRegistry(device="cuda")
+    plan = reg.register("a", fm_a).plan
+    rng = np.random.default_rng(11)
+    imgs = [rng.integers(-127, 128, plan.input_shape).astype(np.int32)
+            for _ in range(FLEET_E2E)]
+    want = plan.logits(np.stack(imgs[:BATCH])).cpu().numpy()
+
+    def serve(kind, traced=False):
+        engine = (VisionEngine(plan, batch_size=BATCH, max_wait_ms=3.0) if kind == "static"
+                  else FleetEngine(reg, batch_size=BATCH))
+        kw = {} if kind == "static" else {"model": "a"}
+        with engine:
+            engine.classify(imgs[:1], **kw)
+            pre = engine.stats.snapshot()
+            torch.cuda.synchronize()
+            with (profile(activities=[ProfilerActivity.CUDA]) if traced
+                  else contextlib.nullcontext()) as prof:
+                t0 = time.perf_counter()
+                futs = [engine.submit(im, **kw) for im in imgs]
+                submitted = time.perf_counter() - t0
+                results = [f.result(timeout=120) for f in futs]
+                wall = time.perf_counter() - t0
+            snap = snapshot_delta(pre, engine.stats.snapshot())
+        if not all(np.array_equal(r.logits, want[i]) for i, r in enumerate(results[:BATCH])):
+            die(f"[e2e-fleet] {kind}: logits differ from the plan's")
+        busy = None
+        if traced:
+            busy = 0.0
+            for e in prof.key_averages():
+                us = getattr(e, "self_device_time_total", None)
+                busy += (e.self_cuda_time_total if us is None else us) / 1e3
+        return wall, latency_summary_ms(r.latency_s for r in results), snap, busy, submitted
+
+    def line(what, wall, pct, snap, submitted):
+        return (f"[e2e-fleet] {card} | {what}: {FLEET_E2E} requests at once, full-width "
+                f"VGG8B, batch {BATCH}: {FLEET_E2E / wall:.1f} req/s ({wall * 1e3:.3f} ms, "
+                f"the submit loop, backpressure included, {submitted * 1e3:.3f} ms of it), latency ms p50 "
+                f"{pct['p50']:.3f} p99 {pct['p99']:.3f}, {snap['batches']} batches, fill "
+                f"{snap['avg_batch_fill']:.3f}")
+
+    for turn, kind in enumerate(("static", "continuous", "continuous", "static"), 1):
+        wall, pct, snap, _, submitted = serve(kind)
+        print(line(f"turn {turn} {kind}", wall, pct, snap, submitted))
+    for kind in ("static", "continuous"):
+        wall, pct, snap, busy, submitted = serve(kind, traced=True)
+        print(line(f"{kind} under the profiler", wall, pct, snap, submitted)
+              + f", device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%), "
+              f"{busy / snap['batches']:.4f} ms device per batch")
+    # the worker releases the GIL at every launch and copy, and the submit
+    # loop holds it in between: a probe of how much of the window is the
+    # interpreter's switch interval (5 ms by default), not the engines
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    try:
+        for turn, kind in enumerate(("static", "continuous", "continuous", "static"), 1):
+            wall, pct, snap, _, submitted = serve(kind)
+            print(line(f"probe, switch interval 0.1 ms (default {interval * 1e3:g} ms), "
+                       f"turn {turn} {kind}", wall, pct, snap, submitted))
+    finally:
+        sys.setswitchinterval(interval)
+    for mid, m in res["snapshot"]["models"].items():
+        slo = res["snapshot"]["slo"].get(mid, {})
+        print(f"[e2e-fleet] {card} | split run arm {mid}: {m['requests']} requests, "
+              f"{m['batches']} batches, fill {m['avg_batch_fill']:.3f}, SLO 50 ms "
+              f"violations {slo.get('violations')}/{slo.get('requests')}")
+    pct = res["latency_ms"]
+    print(f"[e2e-fleet] {card} | split run: {FLEET_REQUESTS} requests in "
+          f"{res['wall_s'] * 1e3:.3f} ms ({FLEET_REQUESTS / res['wall_s']:.1f} req/s), "
+          f"latency ms p50 {pct['p50']:.3f} p99 {pct['p99']:.3f}, "
+          f"{res['snapshot']['fleet']['batches']} batches, fill "
+          f"{res['snapshot']['fleet']['avg_batch_fill']:.3f}")
 
 
 def launch_counters() -> dict:
@@ -2161,7 +2464,8 @@ def end_to_end(res, card: str) -> None:
     print(f"[e2e] {card} | plan batch of {BATCH}: {ms:.3f} ms "
           f"({BATCH / ms * 1e3:.1f} img/s) | engine: {len(res['results'])} "
           f"requests in {res['wall_s']:.3f} s ({len(res['results']) / res['wall_s']:.1f} "
-          f"req/s), {snap['batches']} batches, fill {snap['avg_batch_fill']:.2f}, "
+          f"req/s), {snap['fleet']['batches']} batches, fill "
+          f"{snap['fleet']['avg_batch_fill']:.2f}, "
           f"latency ms p50 {res['latency_ms']['p50']:.2f} p99 {res['latency_ms']['p99']:.2f}")
 
 
@@ -2201,7 +2505,13 @@ def main() -> int:
     matmul_digit_parity(errs)
     grad_w_digit_parity(errs)
     no_sync_phase(steps, shapes, cfg, params, errs)
-    res, launches = main_path()
+    res, launches = main_path(fm)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        fleet_res, fm_b = fleet_path(fm, root)
+    fleet_no_sync(fleet_res)
+    hot_swap_path(fleet_res, fm_b)
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
     fuse_res, fuse_launches = fuse_opt_path(train_res)
@@ -2219,6 +2529,7 @@ def main() -> int:
     linear_grad_w_timing(card, per_kernel)
     grad_x_timing(shapes, card, per_kernel)
     end_to_end(res, card)
+    fleet_end_to_end(fleet_res, fm, card)
     train_end_to_end(train_res, train_ref, fuse_res, cfg, card)
     mlp_end_to_end(mlp_res, mlp_ref, card)
 

@@ -126,3 +126,12 @@ def frozen_forward(params: dict, cfg: NitroConfig, x) -> torch.Tensor:
 def predict(params: dict, cfg: NitroConfig, x) -> torch.Tensor:
     """Predicted labels (int32, as the JAX package's argmax returns)."""
     return frozen_forward(params, cfg, x).argmax(dim=-1).to(INT_DTYPE)
+
+
+def count_params(params) -> int:
+    """Number of scalars in every tensor leaf of a parameter tree."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return 0 if params is None else int(params.numel())

@@ -74,6 +74,11 @@ def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul_f64_exact(a, w)
 
 
+def clip_act(x: torch.Tensor) -> torch.Tensor:
+    """Clamp to the NITRO operational range [-127, 127]."""
+    return torch.clamp(x, ACT_MIN, ACT_MAX)
+
+
 def isqrt(n) -> torch.Tensor:
     """Integer square root ⌊√n⌋ via a fixed 25 Newton steps, pure integer."""
     n = to_int(n)

@@ -1,7 +1,8 @@
 """PyTorch port, hygiene: the port stands alone and never falls back.
 
-  * no module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports
-    ``jax`` or anything of the JAX package ``repro``;
+  * no module of ``src/repro_torch`` (nor ``examples_torch/`` or
+    ``chip_smoke.py``) imports ``jax`` or anything of the JAX package
+    ``repro``;
   * importing the whole port leaves ``jax`` out of ``sys.modules``;
   * entry points default to CUDA and raise on a host without it;
   * ``chip_smoke.py`` fails, printing no result, without a card and
@@ -22,6 +23,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
+EXAMPLES = ROOT / "examples_torch"
 
 
 def _forbidden(path: Path) -> list[str]:
@@ -39,8 +41,12 @@ def _forbidden(path: Path) -> list[str]:
 
 
 def test_port_imports_no_jax_and_no_repro():
-    files = sorted(PORT.rglob("*.py")) + [SMOKE]
+    files = sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.rglob("*.py")) + [SMOKE]
     assert len(files) > 20
+    for new in ("serving/fleet.py", "serving/registry.py", "serving/stats.py",
+                "infer/export.py", "launch/serve_vision.py"):
+        assert PORT / new in files
+    assert EXAMPLES / "serve_cifar.py" in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
     assert not bad, bad
 
@@ -56,6 +62,7 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch, repro_torch.launch.serve_vision, repro_torch.launch.train\n"
+        "import repro_torch.serving.fleet, repro_torch.serving.registry\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
@@ -96,6 +103,31 @@ def test_default_device_entry_points_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_vision.main(["--arch", "mlp1", "--scale", "0.1", "--requests", "1"])
     assert compile_plan(fm, device="cpu").logits(np.zeros((1, 784), np.int32)).shape == (1, 10)
+
+
+def test_serving_control_plane_raises_without_cuda(no_cuda, tmp_path):
+    """The registry and the fleet CLI default to the card, as every entry
+    point does, and raise without one."""
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import model as M
+    from repro_torch.core import prng
+    from repro_torch.infer import freeze, save_fleet_manifest, save_frozen
+    from repro_torch.launch import serve_vision
+    from repro_torch.serving import ModelRegistry
+
+    cfg = get_paper_config("mlp1", scale=0.1)
+    fm = freeze(M.init_params(prng.PRNGKey(0), cfg, device="cpu"), cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRegistry().register("a", fm)
+    save_frozen(str(tmp_path / "a"), fm)
+    save_fleet_manifest(str(tmp_path), {"a": "a"})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelRegistry.from_manifest(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_vision.main(["--fleet-dir", str(tmp_path), "--requests", "1"])
+    res = serve_vision.main(["--fleet-dir", str(tmp_path), "--requests", "2",
+                             "--device", "cpu"])
+    assert len(res["results"]) == 2
 
 
 def test_train_entry_points_raise_without_cuda(no_cuda):

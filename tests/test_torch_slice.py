@@ -158,8 +158,9 @@ def test_full_width_vgg8b_plan_matches_jax():
 
 def test_cli_runs_on_cpu(capsys):
     res = serve_vision.main(["--device", "cpu", "--scale", "0.0625",
-                             "--requests", "8", "--batch", "4"])
-    assert len(res["results"]) == 8 and res["snapshot"]["requests"] == 8
+                             "--requests", "8", "--batch", "4",
+                             "--scheduler", "static"])
+    assert len(res["results"]) == 8 and res["snapshot"]["fleet"]["requests"] == 8
     images = np.stack(res["images"])
     # the JAX launcher's request stream: one default_rng(seed) draw per image
     rng = np.random.default_rng(0)
@@ -169,5 +170,11 @@ def test_cli_runs_on_cpu(capsys):
     labels = res["plan"].predict(images).numpy().tolist()
     assert [r.label for r in res["results"]] == labels
     assert "[serve] scheduler=static 8 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported yet"):
-        serve_vision.main(["--device", "cpu", "--scheduler", "continuous"])
+    # the default scheduler is the continuous FleetEngine: same requests,
+    # same labels
+    cont = serve_vision.main(["--device", "cpu", "--scale", "0.0625",
+                              "--requests", "8", "--batch", "4"])
+    np.testing.assert_array_equal(np.stack(cont["images"]), want)
+    assert [r.label for r in cont["results"]] == labels
+    assert cont["snapshot"]["models"]["default"]["requests"] == 8
+    assert "[serve] scheduler=continuous 8 requests" in capsys.readouterr().out
