@@ -111,7 +111,24 @@ Phases, each fatal on failure:
      second resuming from step 2, equal to the same two calls with
      ``--backend reference``; a save → restore of the card's TrainState
      is bitwise;
-  6. time each kernel per step shape with CUDA events beside its bound and
+  6. observability at full width: (6a) ``train_nitro`` with telemetry
+     every 2nd step, a trace, alerts and a metrics server on port 0, counted
+     (phase 5's launches, step for step) and bitwise phase 5's run; the
+     same call on the plain versions writes a byte-identical
+     ``metrics.jsonl`` (rows for steps 0 and 2: one per block, ``output``,
+     ``_opt``); 4 ``train.step`` spans and a ``train.eval``; ``/metrics``
+     scraped over HTTP (``train_step_seconds_count 4``, ``repro_build_info``
+     with ``backend="cuda"``) and ``/healthz`` ``ok``; (6b) the same with
+     ``fuse_opt``: steps 0 and 2 launch #3/#8 and no ``_opt`` kernel, steps
+     1 and 3 #4/#9 and no plain grad_W, the state bitwise phase 5b's; (6c)
+     tracer and metrics server without telemetry: every step launches phase
+     5's kernels; (6d) 256 requests 90/10 over phase 4b's two arms through
+     ``FleetEngine(metrics=, tracer=)``: every answer equals its arm's
+     reference plan, ``serve_requests_total`` 256 for ``_fleet`` and the
+     arms' sum, the queues drained, the four spans once a batch with
+     ``model=``; the fleet's staging and dispatch with metrics and tracer
+     under ``set_sync_debug_mode("error")``;
+  7. time each kernel per step shape with CUDA events beside its bound and
      its plain version (#1–#5 by their device time, with the
      ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3, #4 and #5
      at mlp4's shapes too; #10's device time split into its GEMM and
@@ -122,7 +139,14 @@ Phases, each fatal on failure:
      static ``VisionEngine`` against the continuous ``FleetEngine`` in
      turns A B B A (req/s, p50/p99, batches, fill), each once more under
      the profiler for the device busy share of the timed window, and the
-     4b split run's per-model stats.
+     4b split run's per-model stats; ``[fleet-spans]``: the same workload
+     on the continuous fleet with metrics and the tracer, each batch phase's
+     p50 / mean / total ms beside the wall time, the submit loop and (under
+     the profiler) the device busy share; ``[obs-serve]``: its req/s with
+     and without ``metrics=`` + ``tracer=`` in turns; ``[obs-train]``: the
+     VGG8B step host to host with observability off, tracer + metrics,
+     telemetry every step and telemetry under ``fuse_opt``, in turns, and a
+     sampled step's extra device launches and device time.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -678,11 +702,12 @@ def hot_swap_path(res, fm_b) -> None:
           f"none torn; version 1; a request after swap() returned got the new plan")
 
 
-def fleet_no_sync(res) -> None:
-    """Phase 4b: the fleet's staging and dispatch (page-locked slot,
-    non-blocking copy, ``plan.logits``) on this thread under
-    ``torch.cuda.set_sync_debug_mode("error")``, with no worker batch in
-    flight, then held against the reference plan."""
+def fleet_no_sync(registry, images, what: str = "", **engine_kw) -> None:
+    """Phase 4b (and 6d, with ``metrics=`` and ``tracer=`` in
+    ``engine_kw``): the fleet's staging and dispatch (page-locked slot,
+    non-blocking copy, ``plan.logits``, the spans and metrics around them)
+    on this thread under ``torch.cuda.set_sync_debug_mode("error")``, with
+    no worker batch in flight, then held against the reference plan."""
     import time
     from concurrent.futures import Future
 
@@ -691,9 +716,8 @@ def fleet_no_sync(res) -> None:
     from repro_torch.serving import FleetEngine
     from repro_torch.serving.vision import Request
 
-    registry = res["registry"]
-    imgs = res["images"][:BATCH]
-    with FleetEngine(registry, batch_size=BATCH) as engine:
+    imgs = images[:BATCH]
+    with FleetEngine(registry, batch_size=BATCH, **engine_kw) as engine:
         engine.classify(imgs[:2], model="a")  # the slots exist, the worker idles
         items = [Request(np.asarray(im, np.int32), Future(), time.perf_counter())
                  for im in imgs]
@@ -712,7 +736,7 @@ def fleet_no_sync(res) -> None:
     if got.dtype != np.int32 or not np.array_equal(got, want):
         die("fleet dispatch under sync debug mode: logits differ from the plan's")
     print(f"[no-sync] fleet staging + dispatch of a batch of {BATCH} (page-locked "
-          f"slot, non-blocking copy, plan.logits) ran under "
+          f"slot, non-blocking copy, plan.logits){what} ran under "
           f"torch.cuda.set_sync_debug_mode('error') without a host sync; logits equal")
 
 
@@ -1698,7 +1722,7 @@ def fused_apply_path(split):
     def run():
         state, metrics = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda"), []
         for x, y, key in steps:
-            grads, m = les.compute_gradients(state, cfg, x, y, key)
+            grads, m, _ = les.compute_gradients(state, cfg, x, y, key)
             state = les.apply_gradients(state, grads, fuse_opt=True)
             metrics.append(m)
         return state, metrics
@@ -1761,7 +1785,7 @@ def grad_x_path():
     if launches != want:
         die(f"grad_x path: expected {want}, got {launches}")
     ref = passes("reference")
-    grads, _ = les.compute_gradients(state, cfg, x, y, key)
+    grads, _, _ = les.compute_gradients(state, cfg, x, y, key)
     for i, (g4, r4, gb) in enumerate(zip(got, ref, grads.blocks)):
         for what, a, b in zip(("grad_x", "grad_W", "update grad_x", "W'"), g4, r4):
             _same(f"grad_x path block {i} {what} vs reference", a, b)
@@ -1853,6 +1877,402 @@ def resume_path():
           f"leaves, step {step}) is bitwise")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: observability at full width
+# ---------------------------------------------------------------------------
+
+OBS_TRAIN_KW = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seed=0, device="cuda")
+
+
+def counted_steps(fn):
+    """``(fn(), launches, per_step)``: ``counted``'s totals and, for every
+    ``les.train_step`` call inside ``fn``, its telemetry flag and the
+    launches it made."""
+    from repro_torch.core import les
+
+    counters = launch_counters()
+    real = les.train_step
+    per_step = []
+
+    def step(*args, **kw):
+        before = {k: c.value for k, c in counters.items()}
+        out = real(*args, **kw)
+        per_step.append((bool(kw.get("telemetry")),
+                         {k: c.value - before[k] for k, c in counters.items()
+                          if c.value != before[k]}))
+        return out
+
+    les.train_step = step
+    try:
+        out, launches = counted(fn)
+    finally:
+        les.train_step = real
+    return out, launches, per_step
+
+
+def expect_step_launches(per_step, want, what: str) -> None:
+    """Die unless step i launched ``want(i)`` (nonzero entries) and was
+    sampled as ``want`` says."""
+    for i, (sampled, got) in enumerate(per_step):
+        exp_sampled, exp = want(i)
+        if sampled != exp_sampled or got != exp:
+            die(f"{what}: step {i} (telemetry={sampled}) launched {got}, expected "
+                f"{exp} with telemetry={exp_sampled}")
+
+
+class scrape_at_close:
+    """While active, a ``MetricsServer`` answers one ``/metrics`` and one
+    ``/healthz`` request over HTTP just before it closes; the bodies land
+    in ``seen``."""
+
+    def __init__(self, seen: dict):
+        self.seen = seen
+
+    def __enter__(self):
+        from urllib.request import urlopen
+
+        from repro_torch.obs.metrics import MetricsServer
+
+        self.real = real = MetricsServer.close
+        seen = self.seen
+
+        def close(server):
+            base = f"http://{server.host}:{server.port}"
+            with urlopen(server.url, timeout=30) as r:
+                seen["metrics"] = r.read().decode()
+            with urlopen(f"{base}/healthz", timeout=30) as r:
+                seen["healthz"] = r.read().decode()
+            real(server)
+
+        MetricsServer.close = close
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.obs.metrics import MetricsServer
+
+        MetricsServer.close = self.real
+
+
+def obs_train_path(split, fuse, root: str) -> None:
+    """Phases 6a-6c: the train CLI's observability at full width.
+    6a: telemetry every 2nd step, a trace, alerts and a metrics server on
+    the kernels, bitwise phase 5's run, its ``metrics.jsonl`` byte for byte
+    the plain versions'; 6b: the same under ``fuse_opt`` (sampled steps on
+    #3/#8, the others on #4/#9), bitwise phase 5b's; 6c: tracer and
+    metrics without telemetry launch phase 5's kernels, step for step."""
+    import json
+
+    from repro_torch.configs import get_paper_config
+    from repro_torch.launch import train
+
+    n_blocks = len(get_paper_config("vgg8b").blocks)
+    seen = {}
+    with scrape_at_close(seen):
+        res, launches, per_step = counted_steps(lambda: train.train_nitro(
+            "vgg8b", telemetry_every=2, telemetry_out=f"{root}/cuda.jsonl",
+            trace_out=f"{root}/trace.jsonl", metrics_port=0,
+            alerts_out=f"{root}/alerts.jsonl", **OBS_TRAIN_KW))
+    expect_launches(launches, PER_STEP, res["steps"], "telemetry run")
+    expect_step_launches(per_step, lambda i: (i % 2 == 0, PER_STEP), "telemetry run")
+    n = same_run(res["state"], res["step_metrics"], split["state"], split["step_metrics"],
+                 "telemetry run vs phase 5's run")
+    ref = train.train_nitro("vgg8b", backend="reference", telemetry_every=2,
+                            telemetry_out=f"{root}/reference.jsonl", **OBS_TRAIN_KW)
+    data = Path(f"{root}/cuda.jsonl").read_bytes()
+    if data != Path(f"{root}/reference.jsonl").read_bytes():
+        die("telemetry: the kernels' metrics.jsonl differs from the plain versions'")
+    rows = [json.loads(ln) for ln in data.decode().splitlines()]
+    layers = [f"block{i}" for i in range(n_blocks)] + ["output", "_opt"]
+    if [(r["step"], r["layer"]) for r in rows] != [(s, lay) for s in (0, 2) for lay in layers]:
+        die(f"telemetry rows: {[(r['step'], r['layer']) for r in rows]}")
+    spans = [json.loads(ln) for ln in Path(f"{root}/trace.jsonl").read_text().splitlines()]
+    names = [s["name"] for s in spans]
+    if names.count("train.step") != TRAIN_STEPS or "train.eval" not in names:
+        die(f"trace: spans {names}")
+    metrics = seen.get("metrics", "")
+    for line in (f"train_step_seconds_count {TRAIN_STEPS}",
+                 'repro_build_info{version="0.8.0",backend="cuda"} 1'):
+        if line not in metrics.splitlines():
+            die(f"/metrics has no line {line!r}")
+    if seen.get("healthz") != "ok\n":
+        die(f"/healthz answered {seen.get('healthz')!r}")
+    print(f"[obs-6a] telemetry every 2nd step: launches {launches} (phase 5's), final "
+          f"state, {n} tensors incl. every step's metrics, equals phase 5's bitwise; "
+          f"metrics.jsonl ({len(rows)} rows, steps 0 and 2) byte for byte the plain "
+          f"versions'; trace {len(spans)} spans ({TRAIN_STEPS} train.step + train.eval); "
+          f"/metrics train_step_seconds_count {TRAIN_STEPS} and repro_build_info "
+          f"backend=cuda over HTTP, /healthz ok; {res['health']['alerts_fired']} alerts")
+
+    res, launches, per_step = counted_steps(lambda: train.train_nitro(
+        "vgg8b", fuse_opt=True, telemetry_every=2, telemetry_out=f"{root}/fuse.jsonl",
+        **OBS_TRAIN_KW))
+    expect_step_launches(
+        per_step, lambda i: (True, PER_STEP) if i % 2 == 0 else (False, PER_STEP_FUSE_OPT),
+        "fuse_opt telemetry run")
+    n = same_run(res["state"], res["step_metrics"], fuse["state"], fuse["step_metrics"],
+                 "fuse_opt telemetry run vs phase 5b's run")
+    if Path(f"{root}/fuse.jsonl").read_bytes() != data:
+        die("telemetry: the fuse_opt run's metrics.jsonl differs from the split run's")
+    print(f"[obs-6b] --fuse-opt with telemetry every 2nd step: steps 0 and 2 launch "
+          f"#3/#8 and no _opt kernel, steps 1 and 3 #4/#9 and no plain grad_W "
+          f"(launches {launches}); final state, {n} tensors, equals phase 5b's bitwise; "
+          f"metrics.jsonl equals the split run's")
+
+    res, launches, per_step = counted_steps(lambda: train.train_nitro(
+        "vgg8b", trace_out=f"{root}/trace0.jsonl", metrics_port=0, **OBS_TRAIN_KW))
+    expect_launches(launches, PER_STEP, res["steps"], "traced run without telemetry")
+    expect_step_launches(per_step, lambda i: (False, PER_STEP), "traced run")
+    same_run(res["state"], res["step_metrics"], split["state"], split["step_metrics"],
+             "traced run vs phase 5's run")
+    print(f"[obs-6c] tracer + metrics server, no telemetry: every step launches phase "
+          f"5's kernels ({PER_STEP}); final state equals phase 5's bitwise")
+
+
+def obs_fleet_path(fm_a, fm_b) -> tuple:
+    """Phase 6d: the two VGG8B arms of phase 4b behind a 90/10 split,
+    FLEET_REQUESTS requests through ``FleetEngine(metrics=, tracer=)``: every
+    answer equals its arm's reference plan, the counters add up, the queues
+    drain and every batch has its four spans.  Returns the registry, the
+    images, the MetricRegistry and the tracer, for the sync check."""
+    from collections import Counter as Count
+
+    import numpy as np
+    from repro_torch.infer import compile_plan
+    from repro_torch.obs import MetricRegistry, Tracer
+    from repro_torch.serving import FleetEngine, ModelRegistry, Router
+
+    reg = MetricRegistry()
+    registry = ModelRegistry(device="cuda", metrics=reg)
+    registry.register("a", fm_a)
+    registry.register("b", fm_b)
+    router = Router({"split": {"a": 0.9, "b": 0.1}})
+    tracer = Tracer()
+    rng = np.random.default_rng(13)
+    ids = [f"req-{i}" for i in range(FLEET_REQUESTS)]
+    imgs = [rng.integers(-127, 128, fm_a.input_shape).astype(np.int32) for _ in ids]
+    with FleetEngine(registry, batch_size=BATCH, router=router, metrics=reg,
+                     tracer=tracer) as engine:
+        futs = [engine.submit(im, model="split", request_id=rid)
+                for rid, im in zip(ids, imgs)]
+        results = [f.result(timeout=120) for f in futs]
+    arms = [router.resolve("split", rid) for rid in ids]
+    for arm, fm in (("a", fm_a), ("b", fm_b)):
+        idx = [i for i, a in enumerate(arms) if a == arm]
+        check_served(compile_plan(fm, device="cuda", backend="reference"),
+                     [imgs[i] for i in idx], [results[i] for i in idx],
+                     f"[obs-6d] arm {arm}:")
+    snap = reg.json_snapshot()
+
+    def by_model(name, key="value"):
+        return {s["labels"]["model"]: s[key] for s in snap[name]["samples"]}
+
+    reqs, batches = by_model("serve_requests_total"), by_model("serve_batches_total")
+    if reqs.get("_fleet") != FLEET_REQUESTS or reqs.get("a", 0) + reqs.get("b", 0) \
+            != FLEET_REQUESTS or reqs.get("a") != arms.count("a"):
+        die(f"[obs-6d] serve_requests_total {reqs}, router {Count(arms)}")
+    if by_model("serve_queue_depth") != {"a": 0, "b": 0}:
+        die(f"[obs-6d] queues not drained: {by_model('serve_queue_depth')}")
+    spans = tracer.snapshot()
+    names = Count(s.name for s in spans)
+    phases = ("fleet.assemble", "fleet.dispatch", "fleet.fetch", "fleet.deliver")
+    if set(names) != set(phases) or any(names[p] != batches["_fleet"] for p in phases) \
+            or any(s.attrs.get("model") not in ("a", "b") for s in spans) \
+            or sum(s.attrs["n"] for s in spans if s.name == "fleet.assemble") \
+            != FLEET_REQUESTS:
+        die(f"[obs-6d] spans {dict(names)} for {batches['_fleet']} batches")
+    fill = snap["serve_batch_fill"]["samples"][0]
+    print(f"[obs-6d] {FLEET_REQUESTS} requests through FleetEngine(metrics=, tracer=), "
+          f"90/10 over two full-width VGG8B arms: every answer equals its arm's "
+          f"reference plan; serve_requests_total {reqs}, batches {batches}, fill "
+          f"histogram count {fill['count']}, queues drained; {len(spans)} spans, the "
+          f"four phases once a batch, model= set")
+    return registry, imgs, reg, tracer
+
+
+def serve_window(reg, imgs, traced: bool, **engine_kw):
+    """One continuous-fleet window: ``len(imgs)`` requests submitted at once
+    to model ``a``, after a warm-up; returns (wall s, seconds of the
+    submit loop, device busy ms or None, batches in the window, the
+    engine's tracer spans of the window)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import FleetEngine, snapshot_delta
+
+    tracer = engine_kw.get("tracer")
+    with FleetEngine(reg, batch_size=BATCH, **engine_kw) as engine:
+        engine.classify(imgs[:1], model="a")
+        pre = engine.stats.snapshot()
+        if tracer is not None:
+            tracer.clear()
+        torch.cuda.synchronize()
+        with (profile(activities=[ProfilerActivity.CUDA]) if traced
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            futs = [engine.submit(im, model="a") for im in imgs]
+            submitted = time.perf_counter() - t0
+            for f in futs:
+                f.result(timeout=120)
+            wall = time.perf_counter() - t0
+        batches = snapshot_delta(pre, engine.stats.snapshot())["batches"]
+    busy = None
+    if traced:
+        busy = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            busy += (e.self_cuda_time_total if us is None else us) / 1e3
+    return wall, submitted, busy, batches, (tracer.snapshot() if tracer is not None else [])
+
+
+def fleet_spans(fm_a, card: str) -> None:
+    """``[fleet-spans]``: the ``[e2e-fleet]`` workload (FLEET_E2E requests at
+    once, one full-width VGG8B, the continuous fleet) with metrics and the
+    tracer on: each batch phase's p50 and mean ms a batch and its total,
+    beside the wall time and, under the profiler, the device busy share.
+    ``fleet.dispatch`` closes when the launches are queued; ``fleet.fetch``
+    holds the wait for the card."""
+    import numpy as np
+    from repro_torch.obs import MetricRegistry, Tracer
+    from repro_torch.serving import ModelRegistry
+    from repro_torch.serving.stats import percentile
+
+    reg = ModelRegistry(device="cuda")
+    reg.register("a", fm_a)
+    rng = np.random.default_rng(11)
+    imgs = [rng.integers(-127, 128, fm_a.input_shape).astype(np.int32)
+            for _ in range(FLEET_E2E)]
+    phases = ("fleet.assemble", "fleet.dispatch", "fleet.fetch", "fleet.deliver")
+    interval = sys.getswitchinterval()
+    for traced, switch in ((False, interval), (True, interval), (False, interval),
+                           (False, 1e-4)):
+        tracer = Tracer()
+        sys.setswitchinterval(switch)
+        try:
+            wall, submitted, busy, batches, spans = serve_window(
+                reg, imgs, traced, metrics=MetricRegistry(), tracer=tracer)
+        finally:
+            sys.setswitchinterval(interval)
+        parts, worker = [], 0.0
+        for p in phases:
+            ms = sorted(s.duration_ns / 1e6 for s in spans if s.name == p)
+            worker += sum(ms)
+            parts.append(f"{p.split('.')[1]} p50 {percentile(ms, 0.5):.4f} mean "
+                         f"{sum(ms) / max(len(ms), 1):.4f} total {sum(ms):.3f}")
+        what = ("under the profiler" if traced else "untraced") + (
+            f", switch interval {switch * 1e3:g} ms" if switch != interval else "")
+        busy_s = (f", device busy {busy:.3f} ms ({100 * busy / (wall * 1e3):.1f}%)"
+                  if traced else "")
+        print(f"[fleet-spans] {card} | {what}: {FLEET_E2E} requests at once, full-width "
+              f"VGG8B, batch {BATCH}, {batches} batches in {wall * 1e3:.3f} ms "
+              f"({FLEET_E2E / wall:.1f} req/s){busy_s}, the submit loop (backpressure "
+              f"included) {submitted * 1e3:.3f} ms of it | ms a batch: " + "; ".join(parts)
+              + f" | the worker's four phases {worker:.3f} ms of the window, "
+              f"{wall * 1e3 - worker:.3f} ms outside them (waiting for work, the lock)")
+
+
+def obs_serve(fm_a, card: str) -> None:
+    """``[obs-serve]``: the ``[e2e-fleet]`` workload on the continuous
+    fleet without ``metrics=`` and ``tracer=``, with each alone and with
+    both, in turns A B C D D C B A, twice."""
+    import numpy as np
+    from repro_torch.obs import MetricRegistry, Tracer
+    from repro_torch.serving import ModelRegistry
+
+    reg = ModelRegistry(device="cuda")
+    reg.register("a", fm_a)
+    rng = np.random.default_rng(12)
+    imgs = [rng.integers(-127, 128, fm_a.input_shape).astype(np.int32)
+            for _ in range(FLEET_E2E)]
+    arms = {"off": lambda: {}, "metrics=": lambda: {"metrics": MetricRegistry()},
+            "tracer=": lambda: {"tracer": Tracer()},
+            "both": lambda: {"metrics": MetricRegistry(), "tracer": Tracer()}}
+    rates = {k: [] for k in arms}
+    for arm in 2 * (list(arms) + list(arms)[::-1]):
+        wall, _, _, _, _ = serve_window(reg, imgs, False, **arms[arm]())
+        rates[arm].append(FLEET_E2E / wall)
+    print(f"[obs-serve] {card} | {FLEET_E2E} requests at once, full-width VGG8B, batch "
+          f"{BATCH}, continuous fleet, req/s in turns A B C D D C B A, twice: " + "; ".join(
+              f"{k} " + " / ".join(f"{r:.1f}" for r in v) for k, v in rates.items()))
+
+
+def obs_train(res, cfg, card: str) -> None:
+    """``[obs-train]``: full-width VGG8B at batch 64, host-to-host ms per
+    step for four arms in turns A B C D D C B A: observability off; the
+    CLI's tracer span + step histogram + straggler detector; telemetry every
+    step (readout, records, JSONL, health rules); the same under
+    ``fuse_opt``.  Then a sampled step's extra device launches and device
+    time, from the profiler."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import les, prng
+    from repro_torch.obs import health as H
+    from repro_torch.obs import telemetry as T
+    from repro_torch.obs.metrics import MetricRegistry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.train.fault_tolerance import StepTimer, StragglerDetector
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-127, 128, (TRAIN_BATCH, *cfg.input_shape))
+                         .astype(np.int32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, TRAIN_BATCH).astype(np.int32)).cuda()
+    key, state = prng.PRNGKey(TRAIN_STEPS), res["state"]
+    tracer, registry, timer, straggler = Tracer(), MetricRegistry(), StepTimer(), StragglerDetector()
+    seconds = registry.histogram("train_step_seconds", "wall time per training step")
+    monitor = H.HealthMonitor(registry=registry)
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/metrics.jsonl"
+
+        def traced():
+            with tracer.span("train.step", step=0, telemetry=False):
+                out = les.train_step(state, cfg, x, y, key)
+            dt = timer.lap()
+            seconds.observe(dt)
+            straggler.record(dt)
+            return out
+
+        def sampled(fuse_opt):
+            def step():
+                with tracer.span("train.step", step=0, telemetry=True):
+                    out = les.train_step(state, cfg, x, y, key, telemetry=True,
+                                         fuse_opt=fuse_opt)
+                    records = T.to_records(out[2], cfg=cfg, step=0)
+                    T.append_jsonl(path, records)
+                    monitor.observe_records(records)
+                dt = timer.lap()
+                seconds.observe(dt)
+                straggler.record(dt)
+                return out
+            return step
+
+        arms = {"off": lambda: les.train_step(state, cfg, x, y, key),
+                "tracer+metrics": traced, "telemetry": sampled(False),
+                "telemetry fuse_opt": sampled(True)}
+        order = list(arms)
+        ms = {k: [] for k in arms}
+        for name in order + order[::-1]:
+            ms[name].append(time_cuda(arms[name], iters=10, warmup=1))
+        prof, top = {}, {}
+        for name in ("off", "telemetry"):
+            wall, kernels = device_profile(arms[name], 3)
+            prof[name] = (sum(v for v, _ in kernels.values()) / 3,
+                          sum(n for _, n in kernels.values()) // 3)
+            top[name] = kernels
+    extra = sorted(((ms - top["off"].get(k, (0.0, 0))[0], n - top["off"].get(k, (0.0, 0))[1], k)
+                    for k, (ms, n) in top["telemetry"].items()), reverse=True)[:8]
+    print(f"[obs-train] {card} | VGG8B full width, batch {TRAIN_BATCH}, host to host ms "
+          f"per step, turns A B C D D C B A (10 steps a turn): " + "; ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in ms.items())
+          + f" | device per step: off {prof['off'][0]:.3f} ms over {prof['off'][1]} "
+          f"launches, telemetry {prof['telemetry'][0]:.3f} ms over "
+          f"{prof['telemetry'][1]} launches: a sampled step adds "
+          f"{prof['telemetry'][1] - prof['off'][1]} device launches and "
+          f"{prof['telemetry'][0] - prof['off'][0]:.3f} ms of device time; the most of it: "
+          + "; ".join(f"{k[:56]} {ms / 3:.3f} ms x{n // 3}" for ms, n, k in extra))
+
+
 def time_cuda(fn, iters: int, warmup: int) -> float:
     """Mean milliseconds per call over ``iters`` calls, CUDA events."""
     import torch
@@ -1941,7 +2361,7 @@ def work(meta, a, w, out_elems: int, out_itemsize: int):
 
 
 def timing(steps, card: str) -> dict:
-    """Phase 6: per-step kernel / plain / bound times of the serving
+    """Phase 7: per-step kernel / plain / bound times of the serving
     kernels, with the forward conv's digit products and device time; #1's
     ``ms`` is its device time per call (its launches are shorter than the
     wrapper's host path), the back-to-back time beside it."""
@@ -2078,7 +2498,7 @@ def main_path_conv_operands() -> list:
 
 
 def train_timing(shapes, card: str, per_kernel: dict) -> None:
-    """Phase 6b: per-shape kernel / plain / bound times of the training
+    """Phase 7b: per-shape kernel / plain / bound times of the training
     kernels (one step = one launch at each shape).  #7 runs on the main
     path's own operands (the CLI's first batch and the seeded init, whose
     digits decide its products), and beside them on w of ±2^15."""
@@ -2177,7 +2597,7 @@ def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
 
 
 def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
-    """Phase 6c: per-shape kernel / plain / bound times of the update
+    """Phase 7c: per-shape kernel / plain / bound times of the update
     kernels — #9 at each conv layer of a step (the forward layers'
     optimiser state; #4 in ``linear_grad_w_timing``), #11 per fused apply
     over VGG8B's 15 weight tensors (the kernels line's row) and mlp4's 7,
@@ -2242,7 +2662,7 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
 
 
 def linear_grad_w_timing(card: str, per_kernel: dict) -> None:
-    """Phase 6e: #3 and #4 at VGG8B's linear (the kernels line's step
+    """Phase 7e: #3 and #4 at VGG8B's linear (the kernels line's step
     figure) and at mlp4's two layer shapes, on operands of the main path's
     digits (x in the NITRO-ReLU range: one digit; masked δ of two): the
     device time of every device operation of one call from the profiler
@@ -2313,7 +2733,7 @@ def grad_w_int_mm_yardstick(b, m, n, card: str, tag: str) -> None:
 
 
 def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
-    """Phase 6d: per-shape kernel / plain / bound times of the input-
+    """Phase 7d: per-shape kernel / plain / bound times of the input-
     gradient kernels at a VGG8B step's shapes (summed into the kernels
     line), at mlp4's linear shapes, with their digit products: #10 back to
     back (CUDA events) with its device time split into the GEMM and the
@@ -2379,7 +2799,7 @@ def train_end_to_end(res, ref, fuse, cfg, card: str) -> None:
     state = res["state"]
 
     def fused_apply():
-        grads, _ = les.compute_gradients(state, cfg, x, y, key)
+        grads, _, _ = les.compute_gradients(state, cfg, x, y, key)
         return les.apply_gradients(state, grads, fuse_opt=True)
 
     steps = {
@@ -2510,7 +2930,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as root:
         fleet_res, fm_b = fleet_path(fm, root)
-    fleet_no_sync(fleet_res)
+    fleet_no_sync(fleet_res["registry"], fleet_res["images"])
     hot_swap_path(fleet_res, fm_b)
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
@@ -2523,6 +2943,14 @@ def main() -> int:
     mlp_res, mlp_ref = mlp_path()
     mlp_fuse_opt_path(mlp_ref)
     resume_path()
+    with tempfile.TemporaryDirectory() as root:
+        obs_train_path(train_res, fuse_res, root)
+    obs_registry, obs_imgs, obs_metrics, obs_tracer = obs_fleet_path(fm, fm_b)
+    n_spans = len(obs_tracer.snapshot())
+    fleet_no_sync(obs_registry, obs_imgs, ", with metrics= and tracer= on the engine",
+                  metrics=obs_metrics, tracer=obs_tracer)
+    if len(obs_tracer.snapshot()) <= n_spans:
+        die("[obs-6d] the sync check recorded no span")
     per_kernel = timing(steps, card)
     train_timing(shapes, card, per_kernel)
     opt_timing(shapes, cfg, params, card, per_kernel)
@@ -2532,6 +2960,9 @@ def main() -> int:
     fleet_end_to_end(fleet_res, fm, card)
     train_end_to_end(train_res, train_ref, fuse_res, cfg, card)
     mlp_end_to_end(mlp_res, mlp_ref, card)
+    fleet_spans(fm, card)
+    obs_serve(fm, card)
+    obs_train(train_res, cfg, card)
 
     print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
           f"{dict(PARITY_CASES)}")

@@ -10,8 +10,9 @@ One training step:
      forward-layer update (γ_inv^fw = γ_inv^lr·AF, η_inv^fw).
 
 No gradient crosses a block boundary, and every value is an integer.
-Ported: the split step (``compute_gradients`` → ``apply_gradients``) and
-the ``fuse_opt`` step, both without telemetry.
+Ported: the split step (``compute_gradients`` → ``apply_gradients``), the
+``fuse_opt`` step and ``telemetry=True`` (the integer readout of
+``obs.telemetry``, on the split path).
 """
 
 from __future__ import annotations
@@ -56,6 +57,14 @@ class StepGrads(NamedTuple):
     output: dict
 
 
+class StepAux(NamedTuple):
+    """Non-gradient byproducts of ``compute_gradients`` that the
+    telemetry readout consumes: each block's forward cache (``z_star``,
+    ``act``, ...)."""
+
+    fw_caches: tuple
+
+
 class StepMetrics(NamedTuple):
     loss: torch.Tensor          # integer RSS of the output layers (int32)
     correct: torch.Tensor       # correct top-1 predictions in the batch (int32)
@@ -82,8 +91,9 @@ def compute_gradients(
     fuse_bwd: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
-) -> tuple[StepGrads, StepMetrics]:
-    """Forward + backward over a batch: raw gradients, no update."""
+) -> tuple[StepGrads, StepMetrics, StepAux]:
+    """Forward + backward over a batch: raw gradients, no update; with
+    the forward caches the telemetry readout needs."""
     params = state.params
     labels = labels.to(params["output"]["w"].device)
     y = one_hot_int(labels, cfg.num_classes)
@@ -115,7 +125,7 @@ def compute_gradients(
         correct=_correct(y_hat, labels),
         local_losses=torch.stack(local_losses),
     )
-    return grads, metrics
+    return grads, metrics, StepAux(fw_caches=tuple(fw_caches))
 
 
 def apply_gradients(state: TrainState, grads: StepGrads, *,
@@ -221,7 +231,7 @@ def train_step(
     backend: str = "auto",
     conv_mode: str = "stream",
     telemetry: bool = False,
-) -> tuple[TrainState, StepMetrics]:
+):
     """One integer-only NITRO-D step: ``compute_gradients`` then
     ``apply_gradients``.
 
@@ -235,21 +245,36 @@ def train_step(
     IntegerSGD runs in the flush of ``stream_conv_grad_w_opt`` and
     ``nitro_matmul_grad_w_opt``, so their grad_W is never written —
     bitwise the split step.
+
+    ``telemetry=True`` returns ``(state, metrics, telem)``, ``telem``
+    being the int32 telemetry pytree of ``obs.telemetry`` (per-layer
+    bit occupancy and saturation, dead units, the pre-step optimiser
+    scalars).  It reads the materialised forward-layer grad_W, so it
+    takes the split path even under ``fuse_opt`` (as the JAX step does):
+    the kernels #3/#8 in place of #4/#9, the same trajectory bitwise.
+    With ``telemetry=False`` the step launches what it did before.
     """
-    if telemetry:
-        raise NotImplementedError(
-            "train_step(telemetry=True) comes with a later slice of the port "
-            "(obs.telemetry)")
-    if fuse_opt:
+    if fuse_opt and not telemetry:
         return _fused_opt_step(
             state, cfg, x, labels, key, fused=fused, fuse_bwd=fuse_bwd,
             backend=backend, conv_mode=conv_mode,
         )
-    grads, metrics = compute_gradients(
+    grads, metrics, aux = compute_gradients(
         state, cfg, x, labels, key,
         fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
     )
-    return apply_gradients(state, grads), metrics
+    new_state = apply_gradients(state, grads)
+    if telemetry:
+        # lazy: obs is an optional read-only layer over the core
+        from repro_torch.obs import telemetry as T
+
+        telem = T.collect_train_telemetry(
+            cfg, new_state.params, aux.fw_caches,
+            [g["fw"] for g in grads.blocks], grads.output,
+            state.opt_lr, state.opt_fw,
+        )
+        return new_state, metrics, telem
+    return new_state, metrics
 
 
 def eval_step(state: TrainState, cfg: M.NitroConfig, x,

@@ -21,6 +21,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_vision --device cpu \
         --scale 0.0625 --train-steps 2 --train-batch 16
 
+    # with a live /metrics endpoint (ephemeral port) and a span trace:
+    PYTHONPATH=src python -m repro_torch.launch.serve_vision --device cpu \
+        --scale 0.0625 --metrics-port 0 --trace-out /tmp/serve_trace.jsonl
+
 Every ``--model-dir`` is ``NAME=PATH`` (bare ``PATH`` gets the model id
 ``default``).  Requests route through the continuous-batching
 ``FleetEngine``; ``--scheduler static`` runs the single-model
@@ -29,8 +33,10 @@ Every ``--model-dir`` is ``NAME=PATH`` (bare ``PATH`` gets the model id
 ``np.random.default_rng(seed).integers(-127, 128, shape)`` images with
 ids ``req-<i>``, exactly as the JAX launcher draws and names them, so
 both packages serve the same requests on the same arms for the same
-arguments.  Not ported yet: ``--autotune``, ``--metrics-port``,
-``--trace-out``.
+arguments.  ``--metrics-port`` serves the run's ``MetricRegistry`` at
+``/metrics`` (the CLI scrapes its own endpoint at the end and prints the
+headline samples); ``--trace-out`` writes the fleet's batch-lifecycle
+spans as JSONL.  Not ported yet: ``--autotune``.
 """
 
 from __future__ import annotations
@@ -88,7 +94,7 @@ def _parse_model_dir(spec: str) -> tuple[str, str]:
     return name, path
 
 
-def _build_registry(args):
+def _build_registry(args, metrics=None):
     """Resolve --fleet-dir / --model-dir / train-and-freeze into a registry;
     returns ``(registry, splits of the fleet manifest)``."""
     from repro_torch.infer import load_fleet_manifest, save_frozen
@@ -101,7 +107,7 @@ def _build_registry(args):
         raise SystemExit("--fleet-dir and --model-dir are mutually "
                          "exclusive — add extra models to FLEET.json")
     registry = ModelRegistry(device=args.device, backend=args.backend,
-                             operand_dtype=args.operand_dtype)
+                             operand_dtype=args.operand_dtype, metrics=metrics)
     if args.fleet_dir:
         # read FLEET.json once: the printed paths, the splits and the
         # loaded models all come from the same manifest version
@@ -170,6 +176,13 @@ def _parser() -> argparse.ArgumentParser:
                          "model (per-model violation attribution; "
                          "continuous scheduler only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="expose the serving metrics as Prometheus text "
+                         "at /metrics on this port (0 = pick an ephemeral "
+                         "port and print it)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the engine's batch-lifecycle span trace "
+                         "(JSONL) here")
     return ap
 
 
@@ -211,11 +224,28 @@ def main(argv=None) -> dict:
     ``target``, ``request_ids``, ``plan`` (the first model's), ``images``,
     ``results`` (one ``VisionResult`` per request, in order), ``wall_s``,
     ``latency_ms``, ``snapshot`` (timed work only: ``fleet``, ``models``
-    and, continuous, ``slo``) and ``batches_total`` (warm-up included).
+    and, continuous, ``slo``), ``batches_total`` (warm-up included),
+    ``metrics`` (the ``MetricRegistry``, or None without
+    ``--metrics-port``) and ``tracer`` (or None without ``--trace-out``).
     """
     args = _parser().parse_args(argv)
-    resolve_device(args.device)  # no CUDA: raise before any work
+    device = resolve_device(args.device)  # no CUDA: raise before any work
 
+    metrics = server = None
+    if args.metrics_port is not None:
+        from repro_torch.obs import MetricRegistry, start_metrics_server
+        metrics = MetricRegistry()
+        server = start_metrics_server(metrics, port=args.metrics_port)
+        print(f"[metrics] Prometheus text at {server.url}")
+    try:
+        return _serve(args, device, metrics, server)
+    finally:
+        if server is not None:
+            server.close()
+
+
+def _serve(args, device, metrics, server) -> dict:
+    """``main`` after the metrics server is up (``main`` closes it)."""
     from repro_torch.serving import (
         FleetEngine,
         Router,
@@ -227,7 +257,12 @@ def main(argv=None) -> dict:
         snapshot_delta,
     )
 
-    registry, manifest_splits = _build_registry(args)
+    tracer = None
+    if args.trace_out:
+        from repro_torch.obs import Tracer
+        tracer = Tracer()
+
+    registry, manifest_splits = _build_registry(args, metrics=metrics)
     if args.slo is not None:
         # one objective for the whole fleet: the launcher serves a single
         # workload, so every arm is scored against the same deadline
@@ -235,6 +270,9 @@ def main(argv=None) -> dict:
         for mid in registry.ids():
             registry.set_slo(mid, slo)
         print(f"[slo] deadline {slo.deadline_ms:.1f} ms on {registry.ids()}")
+    if metrics is not None:
+        from repro_torch.obs import register_build_info
+        register_build_info(metrics, backend=device.type)
 
     splits = dict(manifest_splits)
     if args.split:
@@ -274,7 +312,8 @@ def main(argv=None) -> dict:
             raise SystemExit("--slo requires --scheduler continuous "
                              "(SLO attribution lives in the fleet engine)")
         with VisionEngine(first.plan, batch_size=args.batch,
-                          max_wait_ms=args.max_wait_ms) as engine:
+                          max_wait_ms=args.max_wait_ms,
+                          metrics=metrics) as engine:
             engine.classify(images[:1])  # warm-up (first kernel use) off the clock
             pre = engine.stats.snapshot()
             t0 = time.perf_counter()
@@ -286,7 +325,7 @@ def main(argv=None) -> dict:
         batches_total = post["batches"]
     else:
         with FleetEngine(registry, batch_size=args.batch,
-                         router=router) as engine:
+                         router=router, tracer=tracer) as engine:
             for mid in registry.ids():  # warm-up off the clock
                 engine.classify([make_image(mid)], model=mid)
             pre = engine.snapshot()
@@ -325,11 +364,31 @@ def main(argv=None) -> dict:
     for mid, sstats in snapshot.get("slo", {}).items():
         print(f"[slo]   {mid}: {sstats['violations']}/{sstats['requests']} "
               f"past deadline ({100 * sstats['violation_frac']:.1f}%)")
+
+    if tracer is not None:
+        n_spans = tracer.export_jsonl(args.trace_out)
+        print(f"[trace] {n_spans} spans -> {args.trace_out}")
+    if server is not None:
+        # scrape our own endpoint: proves the full HTTP path end-to-end
+        # and shows the headline counters in the run's output
+        from urllib.request import urlopen
+        text = urlopen(server.url, timeout=5).read().decode()
+        samples = [ln for ln in text.splitlines()
+                   if ln and not ln.startswith("#")]
+        print(f"[metrics] scraped {server.url}: {len(samples)} samples")
+        headline = ("serve_requests_total", "serve_queue_depth",
+                    "serve_batch_fill_count", "serve_model_version",
+                    "serve_model_swaps_total", "serve_slo_violations_total",
+                    "repro_build_info")
+        for ln in samples:
+            if ln.startswith(headline):
+                print(f"[metrics]   {ln}")
     return {
         "registry": registry, "router": router, "target": target,
         "request_ids": request_ids, "plan": first.plan, "images": images,
         "results": results, "wall_s": wall, "latency_ms": pct,
         "snapshot": snapshot, "batches_total": batches_total,
+        "metrics": metrics, "tracer": tracer,
     }
 
 

@@ -13,6 +13,13 @@ flattened images) and the CNNs (VGG8B / VGG11B).
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
         --steps 20 --scale 0.0625 --device cpu --ckpt-dir /tmp/ckpt
 
+    # with the observability stack: telemetry every 2nd step, health
+    # alerts, a live /metrics endpoint and a span trace:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
+        --steps 20 --scale 0.0625 --device cpu --telemetry-every 2 \
+        --telemetry-out /tmp/obs/metrics.jsonl --alerts-out /tmp/obs/alerts.jsonl \
+        --metrics-port 0 --trace-out /tmp/obs/trace.jsonl
+
 The data, the init and the dropout key of step ``it`` are those of the
 JAX launcher, so both give the same trajectory and the same test accuracy
 for the same arguments.  ``--ckpt-dir`` saves every 200 steps and at the
@@ -21,14 +28,18 @@ checkpoint, with the JAX launcher's semantics: after a resume from step
 S the keys are ``PRNGKey(S + it)`` while the batches are shuffled with
 ``seed=it`` from ``it = 0``, and ``steps`` counts this call's steps.
 ``--fuse-opt`` takes the ``fuse_opt`` step (IntegerSGD in the grad_W
-kernels' flush), bitwise the split step.  Not ported yet: data
-parallelism, telemetry and health alerts, autotuning, the LM trainer.
+kernels' flush), bitwise the split step.  ``--telemetry-every N`` runs
+every N-th step with ``telemetry=True`` (the split path, bitwise the same
+trajectory), appends its rows to ``metrics.jsonl`` (byte for byte the JAX
+launcher's) and feeds the health monitor.  Not ported yet: data
+parallelism, autotuning, the LM trainer.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
@@ -37,7 +48,13 @@ from repro_torch.configs import get_paper_config
 from repro_torch.core import les, prng
 from repro_torch.data import synthetic
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs import health as H
+from repro_torch.obs.metrics import (MetricRegistry, register_build_info,
+                                     start_metrics_server)
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.fault_tolerance import (PreemptionGuard, StepTimer,
+                                               StragglerDetector)
 
 ARCHS = ("mlp1", "mlp2", "mlp3", "mlp4", "vgg8b", "vgg11b")
 CKPT_EVERY = 200
@@ -46,14 +63,32 @@ CKPT_EVERY = 200
 def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 dataset: str = "tiles32", scale: float = 1.0, seed: int = 0,
                 device=DEFAULT_DEVICE, backend: str = "auto",
-                fuse_opt: bool = False, ckpt_dir: str | None = None) -> dict:
+                fuse_opt: bool = False, ckpt_dir: str | None = None,
+                telemetry_every: int = 0, telemetry_out: str | None = None,
+                trace_out: str | None = None, metrics_port: int | None = None,
+                alerts_out: str | None = None) -> dict:
     """Integer-only NITRO-D training, then test accuracy.
 
-    Returns ``test_accuracy``, ``steps`` and ``scaled_loss`` (the keys of
-    the JAX trainer's result) plus ``state`` (the final ``TrainState``),
-    ``step_metrics`` (one ``StepMetrics`` per step), ``start_step`` (the
-    step resumed from, 0 without a checkpoint) and ``train_s`` (host
-    seconds of the step loop, ending in a device synchronise).
+    ``telemetry_every=N`` runs every N-th step with ``telemetry=True``
+    (bitwise the same trajectory; under ``fuse_opt`` a sampled step takes
+    the split path) and appends its per-layer records to
+    ``telemetry_out`` (default: ``metrics.jsonl`` beside the
+    checkpoints).  Each sampled step feeds the health monitor
+    (``obs.health.default_rules``): alerts print inline and, with
+    ``alerts_out``, append as JSONL.  ``trace_out`` writes a span trace of
+    the run (``train.step`` / ``train.checkpoint`` / ``train.eval``).
+    ``metrics_port`` (0 = ephemeral) serves the run's registry
+    (``train_step_seconds``, ``train_straggler_events_total``, the health
+    gauges, ``repro_build_info``) at ``/metrics``, ``/metrics.json`` and
+    ``/healthz``.  Step times are host to host: no observability path
+    synchronises the card on an unsampled step.
+
+    Returns ``test_accuracy``, ``steps``, ``scaled_loss``,
+    ``straggler_events`` and ``health`` (the keys of the JAX trainer's
+    result) plus ``state`` (the final ``TrainState``), ``step_metrics``
+    (one ``StepMetrics`` per step), ``start_step`` (the step resumed
+    from, 0 without a checkpoint) and ``train_s`` (host seconds of the
+    step loop, ending in a device synchronise).
     """
     if arch not in ARCHS:
         raise ValueError(f"arch {arch!r} is not ported; one of {ARCHS}")
@@ -72,47 +107,115 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
         state, start_step = ckpt.restore(ckpt_dir, state)
         print(f"[restore] resumed from step {start_step}")
 
+    if telemetry_every > 0:
+        from repro_torch.obs import telemetry as T
+        if telemetry_out is None:
+            telemetry_out = os.path.join(ckpt_dir or ".", "metrics.jsonl")
+        print(f"[telemetry] every {telemetry_every} steps -> {telemetry_out}")
+    tracer = Tracer() if trace_out else NULL_TRACER
+    guard = PreemptionGuard(install=False)
+    straggler = StragglerDetector()
+
+    # host-side run metrics + health rules: they read only what the step
+    # returned, so the trajectory is untouched
+    registry = MetricRegistry()
+    register_build_info(registry, backend=device.type)
+    step_seconds = registry.histogram(
+        "train_step_seconds", "wall time per training step")
+    straggler_events = registry.counter(
+        "train_straggler_events_total",
+        "steps slower than the straggler EWMA threshold")
+    sinks = [H.print_sink]
+    if alerts_out:
+        sinks.append(H.jsonl_sink(alerts_out))
+        print(f"[health] alerts -> {alerts_out}")
+    monitor = H.HealthMonitor(registry=registry, sinks=sinks)
+    server = None
+    if metrics_port is not None:
+        server = start_metrics_server(registry, port=metrics_port)
+        print(f"[metrics] serving {server.url} (+ /metrics.json /healthz)")
+
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    it = 0
-    metrics = None
-    step_metrics = []
-    sync()
-    t0 = time.perf_counter()
-    while it < steps:
-        for x, y in synthetic.batches(ds.x_train, ds.y_train, batch, seed=it):
-            if it >= steps:
+    try:
+        it = 0
+        metrics = None
+        step_metrics = []
+        sync()
+        t0 = time.perf_counter()
+        timer = StepTimer()
+        while it < steps:
+            for x, y in synthetic.batches(ds.x_train, ds.y_train, batch, seed=it):
+                if it >= steps or guard.requested:
+                    break
+                sampled = telemetry_every > 0 and it % telemetry_every == 0
+                with tracer.span("train.step", step=start_step + it,
+                                 telemetry=sampled):
+                    result = les.train_step(
+                        state, cfg, torch.from_numpy(x).to(device),
+                        torch.from_numpy(y).to(device),
+                        prng.PRNGKey(start_step + it),
+                        backend=backend, fuse_opt=fuse_opt, telemetry=sampled,
+                    )
+                    if sampled:
+                        state, metrics, telem = result
+                        records = T.to_records(telem, cfg=cfg,
+                                               step=start_step + it)
+                        T.append_jsonl(telemetry_out, records)
+                        monitor.observe_records(records)
+                    else:
+                        state, metrics = result
+                dt = timer.lap()
+                step_seconds.observe(dt)
+                if straggler.record(dt):
+                    straggler_events.inc()
+                    print(f"[straggler] step {it}: {dt:.3f}s vs ewma "
+                          f"{straggler.ewma:.3f}s")
+                step_metrics.append(metrics)
+                if it % 50 == 0:
+                    print(f"step {it:5d}  loss={int(metrics.loss)}  "
+                          f"scaled={metrics.scaled_loss(batch):.4f}  "
+                          f"correct={int(metrics.correct)}/{batch}")
+                if checkpointer and it > 0 and it % CKPT_EVERY == 0:
+                    with tracer.span("train.checkpoint", step=start_step + it):
+                        checkpointer.save(start_step + it, state)
+                it += 1
+            if guard.requested:
                 break
-            state, metrics = les.train_step(
-                state, cfg, torch.from_numpy(x).to(device),
-                torch.from_numpy(y).to(device), prng.PRNGKey(start_step + it),
-                backend=backend, fuse_opt=fuse_opt,
-            )
-            step_metrics.append(metrics)
-            if it % 50 == 0:
-                print(f"step {it:5d}  loss={int(metrics.loss)}  "
-                      f"scaled={metrics.scaled_loss(batch):.4f}  "
-                      f"correct={int(metrics.correct)}/{batch}")
-            if checkpointer and it > 0 and it % CKPT_EVERY == 0:
+        sync()
+        train_s = time.perf_counter() - t0
+        if checkpointer:
+            with tracer.span("train.checkpoint", step=start_step + it,
+                             final=True):
                 checkpointer.save(start_step + it, state)
-            it += 1
-    sync()
-    train_s = time.perf_counter() - t0
-    if checkpointer:
-        checkpointer.save(start_step + it, state)
-        checkpointer.wait()
+                checkpointer.wait()
 
-    correct = 0
-    for i in range(0, len(ds.x_test) - batch + 1, batch):
-        correct += int(les.eval_step(
-            state, cfg, torch.from_numpy(ds.x_test[i:i + batch]).to(device),
-            torch.from_numpy(ds.y_test[i:i + batch]).to(device)))
-    n_eval = (len(ds.x_test) // batch) * batch
-    acc = correct / max(n_eval, 1)
+        correct = 0
+        with tracer.span("train.eval"):
+            for i in range(0, len(ds.x_test) - batch + 1, batch):
+                correct += int(les.eval_step(
+                    state, cfg,
+                    torch.from_numpy(ds.x_test[i:i + batch]).to(device),
+                    torch.from_numpy(ds.y_test[i:i + batch]).to(device)))
+        n_eval = (len(ds.x_test) // batch) * batch
+        acc = correct / max(n_eval, 1)
+        if trace_out:
+            n_spans = tracer.export_jsonl(trace_out)
+            print(f"[trace] {n_spans} spans -> {trace_out}")
+        if monitor.alerts:
+            counts = monitor.summary()["by_severity"]
+            print(f"[health] {len(monitor.alerts)} alert(s) fired "
+                  f"({', '.join(f'{k}={v}' for k, v in counts.items() if v)}); "
+                  f"{len(monitor.active_alerts())} still active")
+    finally:
+        if server is not None:
+            server.close()
     print(f"[done] test accuracy {acc:.4f} over {n_eval} samples")
-    out = {"test_accuracy": acc, "steps": it, "state": state,
+    out = {"test_accuracy": acc, "steps": it,
+           "straggler_events": straggler.incidents,
+           "health": monitor.summary(), "state": state,
            "step_metrics": step_metrics, "start_step": start_step,
            "train_s": train_s}
     if metrics is not None:
@@ -138,6 +241,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir",
                     help="save checkpoints here (every 200 steps and at the "
                          "end) and resume from its newest one")
+    ap.add_argument("--telemetry-every", type=int, default=0,
+                    help="sample integer-numerics telemetry every N steps "
+                         "(0 = off) into --telemetry-out")
+    ap.add_argument("--telemetry-out",
+                    help="telemetry JSONL path (default: metrics.jsonl "
+                         "next to the checkpoints)")
+    ap.add_argument("--trace-out",
+                    help="write a span trace of the run (JSONL)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve /metrics, /metrics.json and /healthz on "
+                         "this port (0 = ephemeral)")
+    ap.add_argument("--alerts-out",
+                    help="append health alerts as JSONL (they always "
+                         "print inline)")
     return ap
 
 
@@ -147,7 +264,12 @@ def main(argv=None) -> dict:
     return train_nitro(args.arch, steps=args.steps, batch=args.batch,
                        dataset=args.dataset, scale=args.scale, seed=args.seed,
                        device=args.device, backend=args.backend,
-                       fuse_opt=args.fuse_opt, ckpt_dir=args.ckpt_dir)
+                       fuse_opt=args.fuse_opt, ckpt_dir=args.ckpt_dir,
+                       telemetry_every=args.telemetry_every,
+                       telemetry_out=args.telemetry_out,
+                       trace_out=args.trace_out,
+                       metrics_port=args.metrics_port,
+                       alerts_out=args.alerts_out)
 
 
 if __name__ == "__main__":

@@ -2,14 +2,17 @@
 
 vision.py    VisionEngine: the static dynamic-batching scheduler over one
              ExecutionPlan
-stats.py     thread-safe EngineStats, nearest-rank latency percentiles and
-             the SLO vocabulary (Slo, slo_summary)
+stats.py     thread-safe EngineStats over repro_torch.obs.MetricRegistry,
+             re-exported nearest-rank latency percentiles and the SLO
+             vocabulary (Slo, slo_summary)
 registry.py  ModelRegistry: many FrozenModels compiled and hot-swapped
-             under stable model ids, shared padding buffers
+             under stable model ids, shared padding buffers; pass
+             metrics= for scrapeable per-model counters + swap events
 fleet.py     FleetEngine: continuous (double-buffered) batching over every
              registered model — per-model queues, weighted round-robin,
              page-locked staging on the card — and the deterministic A/B
-             Router
+             Router; queue-depth / batch-fill metrics and per-phase
+             tracer spans
 
 One model, simplest path:  compile_plan → VisionEngine.
 A fleet of models:         ModelRegistry → FleetEngine (+ Router splits).

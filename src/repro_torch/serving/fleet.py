@@ -46,8 +46,17 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from repro_torch.obs.metrics import MetricRegistry
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving.registry import ModelEntry, ModelRegistry
-from repro_torch.serving.stats import EngineStats, Slo
+from repro_torch.serving.stats import (
+    REQUEST_DEADLINE_SECONDS,
+    SLACK_BUCKETS,
+    SLO_DEADLINE_SECONDS,
+    SLO_VIOLATIONS_TOTAL,
+    EngineStats,
+    Slo,
+)
 from repro_torch.serving.vision import (
     Request,
     VisionResult,
@@ -180,10 +189,24 @@ class FleetEngine:
     drained by smooth weighted round-robin and batches are double-
     buffered (assemble N+1 on the host while N runs on the card).
 
+    Observability: ``metrics`` (defaulting to the registry's shared
+    ``MetricRegistry``, if it has one) adds the fleet-wide counters as
+    ``serve_*_total{model="_fleet"}`` plus a per-model
+    ``serve_queue_depth`` gauge and a ``serve_batch_fill`` histogram
+    (real fraction of every launched batch).  ``tracer`` (an
+    ``obs.Tracer``) records one span per batch-lifecycle phase —
+    ``fleet.assemble`` / ``.dispatch`` / ``.fetch`` / ``.deliver`` —
+    tagged with the model id.  On a CUDA plan ``fleet.dispatch`` closes
+    when the launches are queued and ``fleet.fetch`` holds the wait for
+    the card.  Every metric on the dispatch path is a host integer: none
+    reads a device tensor.
+
     SLO attribution: a model whose ``ModelEntry`` carries an
-    ``Slo(deadline_ms)`` has every delivered request's end-to-end latency
-    held against its deadline; ``slo_snapshot()`` rolls up requests and
-    violations per model.
+    ``Slo(deadline_ms)`` gets every delivered request's deadline slack
+    recorded (``serve_request_deadline_seconds{model=…}`` histogram,
+    ``serve_slo_violations_total{model=…}`` counter,
+    ``serve_slo_deadline_seconds`` gauge) plus an engine-local roll-up in
+    ``slo_snapshot()``.
     """
 
     def __init__(
@@ -195,13 +218,61 @@ class FleetEngine:
         weights: dict[str, float] | None = None,
         router: Router | None = None,
         coalesce_ms: float = 1.0,
+        metrics: MetricRegistry | None = None,
+        tracer: Tracer | None = None,
     ):
         self.registry = registry
         self.batch_size = batch_size
         self.queue_depth = queue_depth
         self.coalesce_ms = coalesce_ms
         self.router = router or Router()
-        self.stats = EngineStats()  # fleet-wide; per-model in entry.stats
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        # pre-bound batch-lifecycle spans: the name (and, for attr-less
+        # phases, the attrs dict) is resolved once here, not per batch
+        self._span_assemble = self.tracer.bind("fleet.assemble")
+        self._span_dispatch = self.tracer.bind("fleet.dispatch")
+        self._span_fetch = self.tracer.bind("fleet.fetch")
+        self._span_deliver = self.tracer.bind("fleet.deliver")
+        # inherit the registry's shared metrics; an explicit metrics= wins
+        self.metrics = metrics if metrics is not None else registry.metrics
+        if self.metrics is not None:
+            # fleet-wide counters join the per-model families under a
+            # reserved label value (a real id can't be empty, "_fleet" is
+            # ours by convention)
+            self.stats = EngineStats(registry=self.metrics,
+                                     labels={"model": "_fleet"})
+            self._depth_gauge = self.metrics.gauge(
+                "serve_queue_depth", "queued requests per model",
+                labels=("model",),
+            )
+            self._fill_hist = self.metrics.histogram(
+                "serve_batch_fill",
+                "real (unpadded) fraction of each launched batch",
+                buckets=(0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0),
+            )
+            self._deadline_hist = self.metrics.histogram(
+                REQUEST_DEADLINE_SECONDS,
+                "per-request deadline slack in seconds "
+                "(negative = SLO violated)",
+                labels=("model",), buckets=SLACK_BUCKETS,
+            )
+            self._slo_violations = self.metrics.counter(
+                SLO_VIOLATIONS_TOTAL,
+                "requests answered after their model's SLO deadline",
+                labels=("model",),
+            )
+            self._slo_deadline = self.metrics.gauge(
+                SLO_DEADLINE_SECONDS,
+                "configured per-model SLO deadline",
+                labels=("model",),
+            )
+        else:
+            self.stats = EngineStats()  # fleet-wide; per-model in entry.stats
+            self._depth_gauge = None
+            self._fill_hist = None
+            self._deadline_hist = None
+            self._slo_violations = None
+            self._slo_deadline = None
         # per-model SLO accounting (requests, violations) — written only
         # by the worker thread, read by slo_snapshot()
         self._slo_counts: dict[str, list[int]] = {}
@@ -252,6 +323,8 @@ class FleetEngine:
                 if self._closed:
                     raise RuntimeError("engine is closed")
             q.append(req)
+            if self._depth_gauge is not None:
+                self._depth_gauge.labels(model=model_id).set(len(q))
             self._cond.notify_all()
         return req.future
 
@@ -376,6 +449,8 @@ class FleetEngine:
         """Pop ≤ batch_size requests; caller holds ``self._cond``."""
         q = self._queues[model_id]
         items = [q.popleft() for _ in range(min(len(q), self.batch_size))]
+        if self._depth_gauge is not None:
+            self._depth_gauge.labels(model=model_id).set(len(q))
         self._cond.notify_all()  # free backpressured submitters
         return model_id, items
 
@@ -389,24 +464,25 @@ class FleetEngine:
         queued, or re-registered with another input shape) would kill the
         engine's only worker thread and hang every pending future.
         """
-        try:
-            entry: ModelEntry = self.registry.get(model_id)
-            plan = entry.plan  # read once: hot-swap flips atomically
-            pad = self.registry.pad_buffer(plan.input_shape)
-            if _on_cuda(plan) is None:
-                batch = assemble_batch(items, pad, self.batch_size)
-            else:
-                batch = self._pinned.take(
-                    (self.batch_size, *(int(d) for d in plan.input_shape)))
-                np.stack([r.image for r in items]
-                         + [pad] * (self.batch_size - len(items)),
-                         out=batch[0].numpy())
-        except Exception as e:
-            fail_batch(items, RuntimeError(
-                f"cannot assemble batch for model {model_id!r} "
-                f"(evicted, or replaced with an incompatible "
-                f"model?): {e}"))
-            return None
+        with self._span_assemble(model=model_id, n=len(items)):
+            try:
+                entry: ModelEntry = self.registry.get(model_id)
+                plan = entry.plan  # read once: hot-swap flips atomically
+                pad = self.registry.pad_buffer(plan.input_shape)
+                if _on_cuda(plan) is None:
+                    batch = assemble_batch(items, pad, self.batch_size)
+                else:
+                    batch = self._pinned.take(
+                        (self.batch_size, *(int(d) for d in plan.input_shape)))
+                    np.stack([r.image for r in items]
+                             + [pad] * (self.batch_size - len(items)),
+                             out=batch[0].numpy())
+            except Exception as e:
+                fail_batch(items, RuntimeError(
+                    f"cannot assemble batch for model {model_id!r} "
+                    f"(evicted, or replaced with an incompatible "
+                    f"model?): {e}"))
+                return None
         return entry, items, batch, plan
 
     def _dispatch(self, assembled):
@@ -414,19 +490,20 @@ class FleetEngine:
         in-flight state (entry, items, device logits, t_launch) or None
         on failure."""
         entry, items, batch, plan = assembled
-        t0 = time.perf_counter()
-        try:
-            device = _on_cuda(plan)
-            if device is None:
-                dev = plan.logits(batch)
-            else:
-                host, copied = batch
-                x = host.to(device, non_blocking=True)
-                copied.record(torch.cuda.current_stream(device))
-                dev = plan.logits(x)
-        except Exception as e:  # a launch refused, a shape the plan rejects
-            fail_batch(items, e)
-            return None
+        with self._span_dispatch(model=entry.model_id, n=len(items)):
+            t0 = time.perf_counter()
+            try:
+                device = _on_cuda(plan)
+                if device is None:
+                    dev = plan.logits(batch)
+                else:
+                    host, copied = batch
+                    x = host.to(device, non_blocking=True)
+                    copied.record(torch.cuda.current_stream(device))
+                    dev = plan.logits(x)
+            except Exception as e:  # a launch refused, a shape the plan rejects
+                fail_batch(items, e)
+                return None
         return entry, items, dev, t0
 
     def _fetch(self, inflight):
@@ -438,11 +515,12 @@ class FleetEngine:
         dispatch would misattribute it to requests already finished.
         """
         entry, items, dev, t0 = inflight
-        try:
-            logits = dev.cpu().numpy()
-        except Exception as e:  # a fault on the card surfaces at the fetch
-            fail_batch(items, e)
-            return None
+        with self._span_fetch(model=entry.model_id):
+            try:
+                logits = dev.cpu().numpy()
+            except Exception as e:  # a fault on the card surfaces at the fetch
+                fail_batch(items, e)
+                return None
         return entry, items, logits, t0, time.perf_counter()
 
     def _deliver(self, fetched) -> None:
@@ -450,11 +528,14 @@ class FleetEngine:
         first: a client that unblocks and snapshots sees its batch)."""
         entry, items, logits, t0, t_done = fetched
         n = len(items)
-        entry.stats.record_batch(n, self.batch_size - n, t_done - t0)
-        self.stats.record_batch(n, self.batch_size - n, t_done - t0)
-        if entry.slo is not None:
-            self._attribute_slo(entry, items, t_done)
-        resolve_batch(items, logits, t_done)
+        with self._span_deliver(model=entry.model_id, n=n):
+            entry.stats.record_batch(n, self.batch_size - n, t_done - t0)
+            self.stats.record_batch(n, self.batch_size - n, t_done - t0)
+            if self._fill_hist is not None:
+                self._fill_hist.observe(n / self.batch_size)
+            if entry.slo is not None:
+                self._attribute_slo(entry, items, t_done)
+            resolve_batch(items, logits, t_done)
 
     def _attribute_slo(self, entry: ModelEntry, items: list[Request],
                        t_done: float) -> None:
@@ -462,11 +543,25 @@ class FleetEngine:
         end-to-end latency (submit → delivery-ready): queueing behind
         other models' batches is a cost the deadline must see."""
         slo: Slo = entry.slo
-        violations = sum(1 for req in items
-                         if slo.slack_s(t_done - req.t_submit) < 0)
+        deadline_s = slo.deadline_s
+        slacks = [deadline_s - (t_done - req.t_submit) for req in items]
+        violations = sum(1 for s in slacks if s < 0)
         counts = self._slo_counts.setdefault(entry.model_id, [0, 0])
         counts[0] += len(items)
         counts[1] += violations
+        if self.metrics is not None:
+            hist = self._deadline_hist.labels(model=entry.model_id)
+            # touch the violation counter even when zero: a scrape must
+            # distinguish "no misses" from "never attributed"
+            violation_ctr = self._slo_violations.labels(
+                model=entry.model_id)
+            with self.metrics.lock:  # scrape-atomic per batch
+                self._slo_deadline.labels(model=entry.model_id).set(
+                    deadline_s)
+                for s in slacks:
+                    hist.observe(s)
+                if violations:
+                    violation_ctr.inc(violations)
 
     def _serve_loop(self):
         # Exactly ONE batch executes at any moment, and the host work hides

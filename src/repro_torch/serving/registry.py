@@ -19,7 +19,8 @@ blocking ``.to(device)``, so a batch dispatched on the new plan never
 reads a weight still in flight.
 
 ``from_manifest`` builds a registry from an on-disk ``FLEET.json``
-(``infer.export.save_fleet_manifest``).
+(``infer.export.save_fleet_manifest``).  ``metrics=`` makes the registry
+scrapeable (see ``ModelRegistry``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 from repro_torch.device import DEFAULT_DEVICE
 from repro_torch.infer.export import FrozenModel, load_fleet_manifest, load_frozen
 from repro_torch.infer.plan import ExecutionPlan, compile_plan
+from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.serving.stats import EngineStats, Slo
 
 
@@ -62,16 +64,51 @@ class ModelRegistry:
     ``device``, ``backend`` and ``operand_dtype`` are passed to
     ``compile_plan`` for every model (``device`` defaults to CUDA, as
     every entry point of the port does).
+
+    Pass ``metrics=`` (a shared ``obs.MetricRegistry``) and the registry
+    becomes scrapeable: each model's ``EngineStats`` registers as
+    ``serve_*_total{model=<id>}`` children of the shared families, and
+    lifecycle events surface as ``serve_model_swaps_total`` /
+    ``serve_model_version`` / ``serve_model_events_total``.
     """
 
     def __init__(self, *, device=DEFAULT_DEVICE, backend: str = "auto",
-                 operand_dtype: str = "auto"):
+                 operand_dtype: str = "auto",
+                 metrics: MetricRegistry | None = None):
         self.device = device
         self.backend = backend
         self.operand_dtype = operand_dtype
+        self.metrics = metrics
         self._lock = threading.RLock()
         self._entries: dict[str, ModelEntry] = {}
         self._pads: dict[tuple[int, ...], np.ndarray] = {}
+        if metrics is not None:
+            self._swaps = metrics.counter(
+                "serve_model_swaps_total",
+                "checkpoint hot-swaps under a stable model id",
+                labels=("model",),
+            )
+            self._version = metrics.gauge(
+                "serve_model_version",
+                "version of the checkpoint currently answering a model id",
+                labels=("model",),
+            )
+            self._events = metrics.counter(
+                "serve_model_events_total",
+                "model lifecycle events (register / swap / evict)",
+                labels=("event", "model"),
+            )
+
+    def _make_stats(self, model_id: str) -> EngineStats:
+        if self.metrics is None:
+            return EngineStats()
+        return EngineStats(registry=self.metrics,
+                           labels={"model": model_id})
+
+    def _record_event(self, event: str, entry: ModelEntry) -> None:
+        if self.metrics is not None:
+            self._events.labels(event=event, model=entry.model_id).inc()
+            self._version.labels(model=entry.model_id).set(entry.version)
 
     def _compile(self, fm: FrozenModel, backend, operand_dtype) -> ExecutionPlan:
         return compile_plan(fm, device=self.device,
@@ -94,9 +131,11 @@ class ModelRegistry:
                     f"model id {model_id!r} already registered — "
                     f"use swap() to hot-swap its checkpoint"
                 )
-            entry = ModelEntry(model_id=model_id, plan=plan, slo=slo)
+            entry = ModelEntry(model_id=model_id, plan=plan,
+                               stats=self._make_stats(model_id), slo=slo)
             self._entries[model_id] = entry
             self._pad_for(plan.input_shape)
+        self._record_event("register", entry)
         return entry
 
     def load(self, model_id: str, model_dir: str, *,
@@ -135,12 +174,16 @@ class ModelRegistry:
             entry.plan = plan
             entry.version += 1
             self._pad_for(plan.input_shape)
+        if self.metrics is not None:
+            self._swaps.labels(model=model_id).inc()
+        self._record_event("swap", entry)
         return entry
 
     def evict(self, model_id: str) -> None:
         with self._lock:
-            self._require(model_id)
+            entry = self._require(model_id)
             del self._entries[model_id]
+        self._record_event("evict", entry)
 
     # ---- lookup -----------------------------------------------------------
 
@@ -200,10 +243,13 @@ class ModelRegistry:
     @classmethod
     def from_manifest(cls, root: str, *, device=DEFAULT_DEVICE,
                       backend: str = "auto",
-                      operand_dtype: str = "auto") -> "ModelRegistry":
+                      operand_dtype: str = "auto",
+                      metrics: MetricRegistry | None = None,
+                      ) -> "ModelRegistry":
         """Build a registry from an on-disk ``FLEET.json`` directory."""
         manifest = load_fleet_manifest(root)
-        reg = cls(device=device, backend=backend, operand_dtype=operand_dtype)
+        reg = cls(device=device, backend=backend, operand_dtype=operand_dtype,
+                  metrics=metrics)
         for model_id, model_dir in sorted(manifest["models"].items()):
             reg.load(model_id, model_dir)
         return reg

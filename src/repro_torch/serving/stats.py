@@ -1,27 +1,42 @@
 """Serving statistics: latency percentiles, thread-safe counters and the
-SLO vocabulary (port of ``repro.serving.stats``; the percentile helpers
-copy ``repro.obs.metrics``).
+SLO vocabulary (port of ``repro.serving.stats``).
 
-``EngineStats`` keeps the JAX package's ``snapshot()`` keys and read
-properties.  It is written from the engine's worker thread while clients
-read it, so every update and every snapshot holds one lock: a snapshot
+The serving-facing veneer over ``obs.metrics``: the percentile helpers
+are re-exported from there (one nearest-rank implementation for the whole
+port) and ``EngineStats`` is built on a ``MetricRegistry`` — the same
+counters ``serve_vision --metrics-port`` exposes as Prometheus text.
+
+``EngineStats`` has two modes:
+
+  * standalone (default): a private registry per instance;
+  * shared: pass ``registry=`` + ``labels=`` and the counters become
+    children of the shared families (``serve_requests_total{model=…}``
+    etc.), which is how ``ModelRegistry`` folds every model's stats into
+    one scrapeable registry.
+
+It is written from an engine's worker thread while clients read it:
+``record_batch`` holds the registry lock across all its updates (one
+acquisition per batch), so ``snapshot()``, which takes the same lock,
 never sees half a batch.
 
 ``Slo(deadline_ms)`` is the per-model objective a ``ModelEntry`` carries;
-``slo_summary`` is the per-arm p99-vs-SLO roll-up.
+``slo_summary`` is the per-arm p99-vs-SLO roll-up, and the
+``serve_request_deadline_seconds`` / ``serve_slo_violations_total``
+family names are what the fleet engine records under.
 """
 
 from __future__ import annotations
 
-import math
-import threading
-from collections import deque
 from dataclasses import dataclass
 
-PERCENTILES = (("p50", 0.50), ("p90", 0.90), ("p95", 0.95), ("p99", 0.99))
+from repro_torch.obs.metrics import (  # noqa: F401 — re-exported here
+    PERCENTILES,
+    MetricRegistry,
+    latency_summary_ms,
+    percentile,
+)
 
-# Metric-family names of the serving counters (the JAX package registers
-# them; the port names them only, until its metric registry exists).
+# Metric-family names EngineStats registers (shared across every scope).
 REQUESTS_TOTAL = "serve_requests_total"
 BATCHES_TOTAL = "serve_batches_total"
 PADDED_SLOTS_TOTAL = "serve_padded_slots_total"
@@ -39,29 +54,15 @@ SLACK_BUCKETS = (-1.0, -0.25, -0.1, -0.05, -0.01, 0.0,
                  0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0)
 
 
-def percentile(sorted_vals, q: float):
-    """Nearest-rank percentile of an ascending-sorted sequence: the
-    ``max(ceil(q·n), 1)``-th smallest value (0.0 when empty)."""
-    n = len(sorted_vals)
-    if not n:
-        return 0.0
-    rank = min(max(math.ceil(q * n), 1), n)
-    return sorted_vals[rank - 1]
-
-
-def latency_summary_ms(latencies_s) -> dict[str, float]:
-    """Unsorted per-request latencies in seconds → {p50,p90,p95,p99} in ms."""
-    lats = sorted(latencies_s)
-    return {label: percentile(lats, q) * 1e3 for label, q in PERCENTILES}
-
-
 @dataclass(frozen=True)
 class Slo:
     """A per-model serving objective: answer within ``deadline_ms``.
 
     Attached to a ``ModelEntry`` (``ModelRegistry.register(..., slo=)`` or
-    ``set_slo``); ``FleetEngine`` then counts every delivered request
-    whose end-to-end latency passed the deadline (negative slack).
+    ``set_slo``); ``FleetEngine`` then records every delivered request's
+    deadline slack (``deadline − end-to-end latency``, seconds; negative
+    = violation) into ``serve_request_deadline_seconds{model=…}`` and
+    counts misses in ``serve_slo_violations_total{model=…}``.
     """
 
     deadline_ms: float
@@ -128,53 +129,72 @@ def fleet_snapshot_delta(pre: dict, post: dict) -> dict:
 
 
 class EngineStats:
-    """Thread-safe per-engine (or per-model) serving counters."""
+    """Thread-safe per-engine (or per-model) serving counters, backed by
+    ``obs.metrics`` families; ``snapshot()`` holds the lock
+    ``record_batch`` writes under, so it never sees half a batch."""
 
-    def __init__(self, *, latency_window: int = 1024):
-        self._lock = threading.Lock()
-        self._requests = 0
-        self._batches = 0
-        self._padded = 0
+    def __init__(self, *, latency_window: int = 1024,
+                 registry: MetricRegistry | None = None,
+                 labels: dict[str, str] | None = None):
+        if registry is None and labels:
+            raise ValueError("labels require a shared registry")
+        self.registry = registry or MetricRegistry()
+        labels = dict(labels or {})
+        names = tuple(sorted(labels))
+        reg = self.registry
+        self._requests = reg.counter(
+            REQUESTS_TOTAL, "requests answered", labels=names).labels(**labels)
+        self._batches = reg.counter(
+            BATCHES_TOTAL, "device batches launched", labels=names,
+        ).labels(**labels)
+        self._padded = reg.counter(
+            PADDED_SLOTS_TOTAL, "zero-padded batch slots", labels=names,
+        ).labels(**labels)
         # bounded window: a long-lived engine must not grow host memory
-        self._latency: deque[float] = deque(maxlen=latency_window)
+        self._latency = reg.histogram(
+            BATCH_LATENCY_SECONDS, "per-batch device latency", labels=names,
+            window=latency_window,
+        ).labels(**labels)
 
     def record_batch(self, n: int, padded: int, latency_s: float) -> None:
-        with self._lock:
-            self._requests += n
-            self._batches += 1
-            self._padded += padded
-            self._latency.append(latency_s)
+        with self.registry.lock:  # re-entrant: one atomic multi-metric update
+            self._requests.inc(n)
+            self._batches.inc()
+            self._padded.inc(padded)
+            self._latency.observe(latency_s)
 
     @property
     def requests(self) -> int:
-        return self._requests
+        return self._requests.value
 
     @property
     def batches(self) -> int:
-        return self._batches
+        return self._batches.value
 
     @property
     def padded_slots(self) -> int:
-        return self._padded
+        return self._padded.value
 
     @property
     def batch_latency_s(self):
         """The bounded latency-sample window (read-only view)."""
-        with self._lock:
-            return tuple(self._latency)
+        with self.registry.lock:
+            return tuple(self._latency.window)
 
     @property
     def avg_batch_fill(self) -> float:
-        with self._lock:
-            requests, padded = self._requests, self._padded
+        with self.registry.lock:
+            requests, padded = self._requests.value, self._padded.value
         total = requests + padded
         return requests / total if total else 0.0
 
     def snapshot(self) -> dict:
         """Consistent JSON-ready view: counters + batch-latency percentiles."""
-        with self._lock:
-            requests, batches, padded = self._requests, self._batches, self._padded
-            lats = list(self._latency)
+        with self.registry.lock:
+            requests = self._requests.value
+            batches = self._batches.value
+            padded = self._padded.value
+            lats = list(self._latency.window)
         total = requests + padded
         return {
             "requests": requests,

@@ -72,7 +72,13 @@ def fail_batch(items: list[Request], exc: BaseException) -> None:
 
 
 class VisionEngine:
-    """Dynamic-batching classifier over a compiled ExecutionPlan."""
+    """Dynamic-batching classifier over a compiled ExecutionPlan.
+
+    ``metrics=`` (a shared ``obs.MetricRegistry``) registers the engine's
+    counters as ``serve_*_total{model=<plan name>}`` children of the
+    shared families instead of a private registry — the single-model
+    equivalent of what ``ModelRegistry(metrics=...)`` does per entry.
+    """
 
     _POISON = object()
 
@@ -83,11 +89,16 @@ class VisionEngine:
         batch_size: int = 32,
         max_wait_ms: float = 5.0,
         queue_depth: int = 256,
+        metrics=None,
     ):
         self.plan = plan
         self.batch_size = batch_size
         self.max_wait_s = max_wait_ms / 1e3
-        self.stats = EngineStats()
+        if metrics is not None:
+            self.stats = EngineStats(registry=metrics,
+                                     labels={"model": plan.name})
+        else:
+            self.stats = EngineStats()
         self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
         self._closed = False
         self._lifecycle = threading.Lock()  # orders submit() vs close()

@@ -406,7 +406,7 @@ def test_apply_gradients_fuse_opt_matches_jax(backend, arch):
     interpret mode ≡ the port's split apply."""
     tcfg, jcfg, ts, js = _train_states(arch, seed=3)
     x, y = _batch(tcfg, 0, seed=3)
-    tg, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(2))
+    tg, _, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(2))
     jg, _, _ = jles.compute_gradients(js, jcfg, jnp.asarray(x), jnp.asarray(y),
                                       jax.random.PRNGKey(2), backend="reference")
     got = tles.apply_gradients(ts, tg, fuse_opt=True, backend=backend)

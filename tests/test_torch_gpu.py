@@ -517,7 +517,7 @@ def test_cuda_fuse_opt_steps_match_split_steps(cuda_device):
                              .astype(np.int32)).to(cuda_device)
         y = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32)).to(cuda_device)
         fused, fm = les.train_step(fused, cfg, x, y, prng.PRNGKey(it), fuse_opt=True)
-        grads, sm = les.compute_gradients(split, cfg, x, y, prng.PRNGKey(it))
+        grads, sm, _ = les.compute_gradients(split, cfg, x, y, prng.PRNGKey(it))
         applied = les.apply_gradients(split, grads, fuse_opt=True)
         split = les.apply_gradients(split, grads)
         for f in ("loss", "correct", "local_losses"):

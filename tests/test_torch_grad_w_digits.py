@@ -332,7 +332,7 @@ def test_trajectory_matches_jax(arch, batch, fuse_opt):
         rebuilt = _linear_digit_updates(ts, tcfg, tx, ty, prng.PRNGKey(it), fuse_opt)
         assert rebuilt
         if not fuse_opt:
-            grads, _ = tles.compute_gradients(ts, tcfg, tx, ty, prng.PRNGKey(it))
+            grads, _, _ = tles.compute_gradients(ts, tcfg, tx, ty, prng.PRNGKey(it))
             for i, g in rebuilt.items():
                 assert torch.equal(g, grads.blocks[i]["fw"]["w"]), i
         ts, tm = tles.train_step(ts, tcfg, tx, ty, prng.PRNGKey(it), fuse_opt=fuse_opt)

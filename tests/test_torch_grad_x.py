@@ -342,7 +342,7 @@ def test_les_step_computes_no_grad_x(monkeypatch, path):
     js = jles.create_train_state(jax.random.PRNGKey(0), jcfg)
     x, y = _batch(tcfg, 0)
     if path == "fused_apply":
-        grads, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0))
+        grads, _, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0))
         ts = tles.apply_gradients(ts, grads, fuse_opt=True)
     else:
         ts, _ = tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0),

@@ -44,7 +44,9 @@ def test_port_imports_no_jax_and_no_repro():
     files = sorted(PORT.rglob("*.py")) + sorted(EXAMPLES.rglob("*.py")) + [SMOKE]
     assert len(files) > 20
     for new in ("serving/fleet.py", "serving/registry.py", "serving/stats.py",
-                "infer/export.py", "launch/serve_vision.py"):
+                "infer/export.py", "launch/serve_vision.py", "obs/__init__.py",
+                "obs/metrics.py", "obs/trace.py", "obs/telemetry.py", "obs/health.py",
+                "launch/obs_top.py", "train/fault_tolerance.py"):
         assert PORT / new in files
     assert EXAMPLES / "serve_cifar.py" in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
@@ -63,6 +65,7 @@ def test_importing_the_port_loads_no_jax():
         "import importlib, pkgutil, sys\n"
         "import repro_torch, repro_torch.launch.serve_vision, repro_torch.launch.train\n"
         "import repro_torch.serving.fleet, repro_torch.serving.registry\n"
+        "import repro_torch.obs, repro_torch.obs.telemetry, repro_torch.launch.obs_top\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
@@ -143,6 +146,27 @@ def test_train_entry_points_raise_without_cuda(no_cuda):
         train.main(["--arch", "vgg8b", "--steps", "1", "--scale", "0.0625"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.train_nitro("vgg8b", steps=1, scale=0.0625)
+
+
+def test_observability_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """Telemetry, metrics and tracing do not move a run off the card: the
+    trainer and the serve CLI still raise without one, and open no server
+    and write no file first."""
+    from repro_torch.launch import serve_vision, train
+
+    telem = tmp_path / "metrics.jsonl"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train_nitro("vgg8b", steps=1, scale=0.0625, telemetry_every=1,
+                          telemetry_out=str(telem), metrics_port=0,
+                          trace_out=str(tmp_path / "trace.jsonl"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "mlp1", "--steps", "1", "--telemetry-every", "1",
+                    "--telemetry-out", str(telem), "--metrics-port", "0"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_vision.main(["--arch", "mlp1", "--scale", "0.1", "--requests", "1",
+                           "--metrics-port", "0",
+                           "--trace-out", str(tmp_path / "serve_trace.jsonl")])
+    assert list(tmp_path.iterdir()) == []
 
 
 def _run_smoke(cwd: Path):

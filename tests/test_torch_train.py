@@ -244,7 +244,7 @@ def test_compute_gradients_matches_jax(arch):
     tcfg, jcfg, ts, js = _states(arch, seed=1)
     _assert_state_eq(ts, js)  # init_params ≡ JAX
     x, y = _batch(tcfg, 0, seed=1)
-    tg, tm = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(5))
+    tg, tm, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(5))
     jgrad = jax.jit(functools.partial(jles.compute_gradients, cfg=jcfg, backend="reference"))
     jg, jm, _ = jgrad(js, x=jnp.asarray(x), labels=jnp.asarray(y), key=jax.random.PRNGKey(5))
     _assert_metrics_eq(tm, jm)
@@ -253,7 +253,7 @@ def test_compute_gradients_matches_jax(arch):
         _eq(tb["lr"]["w"], jb["lr"]["w"])
     _eq(tg.output["w"], jg.output["w"])
     # the unfused forward / unfused δ mask give the same gradients
-    ug, um = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(5),
+    ug, um, _ = tles.compute_gradients(ts, tcfg, _t(x), _t(y), prng.PRNGKey(5),
                                     fused=False, fuse_bwd=False)
     for a, b in zip(ug.blocks, tg.blocks):
         assert torch.equal(a["fw"]["w"], b["fw"]["w"])
@@ -304,20 +304,20 @@ def test_eval_and_plateau_match_jax():
     {"conv_mode": "materialise", "fuse_opt": True},
 ], ids=["telemetry", "telemetry-fuse_opt", "materialise-fuse_opt"])
 def test_unported_step_options_raise(options):
-    """Telemetry is not ported: it raises, with or without fuse_opt (which
-    is ported).  Materialised training, which raised here until the grad_x
-    slice ported it, now trains: its step equals the streamed step."""
+    """Every step option is ported now, so none raises.  Telemetry, which
+    raised here until the observability slice ported it, returns its
+    readout beside a state equal to the plain step's, with or without
+    fuse_opt; materialised training, which raised until the grad_x slice
+    ported it, equals the streamed step."""
     tcfg, _, ts, _ = _states("vgg8b")
     x, y = _batch(tcfg, 0)
-    if options.get("conv_mode") == "materialise":
-        got, gm = tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0), **options)
-        want, wm = tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0))
-        for a, b in zip(_param_leaves(got.params), _param_leaves(want.params), strict=True):
-            assert torch.equal(a, b)
-        assert torch.equal(gm.loss, wm.loss)
-        return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0), **options)
+    out = tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0), **options)
+    got, gm = out[:2]
+    assert len(out) == (3 if options.get("telemetry") else 2)
+    want, wm = tles.train_step(ts, tcfg, _t(x), _t(y), prng.PRNGKey(0))
+    for a, b in zip(_param_leaves(got.params), _param_leaves(want.params), strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(gm.loss, wm.loss)
 
 
 def test_train_nitro_matches_jax(capsys):

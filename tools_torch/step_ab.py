@@ -163,7 +163,7 @@ def sgd_ms(torch, profile, activity, trees: dict, y, key) -> list[str]:
 
     parts = []
     for tag, (state, cfg, x) in trees.items():
-        grads, _ = les.compute_gradients(state, cfg, x, y, key)
+        grads, _, _ = les.compute_gradients(state, cfg, x, y, key)
 
         def apply():
             return les.apply_gradients(state, grads, fuse_opt=True)
