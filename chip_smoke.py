@@ -128,7 +128,26 @@ Phases, each fatal on failure:
      arms' sum, the queues drained, the four spans once a batch with
      ``model=``; the fleet's staging and dispatch with metrics and tracer
      under ``set_sync_debug_mode("error")``;
-  7. time each kernel per step shape with CUDA events beside its bound and
+  7. data parallelism at full width: (7a) ``parallel.dp.spawn`` starts 2
+     ranks that share the card over gloo (asserted and printed); each trains
+     full-width VGG8B 4 steps from phase 5's seed, batches and keys (global
+     batch 64, 32 rows a rank) with ``psum``, ``ring`` and ``compress`` on the
+     split path and ``psum`` under ``fuse_opt``: every rank's final
+     TrainState and every step's metrics must equal phase 5's run bitwise
+     (phase 5b's under ``fuse_opt``), and each rank step must launch
+     stream_conv_fwd 6×, nitro_matmul_fwd 1×, stream_conv_grad_w 6× and
+     nitro_matmul_grad_w 1× (+ integer_sgd_update 1× under ``fuse_opt``, on
+     the all-reduced gradient; never #4/#9), counted in the rank; INT32_MAX
+     + 1 must wrap to INT32_MIN through every reducer; (7b) the train CLI
+     with ``--num-devices 2 --dp-reduce ring --telemetry-every 2``: rank 0's
+     ``metrics.jsonl`` must be phase 6a's byte for byte plus the ``_dp``
+     rows (shards 2) and its state and accuracy phase 5's; (7c) 7a over
+     NCCL, one card a rank, where the host has two cards (else one line
+     says it did not run); ``[dp]``: each reducer's host-to-host ms per
+     step in turns beside the single-device step timed the same way,
+     ``reduce_gradients`` alone, rank 0's device ms per step
+     (``torch.profiler``) and the bytes all-reduced per step;
+  8. time each kernel per step shape with CUDA events beside its bound and
      its plain version (#1–#5 by their device time, with the
      ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3, #4 and #5
      at mlp4's shapes too; #10's device time split into its GEMM and
@@ -1953,13 +1972,14 @@ class scrape_at_close:
         MetricsServer.close = self.real
 
 
-def obs_train_path(split, fuse, root: str) -> None:
+def obs_train_path(split, fuse, root: str) -> bytes:
     """Phases 6a-6c: the train CLI's observability at full width.
     6a: telemetry every 2nd step, a trace, alerts and a metrics server on
     the kernels, bitwise phase 5's run, its ``metrics.jsonl`` byte for byte
     the plain versions'; 6b: the same under ``fuse_opt`` (sampled steps on
     #3/#8, the others on #4/#9), bitwise phase 5b's; 6c: tracer and
-    metrics without telemetry launch phase 5's kernels, step for step."""
+    metrics without telemetry launch phase 5's kernels, step for step.
+    Returns 6a's ``metrics.jsonl``."""
     import json
 
     from repro_torch.configs import get_paper_config
@@ -2026,6 +2046,7 @@ def obs_train_path(split, fuse, root: str) -> None:
              "traced run vs phase 5's run")
     print(f"[obs-6c] tracer + metrics server, no telemetry: every step launches phase "
           f"5's kernels ({PER_STEP}); final state equals phase 5's bitwise")
+    return data
 
 
 def obs_fleet_path(fm_a, fm_b) -> tuple:
@@ -2273,6 +2294,256 @@ def obs_train(res, cfg, card: str) -> None:
           + "; ".join(f"{k[:56]} {ms / 3:.3f} ms x{n // 3}" for ms, n, k in extra))
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: data parallelism at full width
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+#: the arms of 7a and 7c: (reducer, fuse_opt), in the order they run
+DP_ARMS = (("psum", False), ("ring", False), ("compress", False), ("psum", True))
+#: steps a timed turn of 7a
+DP_TIMED = 10
+
+
+def _timed_steps(step, state, batches, iters: int) -> float:
+    """Host-to-host ms per step over ``iters`` steps on ``batches`` in
+    turn, ending in a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        x, y, key = batches[i % len(batches)]
+        state = step(state, x, y, key)[0]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def dp_rank(axis, device) -> dict:
+    """One rank of phases 7a / 7c (spawned; every rank runs every line in
+    the same order, since each step holds collectives).
+
+    Each arm of ``DP_ARMS`` trains full-width VGG8B 4 steps from
+    ``PRNGKey(0)`` on phase 5's batches and keys (global batch 64, this
+    rank's 32 rows), the launch counters set to 0 before the arm and read
+    after it and after every step; the int32 wrap of every reducer; then
+    the timings: host-to-host ms per step of each reducer in turns A B C C
+    B A, ``reduce_gradients`` alone, and rank 0's device time per step
+    under ``torch.profiler``.  Returns tensors on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import les, prng
+    from repro_torch.parallel import collectives, compress, dp, tree
+
+    cfg, batches = cli_batches()
+    counters = launch_counters()
+    out = {"rank": axis.rank, "ranks": axis.size, "backend": axis.backend, "arms": {}}
+    for reducer, fuse in DP_ARMS:
+        step = dp.make_dp_train_step(cfg, axis, dp_reduce=reducer, fuse_opt=fuse)
+        state = les.create_train_state(prng.PRNGKey(0), cfg, device=device)
+        for c in counters.values():
+            c.reset()
+        metrics, per_step = [], []
+        for x, y, key in batches:
+            before = {k: c.value for k, c in counters.items()}
+            state, m = step(state, x, y, key)
+            per_step.append({k: c.value - before[k] for k, c in counters.items()
+                             if c.value != before[k]})
+            metrics.append(m)
+        total = {k: c.value for k, c in counters.items() if c.value}
+        out["arms"][(reducer, fuse)] = {"trees": tree.tree_map(torch.Tensor.cpu,
+                                                               _trees(state, metrics)),
+                                        "per_step": per_step, "launches": total}
+
+    top = 2 ** 31 - 1 if axis.rank == 0 else 1 if axis.rank == 1 else 0
+    edge = torch.tensor([top, -5], dtype=torch.int32, device=device)
+    out["wrap"] = {"psum": compress.exact_integer_psum(edge, axis).cpu(),
+                   "ring": collectives.ring_all_reduce(edge, axis).cpu(),
+                   "compress": compress.nitro_compressed_psum(edge, axis).cpu()}
+
+    steps = {r: dp.make_dp_train_step(cfg, axis, dp_reduce=r) for r in dp.REDUCERS}
+    state = les.create_train_state(prng.PRNGKey(0), cfg, device=device)
+    for r in dp.REDUCERS:  # warm every path once
+        state = steps[r](state, *batches[0])[0]
+    ms = {r: [] for r in dp.REDUCERS}
+    for r in dp.REDUCERS + dp.REDUCERS[::-1]:
+        ms[r].append(_timed_steps(steps[r], state, batches, DP_TIMED))
+    out["step_ms"] = ms
+
+    x, y, key = batches[0]
+    grads, _, _ = les.compute_gradients(state, cfg, dp.shard_batch(x, axis),
+                                        dp.shard_batch(y, axis), key,
+                                        dp_axis=axis, dp_shards=axis.size)
+    out["grad_elems"] = sum(g.numel() for g in tree.leaves(grads))
+    reduce_ms = {r: [] for r in dp.REDUCERS}
+    for r in dp.REDUCERS + dp.REDUCERS[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DP_TIMED):
+            dp.reduce_gradients(grads, axis, r)
+        torch.cuda.synchronize()
+        reduce_ms[r].append((time.perf_counter() - t0) * 1e3 / DP_TIMED)
+    out["reduce_ms"] = reduce_ms
+
+    # rank 0's device time per psum step: 3 steps under the profiler (the
+    # other ranks run the same 3 steps unprofiled)
+    calls = 3
+    torch.cuda.synchronize()
+    if axis.rank == 0:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(calls):
+                state = steps["psum"](state, *batches[i])[0]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = sum(getattr(e, "self_device_time_total", 0) or 0
+                   for e in prof.key_averages()) / 1e3
+        out["profile"] = {"wall_ms": wall / calls, "device_ms": busy / calls}
+    else:
+        for i in range(calls):
+            state = steps["psum"](state, *batches[i])[0]
+        torch.cuda.synchronize()
+    return out
+
+
+def dp_check(results, split, fuse, what: str) -> dict:
+    """Die unless every rank of every arm equals phase 5's run (phase 5b's
+    under ``fuse_opt``) bitwise and launched, per step, phase 5's kernels
+    (+1 ``integer_sgd_update`` under ``fuse_opt``, never #4/#9), and every
+    reducer wrapped INT32_MAX + 1 to INT32_MIN.  Returns rank 0's result."""
+    import torch
+    from repro_torch.parallel.tree import tree_map
+
+    want = {fused: tree_map(torch.Tensor.cpu, _trees(run["state"], run["step_metrics"]))
+            for fused, run in ((False, split), (True, fuse))}
+    for res in results:
+        r = res["rank"]
+        for (reducer, fused), arm in res["arms"].items():
+            tag = f"{what} rank {r} {reducer}{' fuse_opt' if fused else ''}"
+            exp = PER_STEP_FUSED_APPLY if fused else PER_STEP
+            if len(arm["per_step"]) != TRAIN_STEPS or any(s != exp for s in arm["per_step"]):
+                die(f"{tag}: per-step launches {arm['per_step']}, expected {exp}")
+            if arm["launches"] != {k: v * TRAIN_STEPS for k, v in exp.items()}:
+                die(f"{tag}: launches {arm['launches']}")
+            got, ref = arm["trees"], want[fused]
+            if got.keys() != ref.keys():
+                die(f"{tag}: state trees differ: {sorted(got)} vs {sorted(ref)}")
+            for name in ref:
+                a, b = got[name], ref[name]
+                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                    die(f"{tag}: {name} differs from phase 5{'b' if fused else ''}'s run")
+        for reducer, v in res["wrap"].items():
+            if v.tolist() != [-(2 ** 31), -5 * len(results)]:
+                die(f"{what} rank {r}: {reducer} gave {v.tolist()} for INT32_MAX + 1")
+    return results[0]
+
+
+def dp_path(split, fuse, obs_jsonl: bytes, card: str) -> None:
+    """Phase 7: (7a) 2 ranks spawned on one card over gloo, every arm
+    bitwise phase 5's / 5b's run, counted per rank step; (7b) the train
+    CLI with --num-devices 2 --dp-reduce ring --telemetry-every 2: rank 0's
+    metrics.jsonl phase 6a's plus the ``_dp`` rows, its accuracy phase 5's;
+    (7c) the same as 7a over NCCL, one card a rank, where the host has
+    two; then the ``[dp]`` timing lines."""
+    import json
+    import tempfile
+
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.parallel import dp
+    from repro_torch.parallel.tree import tree_map
+
+    comm, devices = dp.rank_devices(DP_RANKS, "cuda", cards=1)
+    if comm != "gloo":
+        die(f"7a: {DP_RANKS} ranks on one card must meet over gloo, not {comm}")
+    print(f"[dp-7a] {DP_RANKS} ranks, {dp.describe(comm, devices)}")
+    results = dp.spawn(dp_rank, DP_RANKS, device="cuda", cards=1)
+    res0 = dp_check(results, split, fuse, "7a")
+    if any(r["backend"] != "gloo" for r in results):
+        die(f"7a: backends {[r['backend'] for r in results]}")
+    print(f"[dp-7a] every rank, every arm (psum, ring, compress; psum fuse_opt): final "
+          f"state and every step's metrics equal phase 5's (5b's under fuse_opt) bitwise; "
+          f"each rank step launched {PER_STEP} (+ integer_sgd_update 1 under fuse_opt, "
+          f"no #4/#9); INT32_MAX + 1 wraps to INT32_MIN through every reducer")
+
+    with tempfile.TemporaryDirectory() as d:
+        res = train.main(TRAIN_ARGV + ["--num-devices", str(DP_RANKS), "--dp-reduce", "ring",
+                                       "--telemetry-every", "2",
+                                       "--telemetry-out", f"{d}/dp.jsonl"])
+        lines = Path(f"{d}/dp.jsonl").read_bytes().splitlines(keepends=True)
+    dp_rows = [json.loads(ln) for ln in lines if b'"_dp"' in ln]
+    rest = b"".join(ln for ln in lines if b'"_dp"' not in ln)
+    if rest != obs_jsonl:
+        die("7b: rank 0's metrics.jsonl differs from phase 6a's (the _dp rows aside)")
+    if [(r["step"], r["shards"]) for r in dp_rows] != [(0, DP_RANKS), (2, DP_RANKS)]:
+        die(f"7b: _dp rows {dp_rows}")
+    if res["test_accuracy"] != split["test_accuracy"]:
+        die(f"7b: test accuracy {res['test_accuracy']} != phase 5's {split['test_accuracy']}")
+    same_run(res["state"], res["step_metrics"],
+             *(tree_map(torch.Tensor.cpu, split[k]) for k in ("state", "step_metrics")),
+             "7b vs phase 5's run")
+    print(f"[dp-7b] train CLI --num-devices {DP_RANKS} --dp-reduce ring --telemetry-every 2: "
+          f"rank 0's metrics.jsonl is phase 6a's byte for byte plus {len(dp_rows)} _dp rows "
+          f"{dp_rows}; final state and test accuracy {res['test_accuracy']:.4f} equal phase 5's")
+
+    if torch.cuda.device_count() >= DP_RANKS:
+        dp_nccl_path(split, fuse, card)
+    else:
+        print(f"[dp-7c] not run: the NCCL arm needs {DP_RANKS} cards, this host has "
+              f"{torch.cuda.device_count()}")
+    dp_timing(res0, "7a gloo, one card", split, card)
+
+
+def dp_nccl_path(split, fuse, card: str, ranks: int = DP_RANKS) -> None:
+    """Phase 7c: 7a's ranks over NCCL, one card a rank, held to the same
+    checks, then its ``[dp]`` line."""
+    from repro_torch.parallel import dp
+
+    comm, devices = dp.rank_devices(ranks, "cuda")
+    if comm != "nccl":
+        die(f"7c: {ranks} ranks on {ranks} cards must meet over NCCL, not {comm}")
+    print(f"[dp-7c] {ranks} ranks, {dp.describe(comm, devices)}")
+    results = dp.spawn(dp_rank, ranks, device="cuda")
+    dp_check(results, split, fuse, f"7c, {ranks} ranks")
+    print(f"[dp-7c] {ranks} ranks over NCCL, one card a rank: every arm bitwise phase 5's "
+          f"(5b's under fuse_opt), phase 5's launches per rank step, int32 wrap as XLA's")
+    dp_timing(results[0], f"7c NCCL, {ranks} cards", split, card)
+
+
+def dp_timing(res0: dict, what: str, split, card: str) -> None:
+    """The ``[dp]`` line: each reducer's host-to-host ms per step (rank 0,
+    turns A B C C B A) beside the single-device step timed the same way in
+    this process, ``reduce_gradients`` alone, rank 0's device ms per step,
+    and the bytes all-reduced per step."""
+    from repro_torch.core import les
+
+    cfg, batches = cli_batches()
+
+    def step(s, x, y, k):
+        return les.train_step(s, cfg, x, y, k)
+
+    state = split["state"]
+    step(state, *batches[0])
+    single = [_timed_steps(step, state, batches, DP_TIMED) for _ in range(2)]
+    nbytes = res0["grad_elems"] * 4
+    wire = {"psum": nbytes, "ring": nbytes, "compress": 4 * nbytes}
+    prof = res0["profile"]
+    device = (f"{prof['device_ms']:.3f}" if prof["device_ms"] else
+              "not measured (the profiler saw no device event)")
+    print(f"[dp] {card} | {what}, VGG8B full width, global batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // res0['ranks']} a rank), host to host ms per step (rank 0, turns "
+          f"A B C C B A, {DP_TIMED} steps a turn): " + "; ".join(
+              f"{r} {v[0]:.3f} / {v[1]:.3f}" for r, v in res0["step_ms"].items())
+          + f" | single device, batch {TRAIN_BATCH}, same loop: {single[0]:.3f} / "
+          f"{single[1]:.3f} | reduce_gradients alone ms: " + "; ".join(
+              f"{r} {v[0]:.3f} / {v[1]:.3f}" for r, v in res0["reduce_ms"].items())
+          + f" | rank 0 device ms per psum step {device} over "
+          f"{prof['wall_ms']:.3f} host to host | bytes all-reduced "
+          f"per step: " + "; ".join(f"{r} {b / 1e6:.1f} MB" for r, b in wire.items())
+          + f" ({res0['grad_elems']} int32 gradients)")
+
+
 def time_cuda(fn, iters: int, warmup: int) -> float:
     """Mean milliseconds per call over ``iters`` calls, CUDA events."""
     import torch
@@ -2361,7 +2632,7 @@ def work(meta, a, w, out_elems: int, out_itemsize: int):
 
 
 def timing(steps, card: str) -> dict:
-    """Phase 7: per-step kernel / plain / bound times of the serving
+    """Phase 8: per-step kernel / plain / bound times of the serving
     kernels, with the forward conv's digit products and device time; #1's
     ``ms`` is its device time per call (its launches are shorter than the
     wrapper's host path), the back-to-back time beside it."""
@@ -2498,7 +2769,7 @@ def main_path_conv_operands() -> list:
 
 
 def train_timing(shapes, card: str, per_kernel: dict) -> None:
-    """Phase 7b: per-shape kernel / plain / bound times of the training
+    """Phase 8b: per-shape kernel / plain / bound times of the training
     kernels (one step = one launch at each shape).  #7 runs on the main
     path's own operands (the CLI's first batch and the seeded init, whose
     digits decide its products), and beside them on w of ±2^15."""
@@ -2597,7 +2868,7 @@ def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
 
 
 def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
-    """Phase 7c: per-shape kernel / plain / bound times of the update
+    """Phase 8c: per-shape kernel / plain / bound times of the update
     kernels — #9 at each conv layer of a step (the forward layers'
     optimiser state; #4 in ``linear_grad_w_timing``), #11 per fused apply
     over VGG8B's 15 weight tensors (the kernels line's row) and mlp4's 7,
@@ -2662,7 +2933,7 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
 
 
 def linear_grad_w_timing(card: str, per_kernel: dict) -> None:
-    """Phase 7e: #3 and #4 at VGG8B's linear (the kernels line's step
+    """Phase 8e: #3 and #4 at VGG8B's linear (the kernels line's step
     figure) and at mlp4's two layer shapes, on operands of the main path's
     digits (x in the NITRO-ReLU range: one digit; masked δ of two): the
     device time of every device operation of one call from the profiler
@@ -2733,7 +3004,7 @@ def grad_w_int_mm_yardstick(b, m, n, card: str, tag: str) -> None:
 
 
 def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
-    """Phase 7d: per-shape kernel / plain / bound times of the input-
+    """Phase 8d: per-shape kernel / plain / bound times of the input-
     gradient kernels at a VGG8B step's shapes (summed into the kernels
     line), at mlp4's linear shapes, with their digit products: #10 back to
     back (CUDA events) with its device time split into the GEMM and the
@@ -2944,13 +3215,14 @@ def main() -> int:
     mlp_fuse_opt_path(mlp_ref)
     resume_path()
     with tempfile.TemporaryDirectory() as root:
-        obs_train_path(train_res, fuse_res, root)
+        obs_jsonl = obs_train_path(train_res, fuse_res, root)
     obs_registry, obs_imgs, obs_metrics, obs_tracer = obs_fleet_path(fm, fm_b)
     n_spans = len(obs_tracer.snapshot())
     fleet_no_sync(obs_registry, obs_imgs, ", with metrics= and tracer= on the engine",
                   metrics=obs_metrics, tracer=obs_tracer)
     if len(obs_tracer.snapshot()) <= n_spans:
         die("[obs-6d] the sync check recorded no span")
+    dp_path(train_res, fuse_res, obs_jsonl, card)
     per_kernel = timing(steps, card)
     train_timing(shapes, card, per_kernel)
     opt_timing(shapes, cfg, params, card, per_kernel)

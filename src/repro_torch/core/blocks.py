@@ -106,6 +106,8 @@ def forward_layers(
     fused: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
+    dp_axis=None,
+    dp_shards: int = 1,
 ) -> tuple[torch.Tensor, dict]:
     """Run a block's forward layers; cache everything backward needs.
 
@@ -114,6 +116,8 @@ def forward_layers(
     on CUDA tensors); ``fused=False`` is the unfused reference
     composition.  The cache holds ``z_star``, the layer input (``conv`` or
     ``linear``), ``pool``/``dropout`` when present, and ``act``.
+    ``dp_axis``/``dp_shards`` (a data-parallel rank's axis and its size)
+    reach only dropout (``layers.dropout_forward``).
     """
     cache: dict[str, Any] = {}
     if spec.kind == "conv":
@@ -147,7 +151,8 @@ def forward_layers(
     if spec.pool:
         a, cache["pool"] = layers.maxpool_forward(a)
     if train and spec.dropout > 0.0:
-        a, cache["dropout"] = layers.dropout_forward(dropout_key, a, spec.dropout)
+        a, cache["dropout"] = layers.dropout_forward(
+            dropout_key, a, spec.dropout, dp_axis=dp_axis, dp_shards=dp_shards)
     cache["act"] = a
     return a, cache
 

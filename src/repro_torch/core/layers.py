@@ -303,13 +303,20 @@ class DropoutCache(NamedTuple):
     q: int
 
 
-def dropout_forward(key: torch.Tensor | None, x: torch.Tensor,
-                    rate: float) -> tuple[torch.Tensor, DropoutCache]:
+def dropout_forward(key: torch.Tensor | None, x: torch.Tensor, rate: float,
+                    *, dp_axis=None, dp_shards: int = 1) -> tuple[torch.Tensor, DropoutCache]:
     """Integer inverted dropout: out = ⌊x·mask·q / 2⁸⌋, q = round(256/(1−p)).
 
     The Bernoulli mask is ``bits < ⌊keep·2³²⌋`` on the threefry bits of
     ``key`` — the JAX package's mask for the same key.  The uint32 compare
     runs in int64.  rate == 0 is the identity.
+
+    Under data parallelism (``dp_axis``, a ``parallel.dp.DataAxis`` of
+    ``dp_shards`` ranks) the bits of a rank's rows are not the bits of a
+    smaller batch: every rank draws the **global-batch** bits
+    ``(local_b·dp_shards, …)`` from the shared key and keeps its rows
+    ``[rank·local_b, (rank+1)·local_b)``, so the masks are the
+    single-device run's at any rank count.
     """
     if rate <= 0.0:
         ones = torch.ones((), dtype=numerics.INT_DTYPE, device=x.device)
@@ -317,7 +324,12 @@ def dropout_forward(key: torch.Tensor | None, x: torch.Tensor,
     keep = 1.0 - rate
     q = int(round((1 << _DROPOUT_FP_BITS) / keep))
     threshold = min(int(keep * (1 << 32)), (1 << 32) - 1)
-    bits = prng.bits(key, x.shape, device=x.device)
+    if dp_axis is not None and dp_shards > 1:
+        local_b = x.shape[0]
+        bits = prng.bits(key, (local_b * dp_shards, *x.shape[1:]), device=x.device)
+        bits = bits[dp_axis.rank * local_b:(dp_axis.rank + 1) * local_b]
+    else:
+        bits = prng.bits(key, x.shape, device=x.device)
     mask = (bits < threshold).to(numerics.INT_DTYPE)
     out = floor_div(x * mask * q, 1 << _DROPOUT_FP_BITS)
     return out, DropoutCache(mask=mask, q=q)

@@ -91,16 +91,26 @@ def compute_gradients(
     fuse_bwd: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
+    dp_axis=None,
+    dp_shards: int = 1,
 ) -> tuple[StepGrads, StepMetrics, StepAux]:
     """Forward + backward over a batch: raw gradients, no update; with
-    the forward caches the telemetry readout needs."""
+    the forward caches the telemetry readout needs.
+
+    The gradients and metrics are sums over the batch this call saw, so
+    summing them over batch shards (exact int32 addition) gives the
+    whole batch's bit for bit: ``parallel.dp`` all-reduces them between
+    this call and ``apply_gradients``.  ``dp_axis``/``dp_shards`` (the
+    rank's ``DataAxis`` and its size) reach only dropout, which draws the
+    global-batch mask and keeps this rank's rows.
+    """
     params = state.params
     labels = labels.to(params["output"]["w"].device)
     y = one_hot_int(labels, cfg.num_classes)
 
     y_hat, acts, fw_caches, out_cache = M.forward(
         params, cfg, x, train=True, key=key, fused=fused, backend=backend,
-        conv_mode=conv_mode,
+        conv_mode=conv_mode, dp_axis=dp_axis, dp_shards=dp_shards,
     )
 
     grad_o = rss_grad(y_hat, y)

@@ -92,9 +92,13 @@ def forward(
     fused: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
+    dp_axis=None,
+    dp_shards: int = 1,
 ) -> tuple[torch.Tensor, list[torch.Tensor], list[dict], dict]:
     """Full forward pass: (ŷ, block activations, forward caches, output
-    cache).  Training splits ``key`` into one dropout key per block."""
+    cache).  Training splits ``key`` into one dropout key per block.
+    ``dp_axis``/``dp_shards`` describe a data-parallel rank; they reach
+    only dropout (global-batch mask, this rank's rows)."""
     device = params["output"]["w"].device
     a = torch.as_tensor(x).to(device=device, dtype=INT_DTYPE)
     acts: list[torch.Tensor] = []
@@ -106,7 +110,8 @@ def forward(
     for spec, p, dk in zip(cfg.blocks, params["blocks"], drop_keys):
         a, cache = B.forward_layers(
             p, spec, a, dropout_key=dk, train=train, fused=fused,
-            backend=backend, conv_mode=conv_mode,
+            backend=backend, conv_mode=conv_mode, dp_axis=dp_axis,
+            dp_shards=dp_shards,
         )
         acts.append(a)
         caches.append(cache)

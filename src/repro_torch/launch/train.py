@@ -20,6 +20,11 @@ flattened images) and the CNNs (VGG8B / VGG11B).
         --telemetry-out /tmp/obs/metrics.jsonl --alerts-out /tmp/obs/alerts.jsonl \
         --metrics-port 0 --trace-out /tmp/obs/trace.jsonl
 
+    # data parallel: 2 ranks, the batch split over them, a ring all-reduce
+    # (on one card both ranks share it over gloo; on the CPU: --device cpu):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
+        --steps 4 --num-devices 2 --dp-reduce ring
+
 The data, the init and the dropout key of step ``it`` are those of the
 JAX launcher, so both give the same trajectory and the same test accuracy
 for the same arguments.  ``--ckpt-dir`` saves every 200 steps and at the
@@ -31,8 +36,14 @@ S the keys are ``PRNGKey(S + it)`` while the batches are shuffled with
 kernels' flush), bitwise the split step.  ``--telemetry-every N`` runs
 every N-th step with ``telemetry=True`` (the split path, bitwise the same
 trajectory), appends its rows to ``metrics.jsonl`` (byte for byte the JAX
-launcher's) and feeds the health monitor.  Not ported yet: data
-parallelism, autotuning, the LM trainer.
+launcher's) and feeds the health monitor.  ``--num-devices N`` spawns N
+ranks (``parallel.dp.spawn``) that split each batch and all-reduce the
+int32 gradients exactly (``--dp-reduce`` psum, ring or compress), so the
+trajectory is the single-device one bit for bit; the ``[dp]`` line names
+the backend and each rank's card.  Every rank builds the same data and
+restores from ``--ckpt-dir``; rank 0 alone prints, checkpoints, writes
+telemetry, alerts and the trace, serves ``/metrics``, evaluates and
+returns the result.  Not ported yet: autotuning, the LM trainer.
 """
 
 from __future__ import annotations
@@ -52,6 +63,8 @@ from repro_torch.obs import health as H
 from repro_torch.obs.metrics import (MetricRegistry, register_build_info,
                                      start_metrics_server)
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.parallel import dp
+from repro_torch.parallel.tree import tree_map
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import (PreemptionGuard, StepTimer,
                                                StragglerDetector)
@@ -66,7 +79,8 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 fuse_opt: bool = False, ckpt_dir: str | None = None,
                 telemetry_every: int = 0, telemetry_out: str | None = None,
                 trace_out: str | None = None, metrics_port: int | None = None,
-                alerts_out: str | None = None) -> dict:
+                alerts_out: str | None = None, num_devices: int = 1,
+                dp_reduce: str = "psum") -> dict:
     """Integer-only NITRO-D training, then test accuracy.
 
     ``telemetry_every=N`` runs every N-th step with ``telemetry=True``
@@ -89,10 +103,56 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
     (one ``StepMetrics`` per step), ``start_step`` (the step resumed
     from, 0 without a checkpoint) and ``train_s`` (host seconds of the
     step loop, ending in a device synchronise).
+
+    ``num_devices > 1`` runs the same training on that many ranks
+    (``parallel.dp``, the reducer ``dp_reduce``): bitwise the
+    single-device trajectory, rank 0's result returned (its tensors on
+    the host).
     """
     if arch not in ARCHS:
         raise ValueError(f"arch {arch!r} is not ported; one of {ARCHS}")
-    device = resolve_device(device)
+    if dp_reduce not in dp.REDUCERS:
+        raise ValueError(f"unknown dp_reduce {dp_reduce!r}; one of {dp.REDUCERS}")
+    kw = dict(steps=steps, batch=batch, dataset=dataset, scale=scale, seed=seed,
+              backend=backend, fuse_opt=fuse_opt, ckpt_dir=ckpt_dir,
+              telemetry_every=telemetry_every, telemetry_out=telemetry_out,
+              trace_out=trace_out, metrics_port=metrics_port, alerts_out=alerts_out,
+              dp_reduce=dp_reduce)
+    if num_devices == 1:
+        return _train(arch, axis=None, device=resolve_device(device), **kw)
+    if batch % num_devices:
+        raise ValueError(f"--batch {batch} must divide evenly over "
+                         f"--num-devices {num_devices}")
+    comm, devices = dp.rank_devices(num_devices, device)
+    print(f"[dp] {num_devices} ranks, reduce={dp_reduce}, {dp.describe(comm, devices)} "
+          f"(bitwise ≡ single-device)")
+    return dp.spawn(_train_rank, num_devices, device=device, args=(arch, kw))[0]
+
+
+def _train_rank(axis, device, arch: str, kw: dict) -> dict | None:
+    """One rank of a data-parallel run: rank 0's result with its tensors
+    on the host, ``None`` elsewhere."""
+    out = _train(arch, axis=axis, device=device, **kw)
+    if out is None:
+        return None
+    out["state"] = tree_map(torch.Tensor.cpu, out["state"])
+    out["step_metrics"] = tree_map(torch.Tensor.cpu, out["step_metrics"])
+    return out
+
+
+def _quiet(*args, **kwargs) -> None:
+    """``print`` on every rank but 0."""
+
+
+def _train(arch: str, *, axis, device: torch.device, steps: int, batch: int,
+           dataset: str, scale: float, seed: int, backend: str, fuse_opt: bool,
+           ckpt_dir: str | None, telemetry_every: int, telemetry_out: str | None,
+           trace_out: str | None, metrics_port: int | None,
+           alerts_out: str | None, dp_reduce: str) -> dict | None:
+    """``train_nitro`` on one device (``axis=None``) or as one rank of a
+    data-parallel run (``None`` on every rank but 0)."""
+    lead = axis is None or axis.rank == 0
+    say = print if lead else _quiet
     ds = synthetic.make_image_dataset(dataset, n_train=4096, n_test=512, seed=seed)
     cfg = get_paper_config(arch, scale=scale,
                            input_shape=ds.input_shape if arch.startswith("vgg") else None)
@@ -102,17 +162,30 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
             cfg = dataclasses.replace(cfg, input_shape=ds.input_shape)
     state = les.create_train_state(prng.PRNGKey(seed), cfg, device=device)
     start_step = 0
-    checkpointer = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
+    checkpointer = ckpt.AsyncCheckpointer(ckpt_dir) if ckpt_dir and lead else None
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         state, start_step = ckpt.restore(ckpt_dir, state)
-        print(f"[restore] resumed from step {start_step}")
+        say(f"[restore] resumed from step {start_step}")
+
+    if axis is None:
+        def step_fn(state, x, y, key, telemetry):
+            return les.train_step(state, cfg, x, y, key, backend=backend,
+                                  fuse_opt=fuse_opt, telemetry=telemetry)
+    else:
+        dp_steps = {t: dp.make_dp_train_step(cfg, axis, dp_reduce=dp_reduce,
+                                             fuse_opt=fuse_opt, backend=backend,
+                                             telemetry=t)
+                    for t in (False, True)}
+
+        def step_fn(state, x, y, key, telemetry):
+            return dp_steps[telemetry](state, x, y, key)
 
     if telemetry_every > 0:
         from repro_torch.obs import telemetry as T
         if telemetry_out is None:
             telemetry_out = os.path.join(ckpt_dir or ".", "metrics.jsonl")
-        print(f"[telemetry] every {telemetry_every} steps -> {telemetry_out}")
-    tracer = Tracer() if trace_out else NULL_TRACER
+        say(f"[telemetry] every {telemetry_every} steps -> {telemetry_out}")
+    tracer = Tracer() if trace_out and lead else NULL_TRACER
     guard = PreemptionGuard(install=False)
     straggler = StragglerDetector()
 
@@ -126,12 +199,12 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
         "train_straggler_events_total",
         "steps slower than the straggler EWMA threshold")
     sinks = [H.print_sink]
-    if alerts_out:
+    if alerts_out and lead:
         sinks.append(H.jsonl_sink(alerts_out))
         print(f"[health] alerts -> {alerts_out}")
     monitor = H.HealthMonitor(registry=registry, sinks=sinks)
     server = None
-    if metrics_port is not None:
+    if metrics_port is not None and lead:
         server = start_metrics_server(registry, port=metrics_port)
         print(f"[metrics] serving {server.url} (+ /metrics.json /healthz)")
 
@@ -153,31 +226,29 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 sampled = telemetry_every > 0 and it % telemetry_every == 0
                 with tracer.span("train.step", step=start_step + it,
                                  telemetry=sampled):
-                    result = les.train_step(
-                        state, cfg, torch.from_numpy(x).to(device),
-                        torch.from_numpy(y).to(device),
-                        prng.PRNGKey(start_step + it),
-                        backend=backend, fuse_opt=fuse_opt, telemetry=sampled,
-                    )
+                    result = step_fn(state, torch.from_numpy(x).to(device),
+                                     torch.from_numpy(y).to(device),
+                                     prng.PRNGKey(start_step + it), sampled)
                     if sampled:
                         state, metrics, telem = result
-                        records = T.to_records(telem, cfg=cfg,
-                                               step=start_step + it)
-                        T.append_jsonl(telemetry_out, records)
-                        monitor.observe_records(records)
+                        if lead:
+                            records = T.to_records(telem, cfg=cfg,
+                                                   step=start_step + it)
+                            T.append_jsonl(telemetry_out, records)
+                            monitor.observe_records(records)
                     else:
                         state, metrics = result
                 dt = timer.lap()
                 step_seconds.observe(dt)
                 if straggler.record(dt):
                     straggler_events.inc()
-                    print(f"[straggler] step {it}: {dt:.3f}s vs ewma "
-                          f"{straggler.ewma:.3f}s")
+                    say(f"[straggler] step {it}: {dt:.3f}s vs ewma "
+                        f"{straggler.ewma:.3f}s")
                 step_metrics.append(metrics)
                 if it % 50 == 0:
-                    print(f"step {it:5d}  loss={int(metrics.loss)}  "
-                          f"scaled={metrics.scaled_loss(batch):.4f}  "
-                          f"correct={int(metrics.correct)}/{batch}")
+                    say(f"step {it:5d}  loss={int(metrics.loss)}  "
+                        f"scaled={metrics.scaled_loss(batch):.4f}  "
+                        f"correct={int(metrics.correct)}/{batch}")
                 if checkpointer and it > 0 and it % CKPT_EVERY == 0:
                     with tracer.span("train.checkpoint", step=start_step + it):
                         checkpointer.save(start_step + it, state)
@@ -192,6 +263,8 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 checkpointer.save(start_step + it, state)
                 checkpointer.wait()
 
+        if not lead:
+            return None
         correct = 0
         with tracer.span("train.eval"):
             for i in range(0, len(ds.x_test) - batch + 1, batch):
@@ -255,6 +328,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--alerts-out",
                     help="append health alerts as JSONL (they always "
                          "print inline)")
+    ap.add_argument("--num-devices", type=int, default=1,
+                    help="data-parallel ranks, one process each (the "
+                         "trajectory is bitwise the same at any value)")
+    ap.add_argument("--dp-reduce", default="psum", choices=dp.REDUCERS,
+                    help="gradient all-reduce: the backend's, a ring of "
+                         "point-to-point sends, or int8 limb planes (all exact)")
     return ap
 
 
@@ -269,7 +348,8 @@ def main(argv=None) -> dict:
                        telemetry_out=args.telemetry_out,
                        trace_out=args.trace_out,
                        metrics_port=args.metrics_port,
-                       alerts_out=args.alerts_out)
+                       alerts_out=args.alerts_out,
+                       num_devices=args.num_devices, dp_reduce=args.dp_reduce)
 
 
 if __name__ == "__main__":

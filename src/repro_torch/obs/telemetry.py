@@ -168,6 +168,7 @@ def _leaves(telem: dict) -> list[torch.Tensor]:
     for key in ("weight", "grad"):
         out.extend(telem["output"][key])
     out.extend(telem["opt"].values())
+    out.extend(telem.get("dp", {}).values())
     return out
 
 
@@ -200,7 +201,9 @@ def to_records(telem: dict, *, cfg, step: int) -> list[dict]:
 
     One row per block (weights/grads/pre-activations/activations + dead
     fraction + the static ``alpha_inv``), one for the output layers and
-    one ``_opt`` row with the optimiser scalars, as the JAX package's.
+    one ``_opt`` row with the optimiser scalars, as the JAX package's;
+    data-parallel steps (``parallel.dp``) add a ``_dp`` row (the shard
+    count and the 2-limb fit of the shard-local gradients).
     """
     vals = _host_ints(telem)
     records = []
@@ -230,6 +233,12 @@ def to_records(telem: dict, *, cfg, step: int) -> list[dict]:
         "layer": "_opt",
         **{k: next(vals) for k in telem["opt"]},
     })
+    if "dp" in telem:
+        records.append({
+            "step": int(step),
+            "layer": "_dp",
+            **{k: next(vals) for k in telem["dp"]},
+        })
     return records
 
 

@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_repro():
     for new in ("serving/fleet.py", "serving/registry.py", "serving/stats.py",
                 "infer/export.py", "launch/serve_vision.py", "obs/__init__.py",
                 "obs/metrics.py", "obs/trace.py", "obs/telemetry.py", "obs/health.py",
-                "launch/obs_top.py", "train/fault_tolerance.py"):
+                "launch/obs_top.py", "train/fault_tolerance.py", "parallel/__init__.py",
+                "parallel/dp.py", "parallel/collectives.py", "parallel/compress.py",
+                "parallel/sharding.py", "parallel/tree.py"):
         assert PORT / new in files
     assert EXAMPLES / "serve_cifar.py" in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
@@ -66,6 +68,8 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch, repro_torch.launch.serve_vision, repro_torch.launch.train\n"
         "import repro_torch.serving.fleet, repro_torch.serving.registry\n"
         "import repro_torch.obs, repro_torch.obs.telemetry, repro_torch.launch.obs_top\n"
+        "import repro_torch.parallel.dp, repro_torch.parallel.collectives\n"
+        "import repro_torch.parallel.compress, repro_torch.parallel.sharding\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
