@@ -147,7 +147,19 @@ Phases, each fatal on failure:
      step in turns beside the single-device step timed the same way,
      ``reduce_gradients`` alone, rank 0's device ms per step
      (``torch.profiler``) and the bytes all-reduced per step;
-  8. time each kernel per step shape with CUDA events beside its bound and
+  8. the autotuner at full width: (8a) every problem of the served VGG8B
+     batch of 32, the VGG8B step at batch 64 and mlp4's step has no knob
+     on the card (``autotune.tune`` returns ``(None, {})``, nothing
+     measured); the served plan's lookups in a configured cache run under
+     ``set_sync_debug_mode("error")``, each key counted once as a miss,
+     logits unchanged; (8b) ``train_nitro(autotune=True)`` from phase 5's
+     seed tunes nothing, then trains bitwise phase 5's run on phase 5's
+     kernels step for step; a second run with the cache measures nothing
+     and its ``/metrics`` counts each key the step looks up once, as a
+     miss; (8c) the serve CLI with ``--autotune``: logits bitwise phase
+     4's, one ``kernel_int8_path_active`` sample per plan step, each of the
+     plan's keys a miss;
+  9. time each kernel per step shape with CUDA events beside its bound and
      its plain version (#1–#5 by their device time, with the
      ``torch._int_mm`` yardstick at their int8 GEMM shapes; #3, #4 and #5
      at mlp4's shapes too; #10's device time split into its GEMM and
@@ -2544,6 +2556,181 @@ def dp_timing(res0: dict, what: str, split, card: str) -> None:
           + f" ({res0['grad_elems']} int32 gradients)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the autotuner on the card
+# ---------------------------------------------------------------------------
+
+def tile_lookups(snap) -> list:
+    """[hits, misses] from a ``MetricRegistry.json_snapshot()`` (a counter
+    never incremented has no sample)."""
+    return [sum(s["value"] for s in snap[f"kernel_tile_cache_{k}_total"]["samples"])
+            for k in ("hits", "misses")]
+
+
+def autotune_problems(plan):
+    """(where, problem) of every problem the autotuner lists for the
+    served VGG8B batch of 32, the VGG8B training step at batch 64 and
+    mlp4's at batch 64; ``plan`` is the served VGG8B plan."""
+    from repro_torch.configs import get_paper_config
+    from repro_torch.kernels import autotune as at
+
+    found = [("served VGG8B", p) for p in at.plan_shapes(plan, BATCH)]
+    found += [("VGG8B step", p) for p in at.training_shapes(get_paper_config("vgg8b"),
+                                                            TRAIN_BATCH)]
+    found += [("mlp4 step", p) for p in at.training_shapes(get_paper_config("mlp4"),
+                                                           TRAIN_BATCH)]
+    return found
+
+
+def autotune_untunable(plan, images, root: str) -> None:
+    """Phase 8a: on the card every problem has no knob (the kernels' tiles
+    are compiled in, their split-K counts planned at launch), so ``tune``
+    returns ``(None, {})`` for each without measuring; then the served
+    plan's dispatchers look every step up in a configured (empty) cache
+    under ``set_sync_debug_mode("error")``: the lookups add no host sync,
+    each key is counted once as a miss, and the logits stay the plan's
+    (``images``: phase 4's requests)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import autotune as at
+    from repro_torch.obs.metrics import MetricRegistry
+
+    found = autotune_problems(plan)
+    for where, p in found:
+        out = at.tune(p["op"], p["shape"], dtype=p["dtype"], backend="cuda",
+                      conv_mode=p["conv_mode"], fuse_bwd=p["fuse_bwd"], device="cuda")
+        if out != (None, {}):
+            die(f"8a: {where} {p['op']} {p['shape']} tuned on the card: {out}")
+    buf = torch.zeros(1 << 20, dtype=torch.int32, device="cuda")
+    paired = at.time_paired({"add": lambda: buf.add_(1), "mul": lambda: buf.mul_(3)},
+                            iters=3, device="cuda")  # the tuner's harness in CUDA events
+    if not all(0 < us < 1e6 for us in paired.values()):
+        die(f"8a: time_paired on the card gave {paired} us")
+    images = torch.from_numpy(np.stack(images[:BATCH])).to(plan.device, torch.int32)
+    want = plan.logits(images)
+    reg = MetricRegistry()
+    at.set_metrics(reg)
+    at.configure(at.TileCache(f"{root}/plan_cache.json", device="cuda"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [plan.logits(images) for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        snap = reg.json_snapshot()
+    finally:
+        at.configure(None)
+        at.set_metrics(None)
+    if any(not torch.equal(g, want) for g in got):
+        die("8a: the plan's logits moved with a cache configured")
+    keys = {at.cache_key(p["op"], p["shape"], p["dtype"], "cuda", p["conv_mode"], p["fuse_bwd"])
+            for p in at.plan_shapes(plan, BATCH)}
+    counts = tile_lookups(snap)
+    if counts != [0, len(keys)]:
+        die(f"8a: the plan's lookups counted {counts}, not [0, {len(keys)}]")
+    print(f"[autotune] 8a: {len(found)} problems (served VGG8B, VGG8B and mlp4 steps) "
+          f"have no knob on the card, nothing measured; the plan's lookups in a "
+          f"configured cache ran under sync debug mode \"error\", {len(keys)} keys "
+          f"counted once each as misses, logits unchanged; time_paired in CUDA events "
+          f"{ {k: round(v, 2) for k, v in paired.items()} } us")
+
+
+def autotune_train_path(split, root: str) -> None:
+    """Phase 8b: ``train_nitro(autotune=True)`` from phase 5's seed: it
+    finds nothing to tune on the card, then trains bitwise phase 5's run on
+    phase 5's kernels, step for step; a second run with that cache
+    measures nothing, and its ``/metrics`` counts every key the step looks
+    up once, as a miss."""
+    import re
+
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels.autotune import search, state
+    from repro_torch.launch import train
+
+    cache = f"{root}/tile_cache.json"
+    res, _, per_step = counted_steps(lambda: train.train_nitro(
+        "vgg8b", autotune=True, autotune_cache=cache, **OBS_TRAIN_KW))
+    expect_step_launches(per_step, lambda i: (False, PER_STEP), "autotuned run")
+    n = same_run(res["state"], res["step_metrics"], split["state"], split["step_metrics"],
+                 "autotuned run vs phase 5's run")
+    tuned = at.TileCache(cache).keys()
+    if tuned:
+        die(f"8b: {len(tuned)} keys tuned on the card, where nothing has a knob")
+    at.configure(None)
+    at.set_metrics(None)
+    calls, real = [], search.tune
+
+    def spy(*args, **kw):
+        calls.append(real(*args, **kw))
+        return calls[-1]
+
+    search.tune = spy
+    seen = {}
+    try:
+        with scrape_at_close(seen):
+            again, _, per_step = counted_steps(lambda: train.train_nitro(
+                "vgg8b", autotune=True, autotune_cache=cache, metrics_port=0,
+                **OBS_TRAIN_KW))
+    finally:
+        search.tune = real
+    if not calls or any(out != (None, {}) for out in calls):
+        die("8b: the second run with the same cache measured")
+    expect_step_launches(per_step, lambda i: (False, PER_STEP), "second autotuned run")
+    same_run(again["state"], again["step_metrics"], split["state"], split["step_metrics"],
+             "second autotuned run vs phase 5's run")
+    looked = [k for k in state._memo if isinstance(k, str)]
+    counts = {m: int(float(found.group(1))) if found else 0
+              for m in ("hits", "misses")
+              for found in [re.search(rf"^kernel_tile_cache_{m}_total (\S+)$",
+                                      seen["metrics"], re.M)]}
+    if not looked or counts != {"hits": 0, "misses": len(looked)}:
+        die(f"8b: /metrics counts {counts} for {len(looked)} keys looked up")
+    at.configure(None)
+    at.set_metrics(None)
+    print(f"[autotune] 8b: train_nitro(autotune=True) tuned nothing, then 4 steps bitwise "
+          f"phase 5's run ({n} tensors) on phase 5's kernels step for step; the second "
+          f"run measured nothing, /metrics {counts}: each of the {len(looked)} keys the "
+          f"step looks up counted once")
+
+
+def autotune_serve_path(phase4, root: str) -> None:
+    """Phase 8c: the serve CLI with ``--autotune`` (and a metrics port):
+    every request's logits bitwise phase 4's, one ``kernel_int8_path_active``
+    sample per plan step (the plan's int8-operand choices), nothing tuned
+    and each of the plan's keys counted once, as a miss."""
+    import numpy as np
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch import serve_vision
+
+    res = serve_vision.main([
+        "--arch", "vgg8b", "--scale", "1", "--batch", str(BATCH),
+        "--requests", str(REQUESTS), "--seed", "0", "--device", "cuda",
+        "--scheduler", "static", "--autotune", "--autotune-cache",
+        f"{root}/serve_cache.json", "--metrics-port", "0"])
+    for i, (a, b) in enumerate(zip(res["results"], phase4["results"], strict=True)):
+        if a.logits.dtype != b.logits.dtype or not np.array_equal(a.logits, b.logits):
+            die(f"8c: request {i}'s logits differ from phase 4's")
+    snap = res["metrics"].json_snapshot()
+    plan = res["plan"]
+    gauge = {s["labels"]["layer"]: s["value"]
+             for s in snap["kernel_int8_path_active"]["samples"]}
+    want = {f"{plan.name}/{i}": int(m.operand_dtype == "int8") for i, m in enumerate(plan.metas)}
+    if gauge != want:
+        die(f"8c: kernel_int8_path_active {gauge} != the plan's {want}")
+    keys = {at.cache_key(p["op"], p["shape"], p["dtype"], "cuda", p["conv_mode"], p["fuse_bwd"])
+            for p in at.plan_shapes(plan, BATCH)}
+    counts = tile_lookups(snap)
+    n_tuned = len(at.TileCache(f"{root}/serve_cache.json").keys())
+    if n_tuned or counts != [0, len(keys)]:
+        die(f"8c: {n_tuned} tuned keys, lookups counted {counts} for {len(keys)} keys")
+    at.configure(None)
+    at.set_metrics(None)
+    print(f"[autotune] 8c: serve CLI --autotune, {len(res['results'])} requests: logits "
+          f"bitwise phase 4's; int8-path gauge {gauge}; nothing tuned, the plan's "
+          f"{len(keys)} keys each counted once as a miss")
+
+
 def time_cuda(fn, iters: int, warmup: int) -> float:
     """Mean milliseconds per call over ``iters`` calls, CUDA events."""
     import torch
@@ -2632,7 +2819,7 @@ def work(meta, a, w, out_elems: int, out_itemsize: int):
 
 
 def timing(steps, card: str) -> dict:
-    """Phase 8: per-step kernel / plain / bound times of the serving
+    """Phase 9: per-step kernel / plain / bound times of the serving
     kernels, with the forward conv's digit products and device time; #1's
     ``ms`` is its device time per call (its launches are shorter than the
     wrapper's host path), the back-to-back time beside it."""
@@ -2769,7 +2956,7 @@ def main_path_conv_operands() -> list:
 
 
 def train_timing(shapes, card: str, per_kernel: dict) -> None:
-    """Phase 8b: per-shape kernel / plain / bound times of the training
+    """Phase 9b: per-shape kernel / plain / bound times of the training
     kernels (one step = one launch at each shape).  #7 runs on the main
     path's own operands (the CLI's first batch and the seeded init, whose
     digits decide its products), and beside them on w of ±2^15."""
@@ -2868,7 +3055,7 @@ def int_mm_yardstick(xs, ws, card: str, i: int) -> None:
 
 
 def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
-    """Phase 8c: per-shape kernel / plain / bound times of the update
+    """Phase 9c: per-shape kernel / plain / bound times of the update
     kernels — #9 at each conv layer of a step (the forward layers'
     optimiser state; #4 in ``linear_grad_w_timing``), #11 per fused apply
     over VGG8B's 15 weight tensors (the kernels line's row) and mlp4's 7,
@@ -2933,7 +3120,7 @@ def opt_timing(shapes, cfg, params, card: str, per_kernel: dict) -> None:
 
 
 def linear_grad_w_timing(card: str, per_kernel: dict) -> None:
-    """Phase 8e: #3 and #4 at VGG8B's linear (the kernels line's step
+    """Phase 9e: #3 and #4 at VGG8B's linear (the kernels line's step
     figure) and at mlp4's two layer shapes, on operands of the main path's
     digits (x in the NITRO-ReLU range: one digit; masked δ of two): the
     device time of every device operation of one call from the profiler
@@ -3004,7 +3191,7 @@ def grad_w_int_mm_yardstick(b, m, n, card: str, tag: str) -> None:
 
 
 def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
-    """Phase 8d: per-shape kernel / plain / bound times of the input-
+    """Phase 9d: per-shape kernel / plain / bound times of the input-
     gradient kernels at a VGG8B step's shapes (summed into the kernels
     line), at mlp4's linear shapes, with their digit products: #10 back to
     back (CUDA events) with its device time split into the GEMM and the
@@ -3223,6 +3410,10 @@ def main() -> int:
     if len(obs_tracer.snapshot()) <= n_spans:
         die("[obs-6d] the sync check recorded no span")
     dp_path(train_res, fuse_res, obs_jsonl, card)
+    with tempfile.TemporaryDirectory() as root:
+        autotune_untunable(plan, res["images"], root)
+        autotune_train_path(train_res, root)
+        autotune_serve_path(res, root)
     per_kernel = timing(steps, card)
     train_timing(shapes, card, per_kernel)
     opt_timing(shapes, cfg, params, card, per_kernel)

@@ -12,6 +12,13 @@ Backends: ``'cuda'`` (the kernels), ``'reference'`` (the plain PyTorch
 versions, on any device), ``'auto'`` (``cuda`` on a CUDA device,
 ``reference`` on the CPU).  Every backend and conv mode is bit-exact with
 ``model.frozen_forward`` on the same weights.
+
+With an autotune cache configured (``kernels.autotune.configure``) each
+step's dispatcher looks its problem up under the JAX plan's key
+(``plan_shapes``: the frozen weight's dtype, although int32-operand steps
+hold it lifted); each step's int8-operand choice is recorded on the
+``kernel_int8_path_active`` gauge when the autotuner's metrics are
+attached.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from repro_torch.core.activations import relu_fits_int8
 from repro_torch.core.numerics import INT_DTYPE
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.infer.export import FrozenModel
+from repro_torch.kernels.autotune import state as autotune_state
+from repro_torch.kernels.autotune.cache import dtype_name
 from repro_torch.kernels.nitro_conv import ops as conv_ops
 from repro_torch.kernels.nitro_matmul import ops as nitro_ops
 
@@ -43,10 +52,6 @@ class StepMeta(NamedTuple):
     conv_mode: str = "" # conv only: 'stream' | 'materialise'
     fused_pool: bool = False  # pool folded into the conv kernel epilogue
     operand_dtype: str = "int32"  # multiply operands: 'int8' | 'int32'
-
-
-def _dtype_name(dt: torch.dtype) -> str:
-    return str(dt).removeprefix("torch.")
 
 
 class ExecutionPlan:
@@ -82,7 +87,7 @@ class ExecutionPlan:
         self.frozen_weights = [layer.w for layer in fm.layers]
         metas, weights = [], []
         act_dtype = "int32"  # logits() casts the network input to int32
-        for layer in fm.layers:
+        for i, layer in enumerate(fm.layers):
             out_dtype = (
                 "int8"
                 if layer.apply_relu and relu_fits_int8(layer.alpha_inv)
@@ -91,6 +96,7 @@ class ExecutionPlan:
             is_conv = layer.kind == "conv"
             int8_ok = act_dtype == "int8" and layer.w.dtype == torch.int8
             step_od = "int8" if int8_ok and operand_dtype != "int32" else "int32"
+            autotune_state.note_int8_path(f"{fm.name}/{i}", step_od == "int8")
             metas.append(StepMeta(
                 kind=layer.kind, sf=layer.sf, alpha_inv=layer.alpha_inv,
                 apply_relu=layer.apply_relu, pool=layer.pool,
@@ -122,7 +128,7 @@ class ExecutionPlan:
         """(N, *input_shape) integer batch → (N, num_classes) int32 logits,
         on the plan's device.  The batch moves to the device once."""
         a = torch.as_tensor(x).to(device=self.device, dtype=INT_DTYPE)
-        for w, meta in zip(self.weights, self.metas):
+        for w, frozen, meta in zip(self.weights, self.frozen_weights, self.metas):
             out_dtype = _DTYPES[meta.out_dtype]
             if meta.kind == "conv":
                 a = conv_ops.fused_conv(
@@ -130,6 +136,7 @@ class ExecutionPlan:
                     apply_relu=meta.apply_relu, pool=meta.pool,
                     out_dtype=out_dtype, backend=self.backend,
                     conv_mode=meta.conv_mode, operand_dtype=meta.operand_dtype,
+                    key_w_dtype=frozen.dtype,
                 )
             else:  # 'linear' | 'output' — flatten anything spatial entering
                 if a.ndim > 2:
@@ -138,6 +145,7 @@ class ExecutionPlan:
                     a, w, sf=meta.sf, alpha_inv=meta.alpha_inv,
                     apply_relu=meta.apply_relu, out_dtype=out_dtype,
                     backend=self.backend, operand_dtype=meta.operand_dtype,
+                    key_w_dtype=frozen.dtype,
                 )
         return a
 
@@ -184,7 +192,7 @@ class ExecutionPlan:
             rows.append({
                 "kind": meta.kind,
                 "weight_shape": tuple(int(d) for d in w.shape),
-                "weight_dtype": _dtype_name(w.dtype),
+                "weight_dtype": dtype_name(w.dtype),
                 "sf": meta.sf,
                 "activation_dtype": meta.out_dtype,
                 "operand_dtype": meta.operand_dtype,

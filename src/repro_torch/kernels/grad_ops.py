@@ -27,6 +27,10 @@ grad_W is never written.  Their escape hatches (``z_star=None``,
 compute the gradients as above and then run ``optimizer.apply_update``
 — bitwise the same.
 
+``tiles`` (a ``kernels.autotune.TileConfig``) goes to every gradient
+dispatcher, as in the JAX package; ``None`` makes each look its own
+problem up in the autotune cache.
+
 ``need_grad_x=False`` returns ``None`` for grad_x and computes nothing
 for it.  It is no feature of its own: it does eagerly what XLA's
 dead-code removal does to the jitted JAX step, which discards grad_x
@@ -40,6 +44,7 @@ import torch
 
 from repro_torch.core import optimizer as opt
 from repro_torch.core.numerics import int_matmul
+from repro_torch.kernels.autotune.tiles import TileConfig
 from repro_torch.kernels.nitro_conv import ops as conv_ops
 from repro_torch.kernels.nitro_matmul import ops as mm_ops
 from repro_torch.kernels.nitro_matmul.ref import masked_delta
@@ -54,6 +59,7 @@ def linear_grads(
     alpha_inv: int = 10,
     fuse_bwd: bool = True,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
     need_grad_x: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """IntegerLinear backward: ``(grad_x, grad_w)``.
@@ -69,11 +75,11 @@ def linear_grads(
         grad_x = int_matmul(delta, w.T) if need_grad_x else None
         return grad_x, int_matmul(x.T, delta)
     grad_w = mm_ops.grad_w_matmul(x, delta, z_star, alpha_inv=alpha_inv,
-                                  backend=backend)
+                                  backend=backend, tiles=tiles)
     grad_x = None
     if need_grad_x:
         grad_x = mm_ops.grad_x_matmul(delta, z_star, w, alpha_inv=alpha_inv,
-                                      backend=backend)
+                                      backend=backend, tiles=tiles)
     return grad_x, grad_w
 
 
@@ -87,6 +93,7 @@ def conv_grads(
     fuse_bwd: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
     need_grad_x: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """IntegerConv2D backward: ``(grad_x, grad_w)``, both through the conv
@@ -98,13 +105,13 @@ def conv_grads(
         z_star = None
     grad_w = conv_ops.conv_grad_w(
         x, delta, kernel_size=w.shape[0], z_star=z_star, alpha_inv=alpha_inv,
-        backend=backend, conv_mode=conv_mode,
+        backend=backend, conv_mode=conv_mode, tiles=tiles,
     )
     grad_x = None
     if need_grad_x:
         grad_x = conv_ops.conv_grad_x(
             delta, w, z_star=z_star, alpha_inv=alpha_inv, backend=backend,
-            conv_mode=conv_mode,
+            conv_mode=conv_mode, tiles=tiles,
         )
     return grad_x, grad_w
 
@@ -119,6 +126,7 @@ def linear_weight_update(
     alpha_inv: int = 10,
     fuse_bwd: bool = True,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
     need_grad_x: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """IntegerLinear backward + optimiser: ``(grad_x, w_new)``.
@@ -130,17 +138,17 @@ def linear_weight_update(
     if z_star is None or not fuse_bwd:
         grad_x, grad_w = linear_grads(
             x, w, delta, z_star=z_star, alpha_inv=alpha_inv,
-            fuse_bwd=fuse_bwd, backend=backend, need_grad_x=need_grad_x,
+            fuse_bwd=fuse_bwd, backend=backend, tiles=tiles, need_grad_x=need_grad_x,
         )
         return grad_x, opt.apply_update(w, grad_w, opt_state)
     w_new = mm_ops.grad_w_opt_matmul(
         x, delta, z_star, w, opt_state.gamma_inv, opt_state.eta_inv,
-        alpha_inv=alpha_inv, backend=backend,
+        alpha_inv=alpha_inv, backend=backend, tiles=tiles,
     )
     grad_x = None
     if need_grad_x:
         grad_x = mm_ops.grad_x_matmul(delta, z_star, w, alpha_inv=alpha_inv,
-                                      backend=backend)
+                                      backend=backend, tiles=tiles)
     return grad_x, w_new
 
 
@@ -155,6 +163,7 @@ def conv_weight_update(
     fuse_bwd: bool = True,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
     need_grad_x: bool = True,
 ) -> tuple[torch.Tensor | None, torch.Tensor]:
     """IntegerConv2D backward + optimiser: ``(grad_x, w_new)``.
@@ -170,18 +179,18 @@ def conv_weight_update(
         grad_x, grad_w = conv_grads(
             x, w, delta, z_star=z_star, alpha_inv=alpha_inv,
             fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
-            need_grad_x=need_grad_x,
+            tiles=tiles, need_grad_x=need_grad_x,
         )
         return grad_x, opt.apply_update(w, grad_w, opt_state)
     w_new = conv_ops.conv_grad_w_opt(
         x, delta, w, opt_state.gamma_inv, opt_state.eta_inv,
         kernel_size=w.shape[0], z_star=z_star, alpha_inv=alpha_inv,
-        backend=backend, conv_mode=conv_mode,
+        backend=backend, conv_mode=conv_mode, tiles=tiles,
     )
     grad_x = None
     if need_grad_x:
         grad_x = conv_ops.conv_grad_x(
             delta, w, z_star=z_star, alpha_inv=alpha_inv, backend=backend,
-            conv_mode=conv_mode,
+            conv_mode=conv_mode, tiles=tiles,
         )
     return grad_x, w_new

@@ -19,6 +19,12 @@ matmul dispatchers, as in the JAX package (its patches lie in device
 memory anyway, so there is no fusion site: it pre-masks δ).
 ``conv_grad_w_opt`` is stream-only by design, as in the JAX package: the
 materialised gradient has no kernel flush to fuse the optimiser into.
+
+Every entry point takes ``tiles`` (a ``kernels.autotune.TileConfig``),
+looked up in the autotune cache under the JAX package's key when
+``None``: ``reference`` gives its ``bh`` to the plain stream conv (``None``:
+the automatic band); the CUDA kernels have no run-time knob.  A
+materialise-mode miss falls through to the inner matmul's own lookup.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 
 from repro_torch.core.layers import conv_im2col_operands, im2col, window_view_2x2
 from repro_torch.core.numerics import int_matmul
+from repro_torch.kernels.autotune import state as autotune
+from repro_torch.kernels.autotune.tiles import TileConfig
 from repro_torch.kernels.nitro_conv import ref as conv_ref
 from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
@@ -48,6 +56,16 @@ from repro_torch.kernels.nitro_matmul.ref import masked_delta
 CONV_MODES = ("stream", "materialise")
 
 
+def _bh(tiles: TileConfig | None) -> int | None:
+    """The plain stream conv's band height (``None``: its automatic band)."""
+    return None if tiles is None else tiles.bh
+
+
+def _conv_key(x: torch.Tensor, k: int, f: int) -> tuple:
+    """The conv problems' key shape ``(N, H, W, C, K, F)``."""
+    return (x.shape[0], x.shape[1], x.shape[2], x.shape[3], k, f)
+
+
 def resolve_conv_mode(conv_mode: str) -> str:
     if conv_mode not in CONV_MODES:
         raise ValueError(
@@ -67,9 +85,12 @@ def fused_conv(
     out_dtype: torch.dtype = torch.int32,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
     operand_dtype: str = "auto",
+    key_w_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """One fused conv+scale(+relu)(+2×2 pool) — the inference plan step.
+    ``key_w_dtype`` as for ``fused_matmul``.
 
     (N,H,W,C) int × (K,K,C,F) int → (N,H,W,F), or (N,H//2,W//2,F) when
     ``pool=True``.
@@ -81,17 +102,25 @@ def fused_conv(
     if od == "int8":
         x = _guard_int8(x, "x")
         w = _guard_int8(w, "w")
+    if tiles is None:
+        tiles = autotune.resolve_tiles(
+            "conv", _conv_key(x, w.shape[0], w.shape[-1]),
+            dtype=(x.dtype, key_w_dtype or w.dtype), backend=backend, conv_mode=conv_mode)
     if conv_mode == "materialise":
         n, h, w_sp, _ = x.shape
         patches, w_flat = conv_im2col_operands(w, x)
         out = fused_matmul(
             patches, w_flat, sf=sf, alpha_inv=alpha_inv,
             apply_relu=apply_relu, out_dtype=out_dtype, backend=backend,
-            operand_dtype=od,
+            tiles=tiles, operand_dtype=od, key_w_dtype=key_w_dtype,
         ).reshape(n, h, w_sp, w.shape[-1])
         return window_view_2x2(out).amax(dim=3) if pool else out
-    fn = conv_ref.stream_conv_ref if backend == "reference" else stream_conv
-    return fn(
+    if backend == "reference":
+        return conv_ref.stream_conv_ref(
+            x, w, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu, pool=pool,
+            out_dtype=out_dtype, bh=_bh(tiles), operand_dtype=od,
+        )
+    return stream_conv(
         x, w, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu, pool=pool,
         out_dtype=out_dtype, operand_dtype=od,
     )
@@ -105,6 +134,7 @@ def fused_conv_fwd(
     alpha_inv: int = 10,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused conv training forward: ``(a, z_star)``, both int32 (N,H,W,F).
 
@@ -113,15 +143,21 @@ def fused_conv_fwd(
     """
     alpha_inv = check_alpha_inv(alpha_inv, True)
     backend = resolve_backend(backend, x.device)
-    if resolve_conv_mode(conv_mode) == "materialise":
+    conv_mode = resolve_conv_mode(conv_mode)
+    if tiles is None:
+        tiles = autotune.resolve_tiles(
+            "conv_fwd", _conv_key(x, w.shape[0], w.shape[-1]), dtype=(x.dtype, w.dtype),
+            backend=backend, conv_mode=conv_mode)
+    if conv_mode == "materialise":
         n, h, w_sp, _ = x.shape
         f = w.shape[-1]
         patches, w_flat = conv_im2col_operands(w, x)
         a2, z2 = fused_matmul_fwd(patches, w_flat, sf=sf, alpha_inv=alpha_inv,
-                                  backend=backend)
+                                  backend=backend, tiles=tiles)
         return a2.reshape(n, h, w_sp, f), z2.reshape(n, h, w_sp, f)
-    fn = conv_ref.stream_conv_fwd_ref if backend == "reference" else stream_conv_fwd
-    return fn(x, w, sf=sf, alpha_inv=alpha_inv)
+    if backend == "reference":
+        return conv_ref.stream_conv_fwd_ref(x, w, sf=sf, alpha_inv=alpha_inv, bh=_bh(tiles))
+    return stream_conv_fwd(x, w, sf=sf, alpha_inv=alpha_inv)
 
 
 def conv_grad_w(
@@ -133,6 +169,7 @@ def conv_grad_w(
     alpha_inv: int = 10,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
 ) -> torch.Tensor:
     """Conv weight gradient: (N,H,W,C) × (N,H,W,F) → (K,K,C,F) int32.
 
@@ -143,7 +180,13 @@ def conv_grad_w(
     backend = resolve_backend(backend, x.device)
     if z_star is not None:
         alpha_inv = check_alpha_inv(alpha_inv, True)
-    if resolve_conv_mode(conv_mode) == "materialise":
+    conv_mode = resolve_conv_mode(conv_mode)
+    if tiles is None and conv_mode != "materialise":
+        tiles = autotune.resolve_tiles(
+            "conv_grad_w", _conv_key(x, kernel_size, grad_out.shape[-1]),
+            dtype=(x.dtype, grad_out.dtype), backend=backend, conv_mode=conv_mode,
+            fuse_bwd=z_star is not None)
+    if conv_mode == "materialise":
         if z_star is not None:
             grad_out = masked_delta(grad_out, z_star, alpha_inv)
         n, h, w_sp, c = x.shape
@@ -152,9 +195,12 @@ def conv_grad_w(
         patches = im2col(x, k, k // 2).reshape(n * h * w_sp, k * k * c)
         g_flat = grad_out.reshape(n * h * w_sp, f)
         return int_matmul(patches.T, g_flat).reshape(k, k, c, f)
-    fn = conv_ref.stream_conv_grad_w_ref if backend == "reference" else stream_conv_grad_w
-    return fn(x, grad_out, kernel_size=kernel_size, z_star=z_star,
-              alpha_inv=alpha_inv)
+    if backend == "reference":
+        return conv_ref.stream_conv_grad_w_ref(x, grad_out, kernel_size=kernel_size,
+                                               z_star=z_star, alpha_inv=alpha_inv,
+                                               bh=_bh(tiles))
+    return stream_conv_grad_w(x, grad_out, kernel_size=kernel_size, z_star=z_star,
+                              alpha_inv=alpha_inv)
 
 
 def conv_grad_w_opt(
@@ -169,6 +215,7 @@ def conv_grad_w_opt(
     alpha_inv: int = 10,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
 ) -> torch.Tensor:
     """Conv weight *update*: ``conv_grad_w`` with IntegerSGD applied in the
     streaming kernel's flush — returns W′ (K,K,C,F), grad_W never written.
@@ -186,10 +233,17 @@ def conv_grad_w_opt(
             "kernel flush to fuse the optimiser into — compute conv_grad_w "
             "and apply optimizer.apply_update instead"
         )
-    fn = (conv_ref.stream_conv_grad_w_opt_ref if backend == "reference"
-          else stream_conv_grad_w_opt)
-    return fn(x, grad_out, z_star, w, gamma_inv, eta_inv,
-              kernel_size=kernel_size, alpha_inv=alpha_inv)
+    if tiles is None:
+        tiles = autotune.resolve_tiles(
+            "conv_grad_w", _conv_key(x, kernel_size, grad_out.shape[-1]),
+            dtype=(x.dtype, grad_out.dtype), backend=backend, conv_mode=conv_mode,
+            fuse_bwd=True, fuse_opt=True)
+    if backend == "reference":
+        return conv_ref.stream_conv_grad_w_opt_ref(
+            x, grad_out, z_star, w, gamma_inv, eta_inv, kernel_size=kernel_size,
+            alpha_inv=alpha_inv, bh=_bh(tiles))
+    return stream_conv_grad_w_opt(x, grad_out, z_star, w, gamma_inv, eta_inv,
+                                  kernel_size=kernel_size, alpha_inv=alpha_inv)
 
 
 def conv_grad_x(
@@ -200,6 +254,7 @@ def conv_grad_x(
     alpha_inv: int = 10,
     backend: str = "auto",
     conv_mode: str = "stream",
+    tiles: TileConfig | None = None,
 ) -> torch.Tensor:
     """Conv input gradient: the 'full' correlation of ``grad_out`` with
     ``rot180_swap(w)``, one more conv with unit scale and no activation.
@@ -214,7 +269,13 @@ def conv_grad_x(
     backend = resolve_backend(backend, grad_out.device)
     if z_star is not None:
         alpha_inv = check_alpha_inv(alpha_inv, True)
-    if resolve_conv_mode(conv_mode) == "materialise":
+    conv_mode = resolve_conv_mode(conv_mode)
+    if tiles is None and conv_mode != "materialise":
+        tiles = autotune.resolve_tiles(
+            "conv_grad_x", _conv_key(grad_out, w.shape[0], w.shape[2]),
+            dtype=(grad_out.dtype, w.dtype), backend=backend, conv_mode=conv_mode,
+            fuse_bwd=z_star is not None)
+    if conv_mode == "materialise":
         if z_star is not None:
             grad_out = masked_delta(grad_out, z_star, alpha_inv)
         n, h, w_sp, _ = grad_out.shape
@@ -222,7 +283,7 @@ def conv_grad_x(
         return int_matmul(g_patches, w_rot_flat).reshape(n, h, w_sp, w.shape[2])
     if backend == "reference":
         return conv_ref.stream_conv_grad_x_ref(grad_out, w, z_star=z_star,
-                                               alpha_inv=alpha_inv)
+                                               alpha_inv=alpha_inv, bh=_bh(tiles))
     if z_star is not None:
         return stream_conv_grad_x(grad_out, z_star, w, alpha_inv=alpha_inv)
     return stream_conv(grad_out, conv_ref.rot180_swap(w), sf=1, apply_relu=False,

@@ -11,12 +11,21 @@ Backends:
   * ``'auto'``      — ``cuda`` for CUDA tensors, ``reference`` for CPU ones.
 
 ``'cuda'`` on a CPU tensor raises; nothing falls back to another backend.
+
+Every entry point takes ``tiles`` (a ``kernels.autotune.TileConfig``):
+``None`` looks the problem up in the process-wide autotune cache, under
+the JAX package's key, and counts the hit or miss.  No matmul has a
+run-time knob (the kernels' tiles are compiled in, the plain versions
+have none), so the tiles change nothing here; a tile choice never changes
+a result.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.autotune import state as autotune
+from repro_torch.kernels.autotune.tiles import TileConfig
 from repro_torch.kernels.nitro_matmul.nitro_matmul import (
     nitro_matmul,
     nitro_matmul_fwd,
@@ -109,15 +118,25 @@ def fused_matmul(
     apply_relu: bool = True,
     out_dtype: torch.dtype = torch.int32,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
     operand_dtype: str = "auto",
+    key_w_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """One fused matmul+scale(+relu) on 2-D operands — the inference step."""
+    """One fused matmul+scale(+relu) on 2-D operands — the inference step.
+
+    ``key_w_dtype`` is the weight dtype the autotune key names (default
+    w2's): a plan that holds an int32 copy of an int8 frozen weight keys
+    it as int8, as the JAX plan does."""
     backend = resolve_backend(backend, x2.device)
     alpha_inv = check_alpha_inv(alpha_inv, apply_relu)
     od = resolve_operand_dtype(operand_dtype, x2, w2)
     if od == "int8":
         x2 = _guard_int8(x2, "x")
         w2 = _guard_int8(w2, "w")
+    if tiles is None:
+        autotune.resolve_tiles(
+            "matmul", (x2.shape[0], x2.shape[1], w2.shape[1]),
+            dtype=(x2.dtype, key_w_dtype or w2.dtype), backend=backend)
     fn = nitro_matmul_ref if backend == "reference" else nitro_matmul
     return fn(
         x2, w2, sf=sf, alpha_inv=alpha_inv, apply_relu=apply_relu,
@@ -132,6 +151,7 @@ def fused_matmul_fwd(
     sf: int,
     alpha_inv: int = 10,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused training forward on 2-D operands: ``(a, z_star)``, both int32.
 
@@ -140,6 +160,10 @@ def fused_matmul_fwd(
     """
     backend = resolve_backend(backend, x2.device)
     alpha_inv = check_alpha_inv(alpha_inv, True)
+    if tiles is None:
+        autotune.resolve_tiles(
+            "matmul_fwd", (x2.shape[0], x2.shape[1], w2.shape[1]),
+            dtype=(x2.dtype, w2.dtype), backend=backend)
     fn = nitro_matmul_fwd_ref if backend == "reference" else nitro_matmul_fwd
     return fn(x2, w2, sf=sf, alpha_inv=alpha_inv)
 
@@ -151,11 +175,16 @@ def grad_w_matmul(
     *,
     alpha_inv: int = 10,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
 ) -> torch.Tensor:
     """Fused weight gradient ``x2ᵀ @ relu_bwd(z*, δ)``, the NITRO-ReLU
     derivative applied to δ as the kernel loads it."""
     backend = resolve_backend(backend, x2.device)
     alpha_inv = check_alpha_inv(alpha_inv, True)
+    if tiles is None:
+        autotune.resolve_tiles(
+            "matmul_grad_w", (x2.shape[0], x2.shape[1], delta2.shape[1]),
+            dtype=(x2.dtype, delta2.dtype), backend=backend, fuse_bwd=True)
     fn = nitro_matmul_grad_w_ref if backend == "reference" else nitro_matmul_grad_w
     return fn(x2, delta2, z_star2, alpha_inv=alpha_inv)
 
@@ -170,6 +199,7 @@ def grad_w_opt_matmul(
     *,
     alpha_inv: int = 10,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
 ) -> torch.Tensor:
     """Fused weight *update* on 2-D operands: returns W′.
 
@@ -180,6 +210,11 @@ def grad_w_opt_matmul(
     """
     backend = resolve_backend(backend, x2.device)
     alpha_inv = check_alpha_inv(alpha_inv, True)
+    if tiles is None:
+        autotune.resolve_tiles(
+            "matmul_grad_w", (x2.shape[0], x2.shape[1], delta2.shape[1]),
+            dtype=(x2.dtype, delta2.dtype), backend=backend, fuse_bwd=True,
+            fuse_opt=True)
     fn = (nitro_matmul_grad_w_opt_ref if backend == "reference"
           else nitro_matmul_grad_w_opt)
     return fn(x2, delta2, z_star2, w2, gamma_inv, eta_inv, alpha_inv=alpha_inv)
@@ -192,11 +227,16 @@ def grad_x_matmul(
     *,
     alpha_inv: int = 10,
     backend: str = "auto",
+    tiles: TileConfig | None = None,
 ) -> torch.Tensor:
     """Fused input gradient ``relu_bwd(z*, δ) @ w2ᵀ`` on 2-D operands, the
     NITRO-ReLU derivative applied to δ as the kernel loads it and w2 read
     in its natural (fan_in, fan_out) layout."""
     backend = resolve_backend(backend, delta2.device)
     alpha_inv = check_alpha_inv(alpha_inv, True)
+    if tiles is None:
+        autotune.resolve_tiles(
+            "matmul_grad_x", (delta2.shape[0], delta2.shape[1], w2.shape[0]),
+            dtype=(delta2.dtype, w2.dtype), backend=backend, fuse_bwd=True)
     fn = nitro_matmul_grad_x_ref if backend == "reference" else nitro_matmul_grad_x
     return fn(delta2, z_star2, w2, alpha_inv=alpha_inv)

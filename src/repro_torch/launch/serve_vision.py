@@ -25,6 +25,12 @@
     PYTHONPATH=src python -m repro_torch.launch.serve_vision --device cpu \
         --scale 0.0625 --metrics-port 0 --trace-out /tmp/serve_trace.jsonl
 
+    # tune every loaded plan at this --batch before serving (on the CPU
+    # the plain stream conv's band height; a second run with the same
+    # cache measures nothing):
+    PYTHONPATH=src python -m repro_torch.launch.serve_vision --device cpu \
+        --scale 0.0625 --autotune --autotune-cache /tmp/tile_cache.json
+
 Every ``--model-dir`` is ``NAME=PATH`` (bare ``PATH`` gets the model id
 ``default``).  Requests route through the continuous-batching
 ``FleetEngine``; ``--scheduler static`` runs the single-model
@@ -36,7 +42,12 @@ both packages serve the same requests on the same arms for the same
 arguments.  ``--metrics-port`` serves the run's ``MetricRegistry`` at
 ``/metrics`` (the CLI scrapes its own endpoint at the end and prints the
 headline samples); ``--trace-out`` writes the fleet's batch-lifecycle
-spans as JSONL.  Not ported yet: ``--autotune``.
+spans as JSONL.  ``--autotune`` tunes every loaded plan's problems at
+``--batch`` (``autotune.tune_plan``) into ``--autotune-cache`` (default:
+``tile_cache.json`` in the working directory) before the engines warm
+up, bitwise the untuned run; with ``--metrics-port`` the tile lookups and
+each plan step's int8-operand choice (``kernel_int8_path_active``) are on
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -162,6 +173,13 @@ def _parser() -> argparse.ArgumentParser:
                     help="auto = int8 operands wherever the int8 fit is "
                          "provable (bitwise-identical), int32 = always "
                          "lift, int8 = force (error if no step qualifies)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the kernels' run-time knobs for every loaded "
+                         "plan at this --batch before serving (bitwise "
+                         "result-invariant)")
+    ap.add_argument("--autotune-cache", default=None,
+                    help="tile-cache JSON path (default: tile_cache.json "
+                         "in the cwd)")
     ap.add_argument("--scheduler", default="continuous",
                     choices=["continuous", "static"],
                     help="continuous = FleetEngine (double-buffered); "
@@ -262,7 +280,23 @@ def _serve(args, device, metrics, server) -> dict:
         from repro_torch.obs import Tracer
         tracer = Tracer()
 
+    if args.autotune and metrics is not None:
+        # before the registry compiles the plans, so that each step's
+        # int8-operand choice lands on the gauge (the JAX launcher attaches
+        # the metrics after compiling, and its gauge stays empty)
+        from repro_torch.kernels import autotune as at
+        at.set_metrics(metrics)
     registry, manifest_splits = _build_registry(args, metrics=metrics)
+    if args.autotune:
+        # tune before the engines' warm-up: the dispatchers look the
+        # winners up from their first launch
+        from repro_torch.kernels import autotune as at
+        cache = at.TileCache(args.autotune_cache or at.CACHE_FILENAME, device=device)
+        tuned = 0
+        for mid in registry.ids():
+            tuned += len(at.tune_plan(registry.get(mid).plan, args.batch, cache=cache))
+        at.configure(cache)
+        print(f"[autotune] {tuned} problems tuned/cached -> {cache.path}")
     if args.slo is not None:
         # one objective for the whole fleet: the launcher serves a single
         # workload, so every arm is scored against the same deadline

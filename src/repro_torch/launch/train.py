@@ -25,6 +25,12 @@ flattened images) and the CNNs (VGG8B / VGG11B).
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
         --steps 4 --num-devices 2 --dp-reduce ring
 
+    # tune the step's kernel problems for this arch and batch first (on
+    # the CPU the plain stream conv's band height; the cache goes beside
+    # the checkpoints; a second run measures nothing):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b \
+        --steps 4 --batch 8 --scale 0.0625 --device cpu --autotune --ckpt-dir /tmp/ckpt
+
 The data, the init and the dropout key of step ``it`` are those of the
 JAX launcher, so both give the same trajectory and the same test accuracy
 for the same arguments.  ``--ckpt-dir`` saves every 200 steps and at the
@@ -43,7 +49,12 @@ trajectory is the single-device one bit for bit; the ``[dp]`` line names
 the backend and each rank's card.  Every rank builds the same data and
 restores from ``--ckpt-dir``; rank 0 alone prints, checkpoints, writes
 telemetry, alerts and the trace, serves ``/metrics``, evaluates and
-returns the result.  Not ported yet: autotuning, the LM trainer.
+returns the result.  ``--autotune`` tunes every kernel problem of the
+step for this arch and batch before the first step (``autotune.tune_training``:
+the plain stream conv's band height on the CPU; the CUDA kernels have no
+run-time knob, so on the card it tunes nothing and only counts lookups) into ``--autotune-cache`` (default:
+``tile_cache.json`` beside the checkpoints), bitwise the untuned run.
+Not ported yet: the LM trainer.
 """
 
 from __future__ import annotations
@@ -80,7 +91,8 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
                 telemetry_every: int = 0, telemetry_out: str | None = None,
                 trace_out: str | None = None, metrics_port: int | None = None,
                 alerts_out: str | None = None, num_devices: int = 1,
-                dp_reduce: str = "psum") -> dict:
+                dp_reduce: str = "psum", autotune: bool = False,
+                autotune_cache: str | None = None) -> dict:
     """Integer-only NITRO-D training, then test accuracy.
 
     ``telemetry_every=N`` runs every N-th step with ``telemetry=True``
@@ -108,6 +120,17 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
     (``parallel.dp``, the reducer ``dp_reduce``): bitwise the
     single-device trajectory, rank 0's result returned (its tensors on
     the host).
+
+    ``autotune=True`` tunes every kernel problem of this (arch, batch)
+    before the first step (``kernels.autotune.tune_training`` on this
+    device and backend) into ``autotune_cache`` (default:
+    ``tile_cache.json`` beside the checkpoints), configures it for the
+    dispatchers and counts their lookups on the run's registry; a tile
+    choice never changes a result.  Under ``num_devices > 1`` rank 0 tunes
+    at the global batch, as the JAX launcher does, and every rank
+    configures the file after a barrier; the ranks look their shard-sized
+    problems up, which that tuning does not cover (JAX's shard-shaped
+    lookups miss the same way).
     """
     if arch not in ARCHS:
         raise ValueError(f"arch {arch!r} is not ported; one of {ARCHS}")
@@ -117,7 +140,7 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
               backend=backend, fuse_opt=fuse_opt, ckpt_dir=ckpt_dir,
               telemetry_every=telemetry_every, telemetry_out=telemetry_out,
               trace_out=trace_out, metrics_port=metrics_port, alerts_out=alerts_out,
-              dp_reduce=dp_reduce)
+              dp_reduce=dp_reduce, autotune=autotune, autotune_cache=autotune_cache)
     if num_devices == 1:
         return _train(arch, axis=None, device=resolve_device(device), **kw)
     if batch % num_devices:
@@ -148,7 +171,8 @@ def _train(arch: str, *, axis, device: torch.device, steps: int, batch: int,
            dataset: str, scale: float, seed: int, backend: str, fuse_opt: bool,
            ckpt_dir: str | None, telemetry_every: int, telemetry_out: str | None,
            trace_out: str | None, metrics_port: int | None,
-           alerts_out: str | None, dp_reduce: str) -> dict | None:
+           alerts_out: str | None, dp_reduce: str, autotune: bool,
+           autotune_cache: str | None) -> dict | None:
     """``train_nitro`` on one device (``axis=None``) or as one rank of a
     data-parallel run (``None`` on every rank but 0)."""
     lead = axis is None or axis.rank == 0
@@ -166,6 +190,18 @@ def _train(arch: str, *, axis, device: torch.device, steps: int, batch: int,
     if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
         state, start_step = ckpt.restore(ckpt_dir, state)
         say(f"[restore] resumed from step {start_step}")
+
+    if autotune:
+        from repro_torch.kernels import autotune as at
+        cache_path = autotune_cache or os.path.join(ckpt_dir or ".", at.CACHE_FILENAME)
+        tuned = {}
+        if lead:
+            tuned = at.tune_training(cfg, batch, cache=at.TileCache(cache_path, device=device),
+                                     backend=backend, device=device)
+        if axis is not None:  # the file is whole before any rank reads it
+            torch.distributed.barrier(group=axis.group)
+        cache = at.configure(cache_path, device=device)
+        say(f"[autotune] {len(tuned)} problems tuned/cached -> {cache.path}")
 
     if axis is None:
         def step_fn(state, x, y, key, telemetry):
@@ -193,6 +229,8 @@ def _train(arch: str, *, axis, device: torch.device, steps: int, batch: int,
     # returned, so the trajectory is untouched
     registry = MetricRegistry()
     register_build_info(registry, backend=device.type)
+    if autotune:  # count the dispatchers' tile lookups (hits vs fallbacks)
+        at.set_metrics(registry)
     step_seconds = registry.histogram(
         "train_step_seconds", "wall time per training step")
     straggler_events = registry.counter(
@@ -334,6 +372,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-reduce", default="psum", choices=dp.REDUCERS,
                     help="gradient all-reduce: the backend's, a ring of "
                          "point-to-point sends, or int8 limb planes (all exact)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="tune the kernels' run-time knobs for this arch and "
+                         "batch before training (bitwise the same run)")
+    ap.add_argument("--autotune-cache",
+                    help="tile-cache JSON path (default: tile_cache.json "
+                         "next to the checkpoints)")
     return ap
 
 
@@ -349,7 +393,8 @@ def main(argv=None) -> dict:
                        trace_out=args.trace_out,
                        metrics_port=args.metrics_port,
                        alerts_out=args.alerts_out,
-                       num_devices=args.num_devices, dp_reduce=args.dp_reduce)
+                       num_devices=args.num_devices, dp_reduce=args.dp_reduce,
+                       autotune=args.autotune, autotune_cache=args.autotune_cache)
 
 
 if __name__ == "__main__":

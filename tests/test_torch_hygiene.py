@@ -48,7 +48,10 @@ def test_port_imports_no_jax_and_no_repro():
                 "obs/metrics.py", "obs/trace.py", "obs/telemetry.py", "obs/health.py",
                 "launch/obs_top.py", "train/fault_tolerance.py", "parallel/__init__.py",
                 "parallel/dp.py", "parallel/collectives.py", "parallel/compress.py",
-                "parallel/sharding.py", "parallel/tree.py"):
+                "parallel/sharding.py", "parallel/tree.py", "kernels/autotune/__init__.py",
+                "kernels/autotune/tiles.py", "kernels/autotune/measure.py",
+                "kernels/autotune/cache.py", "kernels/autotune/state.py",
+                "kernels/autotune/search.py"):
         assert PORT / new in files
     assert EXAMPLES / "serve_cifar.py" in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
@@ -70,6 +73,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.obs, repro_torch.obs.telemetry, repro_torch.launch.obs_top\n"
         "import repro_torch.parallel.dp, repro_torch.parallel.collectives\n"
         "import repro_torch.parallel.compress, repro_torch.parallel.sharding\n"
+        "import repro_torch.kernels.autotune, repro_torch.kernels.autotune.search\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
@@ -171,6 +175,31 @@ def test_observability_entry_points_raise_without_cuda(no_cuda, tmp_path):
                            "--metrics-port", "0",
                            "--trace-out", str(tmp_path / "serve_trace.jsonl")])
     assert list(tmp_path.iterdir()) == []
+
+
+def test_autotune_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The autotuner measures on the card unless told otherwise: ``tune``
+    and ``tune_training`` on the default device and ``--autotune`` in both
+    CLIs raise without one, and write no cache first."""
+    from repro_torch.configs import get_paper_config
+    from repro_torch.kernels import autotune as at
+    from repro_torch.launch import serve_vision, train
+
+    cache = at.TileCache(str(tmp_path / "tile_cache.json"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        at.tune("matmul", (8, 8, 8))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        at.tune_training(get_paper_config("vgg8b", scale=0.0625), 4, cache=cache)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--arch", "vgg8b", "--steps", "1", "--scale", "0.0625", "--autotune",
+                    "--autotune-cache", cache.path])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train_nitro("mlp1", steps=1, scale=0.1, autotune=True,
+                          autotune_cache=cache.path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_vision.main(["--arch", "mlp1", "--scale", "0.1", "--requests", "1",
+                           "--autotune", "--autotune-cache", cache.path])
+    assert list(tmp_path.iterdir()) == [] and at.active_cache() is None
 
 
 def _run_smoke(cwd: Path):
