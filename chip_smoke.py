@@ -177,7 +177,26 @@ Phases, each fatal on failure:
      and without ``metrics=`` + ``tracer=`` in turns; ``[obs-train]``: the
      VGG8B step host to host with observability off, tracer + metrics,
      telemetry every step and telemetry under ``fuse_opt``, in turns, and a
-     sampled step's extra device launches and device time.
+     sampled step's extra device launches and device time;
+ 10. the FP baselines at full width beside NITRO-D (no kernel of this
+     repo: cuDNN and cuBLAS, under ``fp_baselines.full_fp32``, no TF32):
+     (10a, ``[fp-parity]``) FP BP (Adam, lr 1e-3) and FP LES (SGD, lr
+     2e-2) on full-width VGG8B and FP BP on full-width mlp4 (p_l = 0.1),
+     4 steps each from ``init_fp_params(PRNGKey(0))`` on phase 5's and
+     phase 5e's batches (tiles32 ÷ 64.0) and keys, held against the same
+     steps on the port's CPU path: init bitwise, every dropout mask drawn
+     on the card bitwise the CPU's, every block's forward under IEEE
+     float32 settings (restored after), step 1's loss and gradient within
+     ``FP_STEP1_LOSS_TOL`` / ``FP_STEP1_GRAD_TOL``, later losses and the
+     final params (and Adam's moments) within ``FP_LOSS_TOL`` / ``FP_FINAL_TOL`` /
+     ``FP_FINAL_RMS``; (10b, ``[fp-mem]``) at VGG8B and mlp4, batch 64:
+     NITRO-D split, NITRO-D ``fuse_opt``, FP LES and FP BP, each one's
+     persistent state (params + optimiser state) and the peak bytes of one
+     step above what was allocated before it, and the reduction
+     1 − NITRO-D / FP BP beside the paper's 76.14% (its abstract's figure,
+     not measured here); (10c, ``[fp-step]``) FP BP, FP LES and the
+     NITRO-D split step at VGG8B batch 64 host to host in turns, with
+     each one's device time and busy share from ``torch.profiler``.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -3347,6 +3366,319 @@ def end_to_end(res, card: str) -> None:
           f"latency ms p50 {res['latency_ms']['p50']:.2f} p99 {res['latency_ms']['p99']:.2f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the FP baselines at full width, beside NITRO-D
+# ---------------------------------------------------------------------------
+
+FP_LR = {"bp": 1e-3, "les": 2e-2}  # benchmarks/table2_cnn.py's rates: Adam, SGD
+#: card vs CPU, each max |card − CPU| / max |CPU| of a tensor, set from
+#: ``tools_torch/fp_rounding.py`` (how far float32 rounding alone moves these
+#: cells).  Step 1 starts from one init on one batch, so the two differ only
+#: in rounding order (cuDNN's sums against the CPU's): its loss is held
+#: tight.  A float32 gradient of this net is discontinuous at rounding-level
+#: ties (a max pool's argmax, the leaky ReLU's slope at 0), so at VGG8B's
+#: first FP BP step the card's and the CPU's float32 gradients each lie
+#: several 1e-3 of max |g| from float64, and from each other; it is read as
+#: FP LES's first update p1 − p0 = −lr·g and FP BP's first moments
+#: (mu = 0.1·g, nu = 0.001·g²).  Later steps carry those ties on, and Adam
+#: moves every weight by about ±lr whatever |g| is, so after 4 FP BP steps a
+#: weight can part by a tenth of its tensor's max while the RMS stays near
+#: 0.5%; the later losses, FP LES's params and every RMS stay close.
+FP_STEP1_LOSS_TOL = 1e-5
+FP_STEP1_GRAD_TOL = 5e-2
+FP_LOSS_TOL = {"bp": 2e-2, "les": 1e-4}   # every later step's loss
+FP_FINAL_TOL = {"bp": 0.5, "les": 1e-2}   # the final params (and Adam's moments)
+FP_FINAL_RMS = 5e-2   # FP BP's final params and moments: ‖card − CPU‖ / ‖CPU‖
+PAPER_MEM_REDUCTION = 76.14  # %, the paper's abstract ("up to"); not measured here
+
+
+def mlp_batches():
+    """The config and the (x, y, key) of each step of the phase 5e CLI run:
+    full-width mlp4 on the flattened tiles32, its first epoch's batches and
+    ``PRNGKey(step)``."""
+    import itertools
+
+    import torch
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import prng
+    from repro_torch.data import synthetic
+
+    ds = synthetic.flatten_for_mlp(
+        synthetic.make_image_dataset("tiles32", n_train=4096, n_test=512, seed=0))
+    cfg = get_paper_config("mlp4", scale=1.0)
+    if cfg.input_shape != ds.input_shape:
+        die(f"mlp4 input {cfg.input_shape} != the flattened tiles32 {ds.input_shape}")
+    pairs = itertools.islice(synthetic.batches(ds.x_train, ds.y_train, TRAIN_BATCH, seed=0),
+                             TRAIN_STEPS)
+    return cfg, [(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(), prng.PRNGKey(it))
+                 for it, (x, y) in enumerate(pairs)]
+
+
+def tf32_flags() -> tuple:
+    """cuDNN conv's and cuBLAS matmul's float32 precision settings."""
+    import torch
+
+    return (torch.backends.cudnn.conv.fp32_precision,
+            torch.backends.cuda.matmul.fp32_precision)
+
+
+def fp_input(x):
+    """tiles32's int32 pixels as the FP baselines take them: float32 ÷ 64.0
+    (``benchmarks/table2_cnn.py``)."""
+    import torch
+
+    return x.to(torch.float32) / 64.0
+
+
+def fp_trajectory(kind: str, cfg, steps, device: str):
+    """FP BP (``kind`` "bp", Adam) or FP LES ("les", SGD) from
+    ``init_fp_params(PRNGKey(0))`` over ``steps``' (x, y, key) on
+    ``device``: (init params, [(params, Adam state or None, loss)] after
+    each step, every dropout mask drawn, the float32 settings each block's
+    forward ran under)."""
+    from repro_torch.core import fp_baselines as fp
+    from repro_torch.core import prng
+
+    masks, seen = [], []
+    real_bernoulli, real_block = prng.bernoulli, fp._block_forward
+
+    def bernoulli(key, p, shape, *, device="cpu"):
+        masks.append(real_bernoulli(key, p, shape, device=device))
+        return masks[-1]
+
+    def block(*args, **kwargs):
+        seen.append(tf32_flags())
+        return real_block(*args, **kwargs)
+
+    params = init = fp.init_fp_params(prng.PRNGKey(0), cfg, device=device)
+    opt = fp.adam_init(params) if kind == "bp" else None
+    out = []
+    prng.bernoulli, fp._block_forward = bernoulli, block
+    try:
+        for x, y, key in steps:
+            x, y = fp_input(x.to(device)), y.to(device)
+            if kind == "bp":
+                params, opt, loss = fp.train_step_bp(params, opt, cfg, x, y, key,
+                                                     lr=FP_LR["bp"])
+            else:
+                params, loss = fp.train_step_les(params, cfg, x, y, key, lr=FP_LR["les"])
+            out.append((params, opt, loss))
+    finally:
+        prng.bernoulli, fp._block_forward = real_bernoulli, real_block
+    return init, out, masks, seen
+
+
+def _dev(got, want) -> tuple[float, float]:
+    """(max |got − want| / max |want|, ‖got − want‖ / ‖want‖) in float64."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    d = got - want
+    return (float(d.abs().max() / want.abs().max().clamp_min(1e-30)),
+            float(d.norm() / want.norm().clamp_min(1e-30)))
+
+
+def fp_parity(tag: str, kind: str, cfg, steps, card_name: str) -> None:
+    """Phase 10a for one cell: the card's run held against the CPU's on the
+    same steps; dies past a tolerance, else prints the largest deviations
+    seen."""
+    import torch
+    from repro_torch.parallel.tree import leaves
+
+    before = tf32_flags()
+    init, card, masks, seen = fp_trajectory(kind, cfg, steps, "cuda")
+    if tf32_flags() != before:
+        die(f"10a {tag}: the FP calls left the float32 settings at {tf32_flags()}, "
+            f"were {before}")
+    if set(seen) != {("ieee", "ieee")}:
+        die(f"10a {tag}: a block ran under the float32 settings {set(seen)} (TF32 on)")
+    t0 = time.perf_counter()
+    cinit, cpu, cmasks, _ = fp_trajectory(kind, cfg, [(x.cpu(), y.cpu(), k)
+                                                     for x, y, k in steps], "cpu")
+    cpu_s = time.perf_counter() - t0
+    for a, b in zip(leaves(init), leaves(cinit)):
+        if not torch.equal(a.cpu(), b):
+            die(f"10a {tag}: init_fp_params on the card differs from the CPU's")
+    if len(masks) != len(cmasks) or (any(b.dropout > 0 for b in cfg.blocks) and not cmasks):
+        die(f"10a {tag}: {len(masks)} dropout masks on the card, {len(cmasks)} on the CPU")
+    for i, (m, c) in enumerate(zip(masks, cmasks)):
+        if m.device.type != "cuda" or not torch.equal(m.cpu(), c):
+            die(f"10a {tag}: dropout mask {i} on the card differs from the CPU's")
+    worst = {"loss1": 0.0, "grad1": 0.0, "loss": 0.0, "final": 0.0, "final_rms": 0.0}
+    for i, ((_, _, loss), (_, _, closs)) in enumerate(zip(card, cpu)):
+        rel = abs(float(loss) - float(closs)) / max(abs(float(closs)), 1e-30)
+        key, tol = ("loss1", FP_STEP1_LOSS_TOL) if i == 0 else ("loss", FP_LOSS_TOL[kind])
+        worst[key] = max(worst[key], rel)
+        if not rel <= tol:
+            die(f"10a {tag}: step {i} loss {float(loss)} vs CPU {float(closs)} "
+                f"(rel {rel:.3e} > {tol})")
+    p1, o1, _ = card[0]
+    cp1, co1, _ = cpu[0]
+    if kind == "bp":
+        grads = list(zip(leaves(o1.mu) + leaves(o1.nu), leaves(co1.mu) + leaves(co1.nu)))
+    else:
+        grads = [(a - b, c - d) for a, b, c, d in
+                 zip(leaves(p1), leaves(init), leaves(cp1), leaves(cinit))]
+    for a, b in grads:
+        if b.abs().max() > 0:
+            worst["grad1"] = max(worst["grad1"], _dev(a, b)[0])
+    if not worst["grad1"] <= FP_STEP1_GRAD_TOL:
+        die(f"10a {tag}: step 1's gradient deviates {worst['grad1']:.3e} > "
+            f"{FP_STEP1_GRAD_TOL}")
+    (pn, on, _), (cpn, con, _) = card[-1], cpu[-1]
+    finals = list(zip(leaves(pn), leaves(cpn)))
+    if kind == "bp":
+        finals += list(zip(leaves(on.mu) + leaves(on.nu), leaves(con.mu) + leaves(con.nu)))
+        if int(on.count) != int(con.count) or on.count.dtype != con.count.dtype:
+            die(f"10a {tag}: Adam counts {on.count} vs {con.count}")
+    for a, b in finals:
+        if b.abs().max() == 0:
+            if a.abs().max() != 0:
+                die(f"10a {tag}: a tensor zero on the CPU is not on the card")
+            continue
+        mx, rms = _dev(a, b)
+        worst["final"], worst["final_rms"] = max(worst["final"], mx), max(worst["final_rms"], rms)
+    if not worst["final"] <= FP_FINAL_TOL[kind] or \
+            (kind == "bp" and not worst["final_rms"] <= FP_FINAL_RMS):
+        die(f"10a {tag}: after {len(cpu)} steps the state deviates {worst['final']:.3e} "
+            f"(RMS {worst['final_rms']:.3e}) > {FP_FINAL_TOL[kind]}")
+    what = "Adam" if kind == "bp" else "SGD"
+    print(f"[fp-parity] {card_name} | {tag}: FP {kind.upper()} ({what}, lr {FP_LR[kind]}) "
+          f"{len(card)} steps on the card, held against the CPU's ({cpu_s:.1f} s there): init "
+          f"bitwise, {len(cmasks)} dropout masks bitwise, {len(seen)} block forwards under "
+          f"float32 settings {sorted(set(map(str, seen)))}; max deviation: step 1 loss "
+          f"{worst['loss1']:.3e} (tol {FP_STEP1_LOSS_TOL}), gradient {worst['grad1']:.3e} "
+          f"(tol {FP_STEP1_GRAD_TOL}), later "
+          f"losses {worst['loss']:.3e} (tol {FP_LOSS_TOL[kind]}), final "
+          f"{'params and moments' if kind == 'bp' else 'params'} {worst['final']:.3e} "
+          f"(tol {FP_FINAL_TOL[kind]}), RMS {worst['final_rms']:.3e}"
+          + (f" (tol {FP_FINAL_RMS})" if kind == "bp" else ""))
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in ``tree``."""
+    from repro_torch.parallel.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree))
+
+
+def step_peak(step) -> int:
+    """Peak bytes allocated on the card during one ``step()`` above those
+    allocated just before it, after one warm-up call."""
+    import torch
+
+    step()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del out
+    return peak
+
+
+def fp_arms(cfg, batch) -> dict:
+    """name → (persistent state, one step on ``batch``) of NITRO-D split,
+    NITRO-D ``fuse_opt``, FP LES and FP BP from ``PRNGKey(0)``, on the card.
+    The state is the params and the optimiser state (IntegerSGD's scalars;
+    Adam's two moments and count; SGD keeps none)."""
+    from repro_torch.core import fp_baselines as fp
+    from repro_torch.core import les, prng
+
+    x, y, key = batch
+    xf = fp_input(x)
+    state = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda")
+    params = fp.init_fp_params(prng.PRNGKey(0), cfg, device="cuda")
+    opt = fp.adam_init(params)
+    return {
+        "NITRO-D split": (state, lambda: les.train_step(state, cfg, x, y, key)),
+        "NITRO-D fuse_opt": (state, lambda: les.train_step(state, cfg, x, y, key,
+                                                           fuse_opt=True)),
+        "FP LES": (params, lambda: fp.train_step_les(params, cfg, xf, y, key,
+                                                     lr=FP_LR["les"])),
+        "FP BP": ((params, opt), lambda: fp.train_step_bp(params, opt, cfg, xf, y, key,
+                                                          lr=FP_LR["bp"])),
+    }
+
+
+def fp_memory(tag: str, cfg, batch, card: str) -> None:
+    """Phase 10b, ``[fp-mem]``: each arm's persistent state and the peak of
+    one step above what was allocated before it; the reduction against FP
+    BP beside the paper's figure."""
+    mem = {name: (tree_bytes(state), step_peak(step))
+           for name, (state, step) in fp_arms(cfg, batch).items()}
+    bp_state, bp_peak = mem["FP BP"]
+
+    def red(name, i=None):
+        s, p = mem[name]
+        mine, theirs = (s + p, bp_state + bp_peak) if i is None else (mem[name][i],
+                                                                     mem["FP BP"][i])
+        return 100 * (1 - mine / theirs)
+
+    parts = " | ".join(f"{k}: state {s / 1e6:.2f} MB + step peak {p / 1e6:.2f} MB = "
+                       f"{(s + p) / 1e6:.2f} MB" for k, (s, p) in mem.items())
+    print(f"[fp-mem] {card} | {tag} full width, batch {TRAIN_BATCH}; device bytes "
+          f"allocated: state (params + optimiser state) and the peak of one step above "
+          f"what was allocated before it (torch.cuda.max_memory_allocated, after a "
+          f"warm-up step) | {parts} | reduction 1 - NITRO-D / FP BP: split "
+          f"{red('NITRO-D split'):.2f}%, fuse_opt {red('NITRO-D fuse_opt'):.2f}% (state "
+          f"alone {red('NITRO-D split', 0):.2f}%, step peak alone split "
+          f"{red('NITRO-D split', 1):.2f}%, fuse_opt {red('NITRO-D fuse_opt', 1):.2f}%) | "
+          f"the paper's figure, from its abstract, not measured here: up to "
+          f"{PAPER_MEM_REDUCTION}%")
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host milliseconds per call over ``iters`` calls ending in a
+    synchronise, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def fp_step_times(cfg, batch, card: str) -> None:
+    """Phase 10c, ``[fp-step]``: FP BP, FP LES and the NITRO-D split step at
+    VGG8B batch 64, host to host in turns A B C C B A, then each one's
+    device time and busy share under the profiler."""
+    arms = fp_arms(cfg, batch)
+    order = ["FP BP", "FP LES", "NITRO-D split"]
+    ms = {}
+    for name in order + order[::-1]:
+        t = host_ms(arms[name][1], iters=5)
+        ms[name] = min(ms.get(name, t), t)
+    parts = []
+    for name in order:
+        wall, kernels = device_profile(arms[name][1], 3)
+        busy = sum(v for v, _ in kernels.values()) / 3
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+        parts.append(f"{name} {ms[name]:.3f} ms ({TRAIN_BATCH / ms[name] * 1e3:.1f} img/s), "
+                     f"device {busy:.3f} ms ({100 * busy / (wall / 3):.1f}% busy; top: "
+                     + "; ".join(f"{k[:40]} {v / 3:.3f} ms x{n // 3}" for k, (v, n) in top)
+                     + ")")
+    print(f"[fp-step] {card} | VGG8B full width, batch {TRAIN_BATCH}, ms per step host to "
+          f"host (best of two turns of 5, in turns A B C C B A), device ms per step and busy "
+          f"share from torch.profiler (3 steps) | " + " | ".join(parts))
+
+
+def fp_phase(card: str) -> None:
+    """Phase 10: the FP baselines at full width beside NITRO-D."""
+    t0 = time.perf_counter()
+    cfg, steps = cli_batches()
+    mlp_cfg, mlp_steps = mlp_batches()
+    fp_parity("VGG8B", "bp", cfg, steps, card)
+    fp_parity("VGG8B", "les", cfg, steps, card)
+    fp_parity("mlp4", "bp", mlp_cfg, mlp_steps, card)
+    fp_memory("VGG8B", cfg, steps[0], card)
+    fp_memory("mlp4", mlp_cfg, mlp_steps[0], card)
+    fp_step_times(cfg, steps[0], card)
+    print(f"[fp] phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         die("src/repro_torch not found beside chip_smoke.py: run it from the "
@@ -3426,6 +3758,7 @@ def main() -> int:
     fleet_spans(fm, card)
     obs_serve(fm, card)
     obs_train(train_res, cfg, card)
+    fp_phase(card)
 
     print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
           f"{dict(PARITY_CASES)}")

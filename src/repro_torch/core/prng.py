@@ -4,13 +4,16 @@ The JAX package draws its integer init (``jax.random.randint``) and its
 dropout masks (``jax.random.bits``) from threefry2x32 with the
 partitionable counter layout (``jax_threefry_partitionable=True``).
 ``torch.Generator`` gives other numbers from the same seed, so this
-module reimplements the four calls the JAX package makes:
+module reimplements the calls the JAX package makes:
 
   * ``PRNGKey(seed)``        → the key (0, seed);
   * ``split(key, n)``        → row i is threefry(key, counter i);
   * ``bits(key, shape)``     → x0 ^ x1 of threefry(key, counter i) for
                                element i of the flattened shape;
-  * ``randint(key, shape, lo, hi)`` → JAX's ``_randint`` on int32.
+  * ``randint(key, shape, lo, hi)`` → JAX's ``_randint`` on int32;
+  * ``uniform(key, shape, lo, hi)`` / ``bernoulli(key, p, shape)`` →
+    JAX's float32 ``_uniform`` / ``_bernoulli`` (the FP baselines' He
+    init and dropout).
 
 The counter of element i is the pair (i >> 32, i & 0xffffffff).  A key
 is an int64 tensor of shape (2,) on the CPU holding two uint32 words;
@@ -20,6 +23,7 @@ draw's device, since torch's uint32 supports little arithmetic.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -116,3 +120,47 @@ def randint(key: torch.Tensor, shape, lo: int, hi: int, *,
     offset = (((higher % span) * mult) & _M32) + lower % span
     offset = (offset & _M32) % span
     return (offset + lo).to(torch.int32)
+
+
+def _fma_f32(f: torch.Tensor, d: np.float32, c: np.float32) -> torch.Tensor:
+    """float32 ``f·d + c`` rounded once, as a fused multiply-add gives it.
+
+    XLA's CPU backend contracts ``_uniform``'s multiply-add into one fma,
+    so the reference rounds once; float32 ``f * d + c`` in torch rounds
+    twice.  ``f·d`` of two float32 values is exact in float64 (48 bits);
+    the float64 sum may round, so its error (TwoSum, exact) decides a
+    round-to-odd fix-up: an inexact sum whose last bit is even moves one
+    float64 ulp toward the exact value.  A round-to-odd float64 rounds to
+    float32 (24 bits, 53 ≥ 24 + 2) as the exact value does, so the result
+    is the fma's on every device.
+    """
+    prod = f.double() * float(d)
+    s = prod + float(c)
+    bb = s - prod
+    err = (prod - (s - bb)) + (float(c) - bb)
+    inexact_even = (err != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where(inexact_even, torch.nextafter(s, toward), s).float()
+
+
+def uniform(key: torch.Tensor, shape, lo: float = 0.0, hi: float = 1.0, *,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, lo, hi)``, bit for bit.
+
+    The top 23 bits of each word become a float in [1, 2) (exponent of
+    1.0), minus 1; then ``max(lo, f·(hi − lo) + lo)`` with ``lo``, ``hi``
+    and ``hi − lo`` float32 and the multiply-add rounded once.
+    """
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    span = np.float32(hi32 - lo32)
+    mant = (bits(key, shape, device=device) >> 9) | 0x3F800000
+    f = mant.to(torch.int32).view(torch.float32) - 1.0
+    v = _fma_f32(f, span, lo32)
+    return torch.maximum(v, torch.tensor(lo32, dtype=torch.float32, device=v.device))
+
+
+def bernoulli(key: torch.Tensor, p: float, shape, *, device="cpu") -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``), bit for
+    bit: ``uniform(key, shape) < float32(p)``, a bool tensor."""
+    return uniform(key, shape, device=device) < float(np.float32(p))

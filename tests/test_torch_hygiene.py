@@ -51,9 +51,10 @@ def test_port_imports_no_jax_and_no_repro():
                 "parallel/sharding.py", "parallel/tree.py", "kernels/autotune/__init__.py",
                 "kernels/autotune/tiles.py", "kernels/autotune/measure.py",
                 "kernels/autotune/cache.py", "kernels/autotune/state.py",
-                "kernels/autotune/search.py"):
+                "kernels/autotune/search.py", "core/fp_baselines.py"):
         assert PORT / new in files
-    assert EXAMPLES / "serve_cifar.py" in files
+    for example in ("serve_cifar.py", "quickstart.py", "train_vgg8b.py"):
+        assert EXAMPLES / example in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
     assert not bad, bad
 
@@ -74,6 +75,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.parallel.dp, repro_torch.parallel.collectives\n"
         "import repro_torch.parallel.compress, repro_torch.parallel.sharding\n"
         "import repro_torch.kernels.autotune, repro_torch.kernels.autotune.search\n"
+        "import repro_torch.core.fp_baselines\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
@@ -154,6 +156,32 @@ def test_train_entry_points_raise_without_cuda(no_cuda):
         train.main(["--arch", "vgg8b", "--steps", "1", "--scale", "0.0625"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train.train_nitro("vgg8b", steps=1, scale=0.0625)
+
+
+def test_fp_baseline_entry_points_raise_without_cuda(no_cuda):
+    """The FP baselines default to the card, as every entry point does, and
+    raise without one; the examples' ``--device`` does too."""
+    import runpy
+
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import fp_baselines as fp
+    from repro_torch.core import prng
+
+    cfg = get_paper_config("mlp1", scale=0.1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fp.init_fp_params(prng.PRNGKey(0), cfg)
+    params = fp.init_fp_params(prng.PRNGKey(0), cfg, device="cpu")
+    tree = {"blocks": [{k: b[k].numpy() for k in ("fw", "lr")} for b in params["blocks"]],
+            "output": params["output"].numpy()}
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fp.fp_params_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fp.adam_state_from_numpy((tree, tree, np.int32(0)))
+    assert fp.fp_params_from_numpy(tree, device="cpu")["output"].device.type == "cpu"
+    for example, argv in (("quickstart.py", []), ("train_vgg8b.py", ["--steps", "1"])):
+        mod = runpy.run_path(str(EXAMPLES / example))
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod["main"](argv)
 
 
 def test_observability_entry_points_raise_without_cuda(no_cuda, tmp_path):
