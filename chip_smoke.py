@@ -197,14 +197,42 @@ Phases, each fatal on failure:
      not measured here); (10c, ``[fp-step]``) FP BP, FP LES and the
      NITRO-D split step at VGG8B batch 64 host to host in turns, with
      each one's device time and busy share from ``torch.profiler``.
+ 11. an integer-only card step and the LM training path: (11a) the
+     hand-written integer GEMM ``int_matmul`` (``numerics.int_matmul`` on
+     the card) bitwise ``int_matmul_ref`` (float64 limb GEMMs) twice at
+     the materialise conv shapes, the LM's int8 MLP products at full width
+     (2,048 tokens × 2,048 × 8,192 and back), ragged M/N/K, contractions
+     of 40,000 and 70,001 (split), full-range int32 with INT32_MIN/MAX and
+     an empty K; one VGG8B and one mlp4 train step on the card, every
+     int_matmul call of it recorded and held bitwise, counted, and the
+     same step under ``examples_torch/quickstart.py``'s float audit, which
+     must count 0; phase 5's split run must launch int_matmul 4 times
+     the VGG8B step's count; ``[int-matmul-step]`` its device time over a
+     VGG8B step's calls beside the limb GEMMs', ``[time]`` at the LM int8
+     shapes beside ``torch._int_mm``; (11b, ``[lm-parity]``) every LM
+     arch's smoke config 3 AdamW steps on the card against the port's CPU
+     path at its own dtype and in float32 with 2 LES groups (whisper
+     without), bf16 GEMMs with full-precision reductions, within ε, the
+     CPU path's rounding level from a float64 run
+     (``tools_torch/fp_rounding.py``'s ``float64_math``): gradient leaves
+     3 ε, losses ε, AdamW's mu 3 ε and nu 6 ε after each step, params
+     2.01 · Σ lr; (11c, ``[lm-step]``) llama3.2-1b's published config
+     (1.236 B params, 16 layers) through the LM trainer
+     (``train_lm(arch, cfg=get_config(arch))``) at batch 4 × seq 512, 4
+     steps: finite losses, step 1's within 1% of the same loss in float64
+     on the card (its offset from ln V printed); ms a step host to host,
+     a profiled step's device busy share, peak memory; then 2 steps with
+     ``int8_matmul=True``, every int_matmul call recorded and counted,
+     which must be some; ``[int-matmul-lm]`` one such step's calls:
+     int_matmul, the limb GEMMs and ``torch._int_mm``, device time.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
 the kernel summed over its step shapes and ``launches`` is its path's
 count; then, last, ``{"ok": true, "device": {...}}``.  ``ms`` is CUDA-event
 time over back-to-back launches, except for nitro_matmul, nitro_matmul_fwd,
-nitro_matmul_grad_w, nitro_matmul_grad_w_opt, nitro_matmul_grad_x and
-integer_sgd_update, whose launches are shorter than their wrappers' host
+nitro_matmul_grad_w, nitro_matmul_grad_w_opt, nitro_matmul_grad_x,
+integer_sgd_update and int_matmul, whose launches are shorter than their wrappers' host
 path: there it is the device time ``torch.profiler`` reports (for #1–#5
 every device operation of the call: the memset, the pre-passes and the
 GEMM, where there are; the back-to-back time is printed beside it).  The
@@ -219,7 +247,16 @@ Bound: the larger of ops / 1,979 TOP/s (the H100's dense int8 peak) and
 bytes / 3.35 TB/s (its memory rate), counting each input read once and
 each output written once.  No single PyTorch call computes the integer
 conv/matmul with the NITRO scale, ReLU or ReLU derivative, so
-``library_ms`` is null.
+``library_ms`` is null.  int_matmul's row is phase 5's VGG8B training
+path: its ``launches`` are the split run's (4 steps and the CLI's
+evaluation, 8 batches), its ``ms``, ``plain_ms`` and
+``bound_ms`` one step's 23 int32 products (``timed_on`` says so), and
+its ``library_ms`` null, since no PyTorch call multiplies int32 matrices
+on the card.  Beside them, ``launches_per_step`` gives each path's count
+a step (VGG8B, mlp4, the llama3.2-1b int8 run), and ``lm_int8`` the LM
+int8 path's own launches and its ``ms``, ``plain_ms``, ``bound_ms`` and
+``library_ms`` (``torch._int_mm`` on the same int8 operands) over one
+step's calls.
 """
 
 from __future__ import annotations
@@ -1711,9 +1748,16 @@ def train_path():
     the same run on the plain versions."""
     from repro_torch.launch import train
 
+    int_counter = int_matmul_counter()
+    int_counter.reset()
     res, launches = counted(lambda: train.main(TRAIN_ARGV))
-    print(f"[train] {res['steps']} steps, launches {launches}")
+    n_int = int_counter.value
+    print(f"[train] {res['steps']} steps, launches {launches}, int_matmul {n_int} "
+          f"({n_int / res['steps']:g} a step)")
     expect_launches(launches, PER_STEP, res["steps"], "split run")
+    if n_int == 0:
+        die("split run: no int_matmul launch (the learning and output layers' products)")
+    launches["int_matmul"] = n_int
     ref = train.main(TRAIN_ARGV + ["--backend", "reference"])
     n = same_run(res["state"], res["step_metrics"], ref["state"], ref["step_metrics"],
                  "cuda run vs reference run")
@@ -3679,6 +3723,490 @@ def fp_phase(card: str) -> None:
     print(f"[fp] phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: an integer-only card step (int_matmul) and the LM training path
+# ---------------------------------------------------------------------------
+
+INT_MATMUL = {
+    "source": "src/repro_torch/kernels/int_matmul/csrc/int_matmul.cu",
+    "replaces": "src/repro/core/numerics.py:35",
+}
+#: the train CLI's evaluation at the end of phase 5's run: its 512 test
+#: images (n_test, as ``cli_batches``) in batches of TRAIN_BATCH
+CLI_EVAL_BATCHES = 512 // TRAIN_BATCH
+#: the LM's NITRO int8 MLP products at llama3.2-1b's full width, batch 4 ×
+#: seq 512: x (tokens, d_model) · w_in (d_model, d_ff), and back down
+LM_INT8_SHAPES = [(2048, 2048, 8192), (2048, 8192, 2048)]
+
+
+def int_matmul_counter():
+    from repro_torch.kernels.int_matmul.int_matmul import int_matmul_cuda
+
+    return int_matmul_cuda.launches
+
+
+def record_int_matmul(fn):
+    """``(fn(), calls)``: every ``int_matmul`` kernel call inside ``fn``
+    with copies of its operands, and ``fn``'s launches of it (the counter
+    set to 0 just before and read just after)."""
+    from repro_torch.kernels.int_matmul import int_matmul as mod
+
+    real, calls = mod.int_matmul_cuda, []
+
+    def rec(a, b):
+        calls.append((a.clone(), b.clone()))
+        return real(a, b)
+
+    rec.launches = real.launches
+    real.launches.reset()
+    mod.int_matmul_cuda = rec
+    try:
+        out = fn()
+    finally:
+        mod.int_matmul_cuda = real
+    if len(calls) != real.launches.value:
+        die(f"int_matmul: {len(calls)} calls recorded, {real.launches.value} launches counted")
+    return out, calls
+
+
+def int_matmul_cases(g):
+    """(label, a, b) on the card: the materialise conv shapes, the LM int8
+    products at full width, ragged M/N/K, a contraction deeper than 16,384
+    (it splits) and full-range int32 operands that wrap."""
+    import torch
+
+    def ints(shape, lo, hi, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int64).to(dtype).cuda()
+
+    cases = []
+    # materialise convs at VGG8B's first two shapes, batch 8: forward patches
+    # · w, grad_W patchesᵀ · δ (wide), grad_x δ-patches · rot(w)
+    for (h, c, f) in ((32, 3, 128), (32, 128, 256)):
+        p = 8 * h * h
+        cases.append((f"materialise fwd ({p}x{9 * c})x({9 * c}x{f})",
+                      ints((p, 9 * c), -127, 128), ints((9 * c, f), -64, 65)))
+        cases.append((f"materialise grad_W ({9 * c}x{p})x({p}x{f})",
+                      ints((9 * c, p), -127, 128), ints((p, f), -2 ** 20, 2 ** 20)))
+        cases.append((f"materialise grad_x ({p}x{9 * f})x({9 * f}x{c})",
+                      ints((p, 9 * f), -2 ** 20, 2 ** 20), ints((9 * f, c), -64, 65)))
+    for m, k, n in LM_INT8_SHAPES:
+        cases.append((f"LM int8 ({m}x{k})x({k}x{n})",
+                      ints((m, k), -127, 128, torch.int8), ints((k, n), -127, 128, torch.int8)))
+    cases.append(("ragged int8 (37x1000)x(1000x23)", ints((37, 1000), -128, 128, torch.int8),
+                  ints((1000, 23), -128, 128, torch.int8)))
+    cases.append(("ragged int8 x int32 (5x77)x(77x130)", ints((5, 77), -128, 128, torch.int8),
+                  ints((77, 130), -2 ** 31, 2 ** 31)))
+    cases.append(("deep K=40000 (64x40000)x(40000x10)", ints((64, 40000), -127, 128),
+                  ints((40000, 10), -2 ** 24, 2 ** 24)))
+    cases.append(("deep K=70001 int8 (3x70001)x(70001x17)",
+                  ints((3, 70001), -128, 128, torch.int8), ints((70001, 17), -128, 128, torch.int8)))
+    full_a, full_b = ints((17, 300), -2 ** 31, 2 ** 31), ints((300, 33), -2 ** 31, 2 ** 31)
+    full_a[0, :] = -2 ** 31
+    full_b[:, 0] = -2 ** 31
+    full_a[1, :] = 2 ** 31 - 1
+    full_b[:, 1] = 2 ** 31 - 1
+    cases.append(("full range int32 with INT32_MIN/MAX (17x300)x(300x33)", full_a, full_b))
+    cases.append(("empty K (4x0)x(0x5)", ints((4, 0), 0, 1), ints((0, 5), 0, 1)))
+    return cases
+
+
+def int_matmul_step(what: str, batches_fn, errs: dict) -> tuple:
+    """One training step on the card through the port's entry point: its
+    int_matmul calls recorded and counted, each held bitwise against
+    ``int_matmul_ref`` on its inputs, and the same step under the
+    quickstart's float audit, which must count 0; then one ``eval_step``
+    (the train CLI's evaluation, a batch) likewise recorded and held.
+    Returns (the step's launches, its calls, the eval batch's launches)."""
+    import importlib.util
+
+    from repro_torch.core import les, prng
+    from repro_torch.core.numerics import int_matmul_ref
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+
+    cfg, steps = batches_fn()
+    x, y, key = steps[0]
+    state = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda")
+    _, calls = record_int_matmul(lambda: les.train_step(state, cfg, x, y, key))
+    if not calls:
+        die(f"11a: a {what} step launched no int_matmul")
+    for i, (a, b) in enumerate(calls):
+        compare(f"int_matmul {what} step call {i} {a.dtype}{tuple(a.shape)} x "
+                f"{b.dtype}{tuple(b.shape)}", int_matmul_cuda(a, b), int_matmul_ref(a, b), errs)
+    spec = importlib.util.spec_from_file_location(
+        "examples_torch_quickstart", ROOT / "examples_torch" / "quickstart.py")
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    audit = quickstart.audit_train_step(state, cfg, x, y, key)
+    if audit.n_float != 0:
+        die(f"11a: the quickstart audit counts {audit.n_float} float tensors in a {what} "
+            f"card train step: {dict(audit.ops)}")
+    _, eval_calls = record_int_matmul(lambda: les.eval_step(state, cfg, x, y))
+    for i, (a, b) in enumerate(eval_calls):
+        compare(f"int_matmul {what} eval batch call {i} {a.dtype}{tuple(a.shape)} x "
+                f"{b.dtype}{tuple(b.shape)}", int_matmul_cuda(a, b), int_matmul_ref(a, b), errs)
+    print(f"[int-matmul] {what} step on the card: {len(calls)} int_matmul launches "
+          f"({', '.join(sorted({f'{tuple(a.shape)}x{tuple(b.shape)}' for a, b in calls}))}), "
+          f"each bitwise int_matmul_ref; the quickstart audit counts 0 float tensors; "
+          f"an eval batch {len(eval_calls)} launches, bitwise")
+    return len(calls), calls, len(eval_calls)
+
+
+def int_matmul_phase(errs: dict) -> dict:
+    """Phase 11a: int_matmul bitwise ``int_matmul_ref`` (the float64 limb
+    GEMMs) at every listed shape and case, twice each; one VGG8B and one
+    mlp4 card step with no float tensor, their int_matmul calls counted."""
+    import torch
+
+    from repro_torch.core.numerics import int_matmul_ref
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+
+    g = torch.Generator().manual_seed(11)
+    for label, a, b in int_matmul_cases(g):
+        want = int_matmul_ref(a, b)
+        for rep in (1, 2):
+            compare(f"int_matmul {label} #{rep}", int_matmul_cuda(a, b), want, errs)
+    vgg, vgg_calls, vgg_eval = int_matmul_step("VGG8B", cli_batches, errs)
+    mlp, _, _ = int_matmul_step("mlp4", mlp_batches, errs)
+    return {"vgg8b": vgg, "mlp4": mlp, "vgg_calls": vgg_calls, "vgg8b_eval": vgg_eval}
+
+
+def int_matmul_timing(vgg_calls, card: str) -> dict:
+    """int_matmul's row of the kernels line: one VGG8B training step's calls
+    (11a's recorded operands, int32) replayed, the kernel's device time
+    (the profiler: its launches are shorter than the wrapper's host path;
+    the back-to-back time printed beside it) against the float64 limb
+    GEMMs it replaced, and the bound of the same products.  No PyTorch call
+    multiplies int32 matrices on the card (``torch._int_mm`` takes int8),
+    so ``library_ms`` is null here; the LM's int8 products have it.  Then
+    ``[time]`` at the two LM int8 shapes beside ``torch._int_mm``."""
+    import torch
+
+    from repro_torch.core.numerics import int_matmul_ref
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+
+    def replay(fn):
+        return lambda: [fn(a, b) for a, b in vgg_calls]
+
+    _, kern = device_profile(replay(int_matmul_cuda), 10)
+    _, limb = device_profile(replay(int_matmul_ref), 10)
+    dev, dev_limb = sum(v for v, _ in kern.values()) / 10, sum(v for v, _ in limb.values()) / 10
+    b2b = time_cuda(replay(int_matmul_cuda), iters=20, warmup=3)
+    ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in vgg_calls)
+    nbytes = sum(a.numel() * a.element_size() + b.numel() * b.element_size()
+                 + 4 * a.shape[0] * b.shape[1] for a, b in vgg_calls)
+    ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    print(f"[int-matmul-step] {card} | one VGG8B step's {len(vgg_calls)} int_matmul calls "
+          f"({', '.join(sorted({str(a.dtype).replace('torch.', '') for a, _ in vgg_calls}))} "
+          f"operands): device {dev:.4f} ms (int_matmul kernel; back to back {b2b:.4f} ms) "
+          f"against {dev_limb:.4f} ms (the float64 limb GEMMs it replaced) | bound "
+          f"{max(ops_ms, bytes_ms):.5f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    g = torch.Generator().manual_seed(12)
+    for m, k, n in LM_INT8_SHAPES:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).cuda()
+        b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).cuda()
+        ms = time_cuda(lambda: int_matmul_cuda(a, b), iters=20, warmup=3)
+        plain = time_cuda(lambda: int_matmul_ref(a, b), iters=3, warmup=1)
+        bt = b.t().contiguous().t()  # _int_mm wants b column-major
+        if not torch.equal(torch._int_mm(a, bt), int_matmul_cuda(a, b)):
+            die(f"torch._int_mm ({m}x{k})x({k}x{n}) disagrees with int_matmul")
+        lib = time_cuda(lambda: torch._int_mm(a, bt), iters=20, warmup=3)
+        o_ms, b_ms = 2 * m * k * n / PEAK_OPS * 1e3, (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3
+        print(f"[time] {card} | int_matmul LM int8 ({m}x{k})x({k}x{n}) | kernel {ms:.4f} ms | "
+              f"plain {plain:.4f} ms | bound {max(o_ms, b_ms):.5f} ms ("
+              f"{'operations' if o_ms >= b_ms else 'bytes'}) | "
+              f"{100 * max(o_ms, b_ms) / ms:.2f}% of bound | library torch._int_mm "
+              f"{lib:.4f} ms")
+    return {"ms": dev, "plain_ms": dev_limb, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+            "timed_on": f"one VGG8B training step's {len(vgg_calls)} calls (batch "
+                        f"{TRAIN_BATCH}), device time"}
+
+
+def lm_int8_timing(calls, card: str) -> dict:
+    """The LM int8 path's numbers for int_matmul's row: one llama3.2-1b
+    int8_matmul step's calls (11c's recorded int8 operands) replayed, the
+    kernel's, the float64 limb GEMMs' and ``torch._int_mm``'s device time
+    over them, and their bound."""
+    import torch
+
+    from repro_torch.core.numerics import int_matmul_ref
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+
+    if any(a.dtype != torch.int8 or b.dtype != torch.int8 for a, b in calls):
+        die("11c: an int8_matmul product with operands that are not int8")
+    cols = [(a, b.t().contiguous().t()) for a, b in calls]  # _int_mm wants b column-major
+
+    def total(fn, pairs, n):
+        _, kernels = device_profile(lambda: [fn(a, b) for a, b in pairs], n)
+        return sum(v for v, _ in kernels.values()) / n
+
+    ms, plain, lib = (total(int_matmul_cuda, calls, 3), total(int_matmul_ref, calls, 1),
+                      total(torch._int_mm, cols, 3))
+    ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in calls)
+    nbytes = sum(a.numel() + b.numel() + 4 * a.shape[0] * b.shape[1] for a, b in calls)
+    ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    shapes = sorted({f"{tuple(a.shape)}x{tuple(b.shape)}" for a, b in calls})
+    print(f"[int-matmul-lm] {card} | one llama3.2-1b int8_matmul step's {len(calls)} "
+          f"int_matmul calls ({', '.join(shapes)}): device {ms:.4f} ms (int_matmul "
+          f"kernel) | plain {plain:.4f} ms (float64 limb GEMMs) | library torch._int_mm "
+          f"{lib:.4f} ms | bound {max(ops_ms, bytes_ms):.5f} ms "
+          f"({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+          f"{100 * max(ops_ms, bytes_ms) / ms:.2f}% of bound)")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": lib,
+            "timed_on": f"one llama3.2-1b int8_matmul step's {len(calls)} calls (batch "
+                        f"{LM_FULL['batch']} x seq {LM_FULL['seq']}), device time"}
+
+
+#: LM parity on the card (11b): the steps a case runs, and the variants of
+#: each arch's smoke config (own dtype; float32 with 2 LES groups, whisper
+#: without them: its decoder takes none)
+LM_STEPS = 3
+#: AdamW moves a coordinate at most about lr a step (|m̂/√v̂| ≤ 1.001 for
+#: t ≤ 3 at β = (0.9, 0.95)), so two runs whose gradients differ by
+#: rounding part by at most 2.01 · Σ lr
+LM_ADAM_PART = 2.01
+#: AdamW's moments after each step, in rounding levels ε: the gradient's
+#: 3, mu being linear in the gradients; nu quadratic, twice that
+LM_MU_LEVELS, LM_NU_LEVELS = 3.0, 6.0
+#: llama3.2-1b at full width (11c): batch × seq, steps, the int8 run's steps
+LM_FULL = {"batch": 4, "seq": 512, "steps": 4, "int8_steps": 2}
+#: step 1's loss against the same loss in float64 on the card (the same
+#: init and batch, every op in float64: tools_torch/fp_rounding.py's
+#: float64_math): bf16 moves a mean cross-entropy by far less than 1%
+#: (11b's smoke losses lie within 5e-5 of the CPU's)
+LM_LOSS_TOL = 1e-2
+
+
+def lm_batch(cfg, device, b: int = 2, s: int = 16, seed: int = 0) -> dict:
+    """A seeded batch for a smoke config (tests/_torch_lm.py's)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.embeds_input:
+        out["embeds"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        out["enc_embeds"] = rng.standard_normal(
+            (b, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def _rel(a, b) -> float:
+    d = (a.double().cpu() - b.double().cpu()).abs().max()
+    m = b.double().abs().max().cpu()
+    return float(d / m) if m > 0 else float(d)
+
+
+def lm_case(arch: str, f32: bool, les: int) -> str:
+    """One 11b case: the port's smoke step on the card against its CPU path
+    from the same init and batch.  ε is the CPU path's rounding level (its
+    first gradient against the same with params, batch and every op in
+    float64, every leaf); the card's gradient leaves lie within 3 ε, each
+    step's loss within ε (relative), its grad norm within 3 ε, AdamW's mu
+    within 3 ε and nu within 6 ε after each step (each leaf, relative to
+    its largest value), every param within 2.01 · Σ lr."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.parallel.tree import leaves, tree_map
+    from repro_torch.train import trainer
+    from tools_torch.fp_rounding import float64_math
+
+    cfg = get_smoke_config(arch)
+    if f32:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    if les:
+        cfg = dataclasses.replace(cfg, les_groups=les, num_layers=max(cfg.num_layers, 4))
+    cpu = trainer.init_state(prng.PRNGKey(0), cfg, device="cpu")
+    gpu = tree_map(lambda t: t.cuda(), cpu)
+    bc, bg = lm_batch(cfg, "cpu"), lm_batch(cfg, "cuda")
+    _, gc = trainer.value_and_grad(cpu[0], cfg, bc)
+    _, gg = trainer.value_and_grad(gpu[0], cfg, bg)
+    b64 = {k: (v.double() if v.is_floating_point() else v) for k, v in bc.items()}
+    with float64_math():
+        _, g64 = trainer.value_and_grad(tree_map(torch.Tensor.double, cpu[0]),
+                                        dataclasses.replace(cfg, dtype=torch.float64), b64)
+    eps = max(_rel(a, b) for a, b in zip(leaves(gc), leaves(g64)))
+    gdev = max(_rel(a, b) for a, b in zip(leaves(gg), leaves(gc)))
+    tag = f"{arch} {'f32' if f32 else str(cfg.dtype).replace('torch.', '')}" + \
+        (f" les={les}" if les else "")
+    if not gdev <= 3 * eps:
+        die(f"11b {tag}: card gradient {gdev:.3e} from the CPU's, past 3 ε = {3 * eps:.3e}")
+    lrs, ldev, mdev = [], 0.0, {"mu": 0.0, "nu": 0.0}
+    for i in range(LM_STEPS):
+        cpu, mc = trainer.train_step(cpu, cfg, bc)
+        gpu, mg = trainer.train_step(gpu, cfg, bg)
+        lc, lg = float(mc["loss"]), float(mg["loss"])
+        ldev = max(ldev, abs(lg - lc) / max(abs(lc), 1.0))
+        if not abs(lg - lc) <= eps * max(abs(lc), 1.0):
+            die(f"11b {tag}: loss {lg} on the card vs {lc} on the CPU, past ε = {eps:.3e}")
+        gn_c, gn_g = float(mc["grad_norm"]), float(mg["grad_norm"])
+        if not abs(gn_g - gn_c) <= 3 * eps * gn_c:
+            die(f"11b {tag}: grad norm {gn_g} vs {gn_c}, past 3 ε")
+        for name, levels in (("mu", LM_MU_LEVELS), ("nu", LM_NU_LEVELS)):
+            d = max(_rel(a, b) for a, b in zip(leaves(getattr(gpu[1], name)),
+                                               leaves(getattr(cpu[1], name))))
+            mdev[name] = max(mdev[name], d)
+            if not d <= levels * eps:
+                die(f"11b {tag}: AdamW {name} after step {i + 1} {d:.3e} from the CPU's, "
+                    f"past {levels:g} ε = {levels * eps:.3e}")
+        lrs.append(float(mc["lr"]))
+    bound = LM_ADAM_PART * sum(lrs)
+    pdev = max(float((a.cpu().double() - b.double()).abs().max())
+               for a, b in zip(leaves(gpu[0]), leaves(cpu[0])))
+    if not pdev <= bound:
+        die(f"11b {tag}: params {pdev:.3e} from the CPU's after {LM_STEPS} steps, past "
+            f"{bound:.3e}")
+    return (f"{tag}: ε {eps:.2e}, card grads {gdev:.2e} (≤ 3 ε), losses {ldev:.2e} (≤ ε), "
+            f"mu {mdev['mu']:.2e} (≤ 3 ε), nu {mdev['nu']:.2e} (≤ 6 ε), params {pdev:.2e} "
+            f"(≤ {bound:.2e})")
+
+
+def lm_parity() -> float:
+    """Phase 11b: every arch's smoke config, LM_STEPS steps on the card
+    against the port's CPU path, at its own dtype and in float32 with LES
+    groups; bf16 GEMMs with full-precision reductions, as the CPU's."""
+    import torch
+
+    from repro_torch.configs import list_archs
+
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    try:
+        for arch in list_archs():
+            for f32, les in ((False, 0), (True, 0 if arch == "whisper-large-v3" else 2)):
+                print(f"[lm-parity] {lm_case(arch, f32, les)}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+    return time.perf_counter() - t0
+
+
+def lm_full_width(card: str) -> dict:
+    """Phase 11c: llama3.2-1b's published config through the port's LM
+    trainer (``train_lm(arch, cfg=get_config(arch))``) on the card,
+    LM_FULL's batch × seq and steps: finite losses, step 1's within
+    LM_LOSS_TOL of the same loss in float64 on the card (same init and
+    batch); ms per step host to host, a step's device busy share, peak
+    memory.  Then the int8 MLP path (``int8_matmul=True``): its run's
+    int_matmul calls recorded and counted (the counter set to 0 just
+    before and read just after), which must be some.  Returns the int8
+    run's launches and one step's calls."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.data.loader import synthetic_lm_generator
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.tree import tree_map
+    from repro_torch.train import trainer
+    from tools_torch.fp_rounding import float64_math
+
+    arch, cfg = "llama3.2-1b", get_config("llama3.2-1b")
+    n_params = cfg.param_count()
+    run = dict(batch=LM_FULL["batch"], seq=LM_FULL["seq"])
+    # the float64 loss of train_lm's init and first batch (seed 0)
+    params = tree_map(torch.Tensor.double, T.init_params(prng.PRNGKey(0), cfg, device="cuda"))
+    first = synthetic_lm_generator(cfg.vocab_size, LM_FULL["seq"], LM_FULL["batch"])(0)
+    with torch.no_grad(), float64_math():
+        loss64, _ = lm.train_loss(params, dataclasses.replace(cfg, dtype=torch.float64),
+                                  {k: torch.from_numpy(v).cuda() for k, v in first.items()})
+    loss64 = float(loss64)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.train_lm(arch, cfg=cfg, steps=LM_FULL["steps"], **run)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = res["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        die(f"11c: non-finite loss {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    if abs(losses[0] - loss64) > LM_LOSS_TOL * loss64:
+        die(f"11c: step 1's loss {losses[0]:.4f} is not within {LM_LOSS_TOL:.0%} of the "
+            f"float64 loss {loss64:.4f}")
+    state = res["state"]
+    step_fn = trainer.build_train_step(cfg)
+    batch = lm_batch(cfg, "cuda", LM_FULL["batch"], LM_FULL["seq"], seed=5)
+    box = [state]
+
+    def one():
+        box[0], m = step_fn(box[0], batch)
+        float(m["loss"])
+
+    wall, kernels = device_profile(one, 1)
+    busy = sum(v for v, _ in kernels.values()) / wall
+    ms = sorted(1e3 * t for t in res["step_s"][1:])
+    print(f"[lm-step] {card} | llama3.2-1b full_config ({n_params / 1e9:.3f} B params, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}), batch "
+          f"{LM_FULL['batch']} x seq {LM_FULL['seq']}, AdamW, remat: losses "
+          f"{[round(v, 4) for v in losses]} (step 1 in float64 {loss64:.4f}; ln V = "
+          f"{ln_v:.4f}, +{losses[0] - ln_v:.3f}: tied embeddings give a token's own logit "
+          f"about √d_model at init) | host to host "
+          f"{res['step_s'][0] * 1e3:.1f} ms step 1, then {ms} ms | one step profiled: "
+          f"{wall:.1f} ms, device busy {100 * busy:.1f}% | peak memory {peak:.2f} GiB")
+    del res, state, box
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    steps8 = LM_FULL["int8_steps"]
+    res8, calls = record_int_matmul(lambda: train.train_lm(
+        arch, cfg=dataclasses.replace(cfg, int8_matmul=True), steps=steps8, **run))
+    n8 = len(calls)
+    if n8 == 0 or n8 % steps8 or not all(math.isfinite(v) for v in res8["losses"]):
+        die(f"11c int8: {n8} int_matmul launches over {steps8} steps, losses {res8['losses']}")
+    print(f"[lm-step] {card} | llama3.2-1b full_config int8_matmul=True, "
+          f"{steps8} steps: losses {[round(v, 4) for v in res8['losses']]}, "
+          f"{n8} int_matmul launches ({n8 // steps8} a step: 3 MLP products a "
+          f"layer forward, and those the remat backward recomputes), host to host "
+          f"{[round(1e3 * t, 1) for t in res8['step_s']]} ms ({time.perf_counter() - t0:.1f} s)")
+    del res8
+    step_calls = calls[-(n8 // steps8):]
+    del calls
+    torch.cuda.empty_cache()
+    return {"launches": n8, "per_step": n8 // steps8, "calls": step_calls}
+
+
+def lm_phase(card: str, errs: dict, train_int: int) -> dict:
+    """Phase 11: the integer card step (11a) and the LM training path (11b,
+    11c); returns int_matmul's row of the kernels line.  Its ``launches``
+    are phase 5's (the VGG8B split run, ``train_int``), which must be
+    TRAIN_STEPS times 11a's VGG8B step plus CLI_EVAL_BATCHES times its
+    eval batch; its times are one such step's calls; the LM int8 path's
+    own count and times, and each path's launches per step, ride beside
+    them."""
+    t0 = time.perf_counter()
+    res = int_matmul_phase(errs)
+    want = TRAIN_STEPS * res["vgg8b"] + CLI_EVAL_BATCHES * res["vgg8b_eval"]
+    if train_int != want:
+        die(f"phase 5's split run launched int_matmul {train_int} times, not {TRAIN_STEPS} x "
+            f"11a's VGG8B step ({res['vgg8b']}) + {CLI_EVAL_BATCHES} x its eval batch "
+            f"({res['vgg8b_eval']})")
+    row = int_matmul_timing(res["vgg_calls"], card)
+    t_b = lm_parity()
+    lm8 = lm_full_width(card)
+    row["lm_int8"] = {"launches": lm8["launches"], **lm_int8_timing(lm8["calls"], card)}
+    row["launches"] = train_int
+    row["launches_per_step"] = {"vgg8b": res["vgg8b"], "vgg8b eval batch": res["vgg8b_eval"],
+                                "mlp4": res["mlp4"],
+                                "llama3.2-1b int8_matmul": lm8["per_step"]}
+    print(f"[phase-11] int_matmul launches per step: VGG8B {res['vgg8b']} (phase 5's run, "
+          f"{TRAIN_STEPS} steps and {CLI_EVAL_BATCHES} eval batches of {res['vgg8b_eval']}: "
+          f"{train_int}), mlp4 {res['mlp4']}, llama3.2-1b int8_matmul "
+          f"{lm8['per_step']} ({lm8['launches']} over {LM_FULL['int8_steps']} steps); 11b "
+          f"{t_b:.1f} s; phase 11 {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         die("src/repro_torch not found beside chip_smoke.py: run it from the "
@@ -3724,6 +4252,7 @@ def main() -> int:
     hot_swap_path(fleet_res, fm_b)
     train_res, train_ref, train_launches = train_path()
     launches.update({k: train_launches[k] for k in TRAIN_KERNELS})
+    train_int = train_launches["int_matmul"]
     fuse_res, fuse_launches = fuse_opt_path(train_res)
     launches.update({k: fuse_launches[k] for k in
                      ("stream_conv_grad_w_opt", "nitro_matmul_grad_w_opt")})
@@ -3759,6 +4288,7 @@ def main() -> int:
     obs_serve(fm, card)
     obs_train(train_res, cfg, card)
     fp_phase(card)
+    int_row = lm_phase(card, errs, train_int)
 
     print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
           f"{dict(PARITY_CASES)}")
@@ -3773,6 +4303,9 @@ def main() -> int:
             "bound_by": "operations" if k["ops_ms"] >= k["bytes_ms"] else "bytes",
             "library_ms": None,
         })
+    rows.append({"name": "int_matmul", "route": "cuda", "source": INT_MATMUL["source"],
+                 "replaces": INT_MATMUL["replaces"], "max_abs_err": errs["int_matmul"],
+                 **int_row})
     print(card)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

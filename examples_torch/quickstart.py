@@ -8,14 +8,12 @@ Demonstrates the paper's core claims live:
   1. the train step's tensor operations are integer-only: one
      ``train_step`` runs under a ``TorchDispatchMode`` that counts the
      floating-point tensors among the inputs and outputs of every aten
-     operation.  On the CPU the count is 0, and that is asserted.  On the
-     card the hand-written kernels launch through ``ctypes``, which the
-     dispatcher does not see, and the learning and output layers' integer
-     products run as exact float64 GEMMs over 16-bit limbs
-     (``numerics._matmul_f64_exact``, bitwise the int32 product).  There
-     the example prints the count and the operations that carry the
-     floats, and asserts that every one of them comes from that limb GEMM;
-     it makes no claim that the count is zero;
+     operation, and the count, 0, is asserted on the CPU and on the card.
+     On the card the hand-written kernels (``numerics.int_matmul``'s
+     integer GEMM among them) launch through ``ctypes``, which the
+     dispatcher does not see; each key of the audit says whether the
+     operation ran inside ``numerics._matmul_f64_exact``, the float64 limb
+     GEMM that is now only the plain version of that product;
   2. accuracy climbs well above chance with integer arithmetic only;
   3. trained weights stay within int16 (paper §E.3).
 """
@@ -51,7 +49,8 @@ def _in_limb_gemm() -> bool:
 class FloatAudit(TorchDispatchMode):
     """Counts the floating-point tensors among the inputs and outputs of
     each aten operation run inside it.  ``ops`` maps (operation, whether
-    it ran inside the float64 limb GEMM) to its floating-point tensors."""
+    it ran inside the float64 limb GEMM) to its floating-point tensors,
+    so a failed assertion names where the floats came from."""
 
     def __init__(self):
         super().__init__()
@@ -102,19 +101,9 @@ def main(argv=None):
     # 1. the step's tensor operations are integer-only
     audit = audit_train_step(state, cfg, dev(ds.x_train[:8]), dev(ds.y_train[:8]),
                              prng.PRNGKey(0))
-    if device.type == "cpu":
-        print(f"float tensors in the train step's aten operations: {audit.n_float} "
-              f"(expected 0)")
-        assert audit.n_float == 0, dict(audit.ops)
-    else:
-        outside = {op: n for (op, inside), n in audit.ops.items() if not inside}
-        print(f"float tensors the dispatcher sees in the train step on {device}: "
-              f"{audit.n_float}, every one inside numerics._matmul_f64_exact (the "
-              f"learning and output layers' exact float64 limb GEMMs, ROADMAP B2); "
-              f"the CUDA kernels launch through ctypes and are not seen")
-        for (op, _), n in sorted(audit.ops.items()):
-            print(f"  {op}: {n}")
-        assert not outside, f"float tensors outside the limb GEMM: {outside}"
+    print(f"float tensors in the train step's aten operations on {device}: "
+          f"{audit.n_float} (expected 0)")
+    assert audit.n_float == 0, dict(audit.ops)
 
     # 2. train
     k = 0

@@ -62,16 +62,30 @@ def _matmul_f64_exact(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _wrap_int32(lo + ((mid & 0xFFFF) << 16))
 
 
-def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Integer matrix product with int32 accumulation (wraps mod 2³²).
-
-    Both operands are lifted to int32 first: on the CPU ``int8 @ int8``
-    returns int8 and wraps, which would break exactness.
-    """
+def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``int_matmul``: torch's integer ``@`` on the CPU,
+    ``_matmul_f64_exact`` on the card.  Not on any main path: the kernels'
+    plain versions call it, so that a fault of the card's integer GEMM
+    cannot hide on both sides of a parity check."""
     a, w = a.to(INT_DTYPE), w.to(INT_DTYPE)
     if a.device.type == "cpu":
         return a @ w
     return _matmul_f64_exact(a, w)
+
+
+def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Integer matrix product with int32 accumulation (wraps mod 2³²).
+
+    On the CPU both operands are lifted to int32 first (``int8 @ int8``
+    returns int8 and wraps there).  On the card it is the hand-written
+    integer GEMM (``kernels/int_matmul``), which reads int8 operands as
+    they are: no float is computed.
+    """
+    if a.device.type == "cpu":
+        return a.to(INT_DTYPE) @ w.to(INT_DTYPE)
+    from repro_torch.kernels.int_matmul.int_matmul import int_matmul_cuda
+
+    return int_matmul_cuda(a, w)
 
 
 def clip_act(x: torch.Tensor) -> torch.Tensor:

@@ -164,3 +164,16 @@ def bernoulli(key: torch.Tensor, p: float, shape, *, device="cpu") -> torch.Tens
     """``jax.random.bernoulli(key, p, shape)`` (mode ``"low"``), bit for
     bit: ``uniform(key, shape) < float32(p)``, a bool tensor."""
     return uniform(key, shape, device=device) < float(np.float32(p))
+
+
+def normal(key: torch.Tensor, shape, *, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: √2 · erfinv(u), u drawn by
+    ``uniform`` on [nextafter(−1, 0), 1) bit for bit as JAX draws it.
+
+    ``torch.erfinv`` is not XLA's float32 polynomial: the two agree to a
+    few float32 ulps (``tests/test_torch_lm_models.py`` states the bound),
+    not bit for bit.
+    """
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, float(lo), 1.0, device=device)
+    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)), device=u.device)

@@ -1,1 +1,2 @@
-"""Deterministic procedural datasets (port of ``repro.data``)."""
+"""Deterministic procedural datasets and the LM batch loader (port of
+``repro.data``)."""

@@ -80,6 +80,18 @@ def make_image_dataset(
     return Dataset(x_tr, y_tr, x_te, y_te, num_classes, (h, w, c))
 
 
+def make_token_dataset(
+    vocab_size: int, seq_len: int, n_seqs: int, seed: int = 0
+) -> np.ndarray:
+    """Zipf-distributed token ids, (n_seqs, seq_len) int32 (the LM
+    substrate's corpus, numpy-identical to the JAX package's)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    return rng.choice(vocab_size, size=(n_seqs, seq_len), p=probs).astype(np.int32)
+
+
 def batches(x: np.ndarray, y: np.ndarray, batch_size: int, seed: int = 0):
     """Shuffled full-epoch minibatch iterator (drops the ragged tail)."""
     rng = np.random.default_rng(seed)

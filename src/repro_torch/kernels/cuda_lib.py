@@ -29,6 +29,7 @@ COMMON_HEADERS = (
     _HERE / "csrc_common" / "digit_gemm.cuh",
     _HERE / "csrc_common" / "conv_digits.cuh",
     _HERE / "csrc_common" / "linear_grad_w.cuh",
+    _HERE / "csrc_common" / "split_matmul.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,12 +53,13 @@ SOURCES = {
         _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_w_opt.cu",
     "stream_conv_grad_x": _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_x.cu",
     "integer_sgd": _HERE / "integer_sgd" / "csrc" / "integer_sgd.cu",
+    "int_matmul": _HERE / "int_matmul" / "csrc" / "int_matmul.cu",
 }
 
 #: Output tile (64 × 64) of the split-K matmul digit GEMMs, which keep one
-#: arrival counter per tile: the forward matmuls (``TN``/``TM`` in
-#: nitro_matmul.cu) and ``nitro_matmul_grad_x`` (``TM``/``TB`` in
-#: nitro_matmul_grad_x.cu).
+#: arrival counter per tile: the forward matmuls and ``int_matmul``
+#: (``TN``/``TM`` in split_matmul.cuh) and ``nitro_matmul_grad_x``
+#: (``TM``/``TB`` in nitro_matmul_grad_x.cu).
 GEMM_TILE = 64
 #: Output tile (rows, cols) of the digit GEMMs of digit_gemm.cuh (``BM``/
 #: ``BN``): the conv grad_W kernels (``stream_conv_grad_w_opt`` keeps one

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.activations import nitro_relu, nitro_relu_backward
 from repro_torch.core.layers import im2col, window_view_2x2
-from repro_torch.core.numerics import INT_DTYPE, int_matmul
+from repro_torch.core.numerics import INT_DTYPE, int_matmul_ref
 from repro_torch.core.scaling import scale_forward
 from repro_torch.kernels.digit_planes import (  # noqa: F401  (re-exported)
     N_DIGITS,
@@ -98,7 +98,7 @@ def _stream_z_bands(
         if zp is not None:
             band = nitro_relu_backward(zp[:, t * bh:t * bh + bh + 2 * p], band,
                                        relu_bwd_alpha_inv)
-        yield int_matmul(_band_patches(band, k, w_sp), w_flat).reshape(n, bh, w_sp, f)
+        yield int_matmul_ref(_band_patches(band, k, w_sp), w_flat).reshape(n, bh, w_sp, f)
 
 
 def stream_conv_ref(
@@ -189,7 +189,7 @@ def stream_conv_grad_w_ref(
         g_band = gp[:, t * bh:t * bh + bh]
         if zp is not None:
             g_band = nitro_relu_backward(zp[:, t * bh:t * bh + bh], g_band, alpha_inv)
-        grad_w = grad_w + int_matmul(patches.T, g_band.reshape(n * bh * w_sp, f))
+        grad_w = grad_w + int_matmul_ref(patches.T, g_band.reshape(n * bh * w_sp, f))
     return grad_w.reshape(k, k, c, f)
 
 
@@ -279,7 +279,7 @@ def digit_grad_w(xa: torch.Tensor, db: torch.Tensor, nd: int) -> torch.Tensor:
     for i in range(xa.shape[0]):
         for j in range(nd):
             if i + j < N_DIGITS:
-                prod = int_matmul(xa[i].to(INT_DTYPE), db[j].to(INT_DTYPE).T)
+                prod = int_matmul_ref(xa[i].to(INT_DTYPE), db[j].to(INT_DTYPE).T)
                 acc += prod.to(torch.int64) << (8 * (i + j))
     return (((acc + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(INT_DTYPE)
 

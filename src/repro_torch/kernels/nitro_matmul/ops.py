@@ -2,7 +2,9 @@
 ``repro.kernels.nitro_matmul.ops``): ``fused_matmul`` (inference),
 ``fused_matmul_fwd`` (training forward), ``grad_w_matmul`` (training
 weight gradient), ``grad_w_opt_matmul`` (the ``fuse_opt`` weight
-update) and ``grad_x_matmul`` (training input gradient).
+update) and ``grad_x_matmul`` (training input gradient); and the legacy
+fused-layer wrappers ``nitro_linear`` / ``nitro_conv2d`` over
+``fused_matmul``.
 
 Backends:
 
@@ -22,8 +24,12 @@ a result.
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
+from repro_torch.core.layers import conv_im2col_operands
+from repro_torch.core.scaling import conv_scale_factor, linear_scale_factor
 from repro_torch.kernels.autotune import state as autotune
 from repro_torch.kernels.autotune.tiles import TileConfig
 from repro_torch.kernels.nitro_matmul.nitro_matmul import (
@@ -240,3 +246,87 @@ def grad_x_matmul(
             dtype=(delta2.dtype, w2.dtype), backend=backend, fuse_bwd=True)
     fn = nitro_matmul_grad_x_ref if backend == "reference" else nitro_matmul_grad_x
     return fn(delta2, z_star2, w2, alpha_inv=alpha_inv)
+
+
+def _legacy_backend(use_kernel: bool | None, interpret: bool | None) -> str:
+    """Map the JAX package's deprecated ``use_kernel``/``interpret`` knobs
+    to a backend, with its warning and its error.
+
+    Passing either knob warns.  ``use_kernel=False`` with ``interpret=True``
+    is contradictory and raises.  The port has no interpreter: the plain
+    version (``'reference'``) stands in for an interpreted kernel, so
+    ``interpret=True`` selects it; ``use_kernel=True`` with
+    ``interpret=False`` is the kernel (``'cuda'``), and otherwise ``'auto'``
+    (the kernel on the card, the plain version on the CPU).
+    """
+    if use_kernel is not None or interpret is not None:
+        warnings.warn(
+            "use_kernel/interpret are deprecated; use backend="
+            "'cuda'|'reference'|'auto' instead",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+    if use_kernel is False and interpret:
+        raise ValueError(
+            "contradictory legacy knobs: use_kernel=False disables the "
+            "kernel but interpret=True requests an interpreted kernel; "
+            "pass backend='reference' or backend='cuda' instead"
+        )
+    if use_kernel is False or interpret:
+        return "reference"
+    if use_kernel and interpret is False:
+        return "cuda"
+    return "auto"
+
+
+def nitro_linear(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    out_dtype: torch.dtype = torch.int32,
+    use_kernel: bool | None = None,
+    interpret: bool | None = None,
+) -> torch.Tensor:
+    """Fused integer linear layer: ``nitro_relu(⌊(x@w)/(2⁸·M)⌋)``.
+
+    Accepts any leading batch dims on ``x``; contracts the last one.  The
+    legacy wrapper over ``fused_matmul`` (``use_kernel``/``interpret`` are
+    deprecated, as in the JAX package).
+    """
+    m = x.shape[-1]
+    lead = x.shape[:-1]
+    out = fused_matmul(
+        x.reshape(-1, m), w, sf=linear_scale_factor(m), alpha_inv=alpha_inv,
+        apply_relu=apply_relu, out_dtype=out_dtype,
+        backend=_legacy_backend(use_kernel, interpret),
+    )
+    return out.reshape(*lead, w.shape[-1])
+
+
+def nitro_conv2d(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    alpha_inv: int = 10,
+    apply_relu: bool = True,
+    out_dtype: torch.dtype = torch.int32,
+    use_kernel: bool | None = None,
+    interpret: bool | None = None,
+) -> torch.Tensor:
+    """Fused integer conv layer via im2col + ``fused_matmul``.
+
+    x: (N,H,W,C) int, w: (K,K,C,F) int → (N,H,W,F) activations.  The
+    legacy wrapper (``use_kernel``/``interpret`` deprecated, as in JAX).
+    """
+    k = w.shape[0]
+    c_in = x.shape[-1]
+    n, h, ww, _ = x.shape
+    patches, w_flat = conv_im2col_operands(w, x)
+    out = fused_matmul(
+        patches, w_flat, sf=conv_scale_factor(k, c_in), alpha_inv=alpha_inv,
+        apply_relu=apply_relu, out_dtype=out_dtype,
+        backend=_legacy_backend(use_kernel, interpret),
+    )
+    return out.reshape(n, h, ww, w.shape[-1])

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.activations import nitro_relu, nitro_relu_backward
-from repro_torch.core.numerics import INT_DTYPE, int_matmul
+from repro_torch.core.numerics import INT_DTYPE, int_matmul_ref
 from repro_torch.core.scaling import scale_backward, scale_forward
 from repro_torch.kernels.digit_planes import N_DIGITS, digits_needed, padded_planes, s8_digits
 from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
@@ -38,7 +38,7 @@ def nitro_matmul_ref(
     """``relu(⌊(x @ w)/sf⌋) − μ`` (or the scale alone) for 2-D ``x``, ``w``.
 
     ``operand_dtype='int8'`` only checks that both operands are int8: the
-    product is lifted to int32 either way (``int_matmul``), which is
+    product is lifted to int32 either way (``int_matmul_ref``), which is
     exactly the int8×int8→int32 accumulation.
     """
     if operand_dtype == "int8" and not (
@@ -48,7 +48,7 @@ def nitro_matmul_ref(
             f"operand_dtype='int8' requires int8 operands, got "
             f"{x.dtype}/{w.dtype}"
         )
-    z_star = scale_forward(int_matmul(x, w), sf)
+    z_star = scale_forward(int_matmul_ref(x, w), sf)
     if apply_relu:
         z_star = nitro_relu(z_star, alpha_inv)
     return z_star.to(out_dtype)
@@ -64,7 +64,7 @@ def nitro_matmul_fwd_ref(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Training forward: ``(a, z_star)``; ``z_star`` is always int32 (the
     cache the NITRO-ReLU/STE backward reads)."""
-    z_star = scale_forward(int_matmul(x, w), sf)
+    z_star = scale_forward(int_matmul_ref(x, w), sf)
     return nitro_relu(z_star, alpha_inv).to(out_dtype), z_star
 
 
@@ -85,7 +85,7 @@ def nitro_matmul_grad_w_ref(
     """Weight gradient ``xᵀ @ relu_bwd(z*, δ)``: x (B,M), δ/z* (B,N) →
     (M,N) int32."""
     g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
-    return int_matmul(x.to(INT_DTYPE).T, g)
+    return int_matmul_ref(x.to(INT_DTYPE).T, g)
 
 
 def nitro_matmul_grad_w_opt_ref(
@@ -114,7 +114,7 @@ def nitro_matmul_grad_x_ref(
     """Input gradient ``relu_bwd(z*, δ) @ wᵀ``: δ/z* (B,N), w (M,N) in its
     natural layout → (B,M) int32."""
     g = masked_delta(delta.to(INT_DTYPE), z_star, alpha_inv)
-    return int_matmul(g, w.to(INT_DTYPE).T)
+    return int_matmul_ref(g, w.to(INT_DTYPE).T)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""NITRO-D training launcher (port of ``repro.launch.train``, the paper
-archs): integer-only LES training of the MLPs (mlp1–mlp4, on the
-flattened images) and the CNNs (VGG8B / VGG11B).
+"""Training launcher (port of ``repro.launch.train``).  Two trainers
+behind one CLI: ``--arch <paper arch>`` (mlp1–mlp4 on the flattened
+images, VGG8B / VGG11B), integer-only NITRO-D LES training; and
+``--arch <LM arch>`` (llama3.2-1b, qwen3-32b, …), the LM trainer
+(``train_lm``: AdamW, or LES groups with ``--les-groups``).
 
     # four steps of full-width VGG8B at batch 64 on the card, then evaluate:
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg8b --steps 4
@@ -54,7 +56,21 @@ step for this arch and batch before the first step (``autotune.tune_training``:
 the plain stream conv's band height on the CPU; the CUDA kernels have no
 run-time knob, so on the card it tunes nothing and only counts lookups) into ``--autotune-cache`` (default:
 ``tile_cache.json`` beside the checkpoints), bitwise the untuned run.
-Not ported yet: the LM trainer.
+
+The LM trainer trains the arch's smoke config, as the JAX launcher does,
+on Zipf token batches of ``--batch`` × ``--seq``; ``--les-groups N``
+splits the stack into N local-loss groups (at least 4 layers);
+``--ckpt-dir`` saves at the end and resumes, in the JAX format.
+``train_lm(arch, cfg=...)`` trains another config of the arch (the
+published one, the NITRO int8 MLP path)::
+
+    # the smoke llama on the CPU, 40 steps, LES with 2 groups:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
+        --steps 40 --batch 8 --seq 64 --les-groups 2 --device cpu
+
+    # llama3.2-1b at full width on the card (1.236 B parameters), in Python:
+    from repro_torch.configs import get_config
+    train_lm("llama3.2-1b", cfg=get_config("llama3.2-1b"), steps=4, batch=4, seq=512)
 """
 
 from __future__ import annotations
@@ -66,7 +82,8 @@ import time
 
 import torch
 
-from repro_torch.configs import get_paper_config
+from repro_torch.configs import ARCHS as LM_ARCHS
+from repro_torch.configs import PAPER_ARCHS, get_paper_config, get_smoke_config
 from repro_torch.core import les, prng
 from repro_torch.data import synthetic
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -80,7 +97,7 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.fault_tolerance import (PreemptionGuard, StepTimer,
                                                StragglerDetector)
 
-ARCHS = ("mlp1", "mlp2", "mlp3", "mlp4", "vgg8b", "vgg11b")
+ARCHS = PAPER_ARCHS
 CKPT_EVERY = 200
 
 
@@ -334,13 +351,66 @@ def _train(arch: str, *, axis, device: torch.device, steps: int, batch: int,
     return out
 
 
+def train_lm(arch: str, *, steps: int, batch: int, seq: int, scale: float = 1.0,
+             ckpt_dir: str | None = None, les_groups: int = 0, seed: int = 0,
+             device=DEFAULT_DEVICE, cfg=None) -> dict:
+    """LM training, the JAX launcher's ``train_lm``: ``cfg``, by default the
+    arch's smoke config (``scale`` is ignored, as there), Zipf batches from
+    ``synthetic_lm_generator(seed)``, AdamW, a checkpoint at the end and a
+    resume from the newest one.  Prints every 20th step and ``[done]``;
+    returns the losses, each step's metrics and host seconds (to the loss's
+    arrival on the host) and the final state."""
+    from repro_torch.data.loader import ShardedLoader, synthetic_lm_generator
+    from repro_torch.train import trainer
+
+    device = resolve_device(device)
+    cfg = get_smoke_config(arch) if cfg is None else cfg
+    if les_groups:
+        cfg = dataclasses.replace(cfg, les_groups=les_groups,
+                                  num_layers=max(cfg.num_layers, 4))
+    gen = synthetic_lm_generator(cfg.vocab_size, seq, batch, seed=seed)
+    loader = ShardedLoader(gen, global_batch=batch, process_index=0, process_count=1)
+    step_fn = trainer.build_train_step(cfg)
+    state = trainer.init_state(prng.PRNGKey(seed), cfg, device=device)
+
+    start = 0
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        state, start = ckpt.restore(ckpt_dir, state)
+        print(f"[restore] resumed from step {start}")
+
+    losses, step_metrics, step_s = [], [], []
+    try:
+        for it in range(steps):
+            b = next(loader)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, {k: torch.from_numpy(v).to(device)
+                                             for k, v in b.items()})
+            losses.append(float(metrics["loss"]))  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            step_metrics.append(metrics)
+            if it % 20 == 0:
+                print(f"step {it:4d}  loss={losses[-1]:.4f}  "
+                      f"gnorm={float(metrics['grad_norm']):.3f}")
+    finally:
+        loader.close()
+    if ckpt_dir:
+        ckpt.save(ckpt_dir, start + steps, state)
+    print(f"[done] loss {losses[0]:.4f} → {losses[-1]:.4f}")
+    return {"first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+            "step_metrics": step_metrics, "step_s": step_s, "state": state,
+            "config": cfg, "start_step": start}
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", required=True, choices=ARCHS)
+    ap.add_argument("--arch", required=True, choices=(*PAPER_ARCHS, *sorted(LM_ARCHS)))
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--seq", type=int, default=128, help="LM archs: sequence length")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--dataset", default="tiles32", choices=("tiles32", "digits28"))
+    ap.add_argument("--les-groups", type=int, default=0,
+                    help="LM archs: LES local-loss groups (0 = backprop)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=DEFAULT_DEVICE, help="cuda (default) or cpu")
     ap.add_argument("--backend", default="auto", choices=("auto", "cuda", "reference"),
@@ -384,6 +454,10 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Parse ``argv`` (default: the command line), train, return the result."""
     args = _parser().parse_args(argv)
+    if args.arch in LM_ARCHS:
+        return train_lm(args.arch, steps=args.steps, batch=args.batch, seq=args.seq,
+                        scale=args.scale, ckpt_dir=args.ckpt_dir,
+                        les_groups=args.les_groups, seed=args.seed, device=args.device)
     return train_nitro(args.arch, steps=args.steps, batch=args.batch,
                        dataset=args.dataset, scale=args.scale, seed=args.seed,
                        device=args.device, backend=args.backend,

@@ -1,1 +1,2 @@
-"""Training-side utilities: checkpoints in the JAX package's format."""
+"""Training-side utilities: checkpoints in the JAX package's format, the
+LM trainer (``trainer``) and its AdamW (``optimizer``)."""

@@ -51,9 +51,14 @@ def test_port_imports_no_jax_and_no_repro():
                 "parallel/sharding.py", "parallel/tree.py", "kernels/autotune/__init__.py",
                 "kernels/autotune/tiles.py", "kernels/autotune/measure.py",
                 "kernels/autotune/cache.py", "kernels/autotune/state.py",
-                "kernels/autotune/search.py", "core/fp_baselines.py"):
+                "kernels/autotune/search.py", "core/fp_baselines.py",
+                "kernels/int_matmul/int_matmul.py", "kernels/int_matmul/__init__.py",
+                "models/config.py", "models/common.py", "models/attention.py",
+                "models/mlp.py", "models/rwkv.py", "models/rglru.py",
+                "models/transformer.py", "models/lm.py", "configs/llama3_2_1b.py",
+                "train/optimizer.py", "train/trainer.py", "data/loader.py"):
         assert PORT / new in files
-    for example in ("serve_cifar.py", "quickstart.py", "train_vgg8b.py"):
+    for example in ("serve_cifar.py", "quickstart.py", "train_vgg8b.py", "les_transformer.py"):
         assert EXAMPLES / example in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
     assert not bad, bad
@@ -178,7 +183,8 @@ def test_fp_baseline_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fp.adam_state_from_numpy((tree, tree, np.int32(0)))
     assert fp.fp_params_from_numpy(tree, device="cpu")["output"].device.type == "cpu"
-    for example, argv in (("quickstart.py", []), ("train_vgg8b.py", ["--steps", "1"])):
+    for example, argv in (("quickstart.py", []), ("train_vgg8b.py", ["--steps", "1"]),
+                          ("les_transformer.py", ["--steps", "1"])):
         mod = runpy.run_path(str(EXAMPLES / example))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             mod["main"](argv)

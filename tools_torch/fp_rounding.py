@@ -14,6 +14,11 @@ batches and keys):
     and the final params (and Adam's moments) of one against the other.
 A deviation is max |a − b| / max |b| of a tensor, with the RMS
 ‖a − b‖ / ‖b‖ beside it; each line gives the largest over the tensors.
+
+``float64_math`` is the same yardstick for the LM models, which compute
+in float32 and bf16 as JAX's do: the LM parity tests
+(``tests/_torch_lm.py``) and ``chip_smoke.py``'s phase 11 run a step once
+more under it and take their tolerances from the distance.
 """
 
 from __future__ import annotations
@@ -23,6 +28,34 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@contextlib.contextmanager
+def float64_math():
+    """Every float32, bf16 and fp16 dtype that an aten op inside is asked
+    for (a cast, ``.float()``, a factory, a constant from ``torch.tensor``)
+    becomes float64, in the forward, the backward and a remat's recompute
+    alike: the same program as the float32 one with its rounding taken
+    away.  The LM parity checks (``tests/_torch_lm.py``, ``chip_smoke.py``
+    phase 11) measure from it how far float32 and bf16 rounding alone
+    moves a result, and take their tolerances from that."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    low = (torch.float32, torch.bfloat16, torch.float16)
+
+    def wide(v):
+        return torch.float64 if isinstance(v, torch.dtype) and v in low else v
+
+    class Float64(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*map(wide, args), **{k: wide(v) for k, v in (kwargs or {}).items()})
+            if func is torch.ops.aten.lift_fresh.default and out.dtype in low:
+                out = out.to(torch.float64)
+            return out
+
+    with Float64():
+        yield
 
 
 @contextlib.contextmanager
