@@ -199,17 +199,25 @@ Phases, each fatal on failure:
      each one's device time and busy share from ``torch.profiler``.
  11. an integer-only card step and the LM training path: (11a) the
      hand-written integer GEMM ``int_matmul`` (``numerics.int_matmul`` on
-     the card) bitwise ``int_matmul_ref`` (float64 limb GEMMs) twice at
-     the materialise conv shapes, the LM's int8 MLP products at full width
-     (2,048 tokens × 2,048 × 8,192 and back), ragged M/N/K, contractions
-     of 40,000 and 70,001 (split), full-range int32 with INT32_MIN/MAX and
-     an empty K; one VGG8B and one mlp4 train step on the card, every
-     int_matmul call of it recorded and held bitwise, counted, and the
-     same step under ``examples_torch/quickstart.py``'s float audit, which
+     the card; three routes: T one CUDA-core launch for thin products, W
+     wgmma + TMA for int8 at scale, D the digit GEMM) bitwise
+     ``int_matmul_ref`` (float64 limb GEMMs) twice at the materialise conv
+     shapes, the LM's int8 MLP products at full width (2,048 tokens ×
+     2,048 × 8,192 and back) with b N-major and K-major, route W ragged
+     (2,047 × 2,064 × 8,200), at K = 48 and at M = 16, K = 131,072 of
+     (−128)·(−128) (2³¹, wraps), a VGG8B step's thin products on the
+     views it passes, ragged M/N/K, contractions of 40,000 and 70,001 (split), full-range int32
+     with INT32_MIN/MAX and an empty K, each on the route the rule
+     (``plan``) gives, checked by the per-route launch counters; one VGG8B
+     and one mlp4 train step on the card, every int_matmul call of it
+     recorded and held bitwise, counted (all on route T), and the same
+     step under ``examples_torch/quickstart.py``'s float audit, which
      must count 0; phase 5's split run must launch int_matmul 4 times
-     the VGG8B step's count; ``[int-matmul-step]`` its device time over a
-     VGG8B step's calls beside the limb GEMMs', ``[time]`` at the LM int8
-     shapes beside ``torch._int_mm``; (11b, ``[lm-parity]``) every LM
+     the VGG8B step's count; ``[int-matmul-step]`` its device time,
+     device launches and back-to-back time over a VGG8B step's calls
+     beside the limb GEMMs', ``[time]`` at the LM int8 shapes: route W
+     beside ``torch._int_mm`` on the same K-major operands, the N-major
+     b's transpose pass, route D's split; (11b, ``[lm-parity]``) every LM
      arch's smoke config 3 AdamW steps on the card against the port's CPU
      path at its own dtype and in float32 with 2 LES groups (whisper
      without), bf16 GEMMs with full-precision reductions, within ε, the
@@ -223,8 +231,9 @@ Phases, each fatal on failure:
      on the card (its offset from ln V printed); ms a step host to host,
      a profiled step's device busy share, peak memory; then 2 steps with
      ``int8_matmul=True``, every int_matmul call recorded and counted,
-     which must be some; ``[int-matmul-lm]`` one such step's calls:
-     int_matmul, the limb GEMMs and ``torch._int_mm``, device time.
+     which must be some, all on route W; ``[int-matmul-lm]`` one such
+     step's calls: int_matmul, the limb GEMMs and ``torch._int_mm``,
+     device time.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -253,7 +262,8 @@ evaluation, 8 batches), its ``ms``, ``plain_ms`` and
 ``bound_ms`` one step's 23 int32 products (``timed_on`` says so), and
 its ``library_ms`` null, since no PyTorch call multiplies int32 matrices
 on the card.  Beside them, ``launches_per_step`` gives each path's count
-a step (VGG8B, mlp4, the llama3.2-1b int8 run), and ``lm_int8`` the LM
+a step (VGG8B, mlp4, the llama3.2-1b int8 run), ``routes_per_step`` the
+same by route, and ``lm_int8`` the LM
 int8 path's own launches and its ``ms``, ``plain_ms``, ``bound_ms`` and
 ``library_ms`` (``torch._int_mm`` on the same int8 operands) over one
 step's calls.
@@ -348,11 +358,13 @@ MLP4_SHAPES = [("linear", (TRAIN_BATCH, 3072), (3072, 3000)),
 PARITY_CASES: Counter = Counter()
 #: dynamic shared memory of the digit GEMMs: SMEM in digit_gemm.cuh
 #: (grad_W) and in conv_digits.cuh (the forward convs), RING in
-#: nitro_matmul.cu (the matmuls)
+#: nitro_matmul.cu (the matmuls); Cfg::SMEM in wgmma_s8.cuh (int_matmul's
+#: route W)
 DIGIT_GEMM_SMEM = {"digit_gemm_kernel": 184320, "conv_digit_gemm_kernel": 217088,
                    "matmul_digit_kernelILb0": 102400, "matmul_digit_kernelILb1": 102400,
                    "grad_w_digit_kernelILb0": 61440, "grad_w_digit_kernelILb1": 98304,
-                   "grad_x_digit_kernelILb0": 163840, "grad_x_digit_kernelILb1": 163840}
+                   "grad_x_digit_kernelILb0": 163840, "grad_x_digit_kernelILb1": 163840,
+                   "gemm_s8_kernelILi256ELb0": 197632, "gemm_s8_kernelILi128ELb1": 197632}
 #: kernels whose ptxas lines the build phase prints: mangled name fragment
 #: (the first that matches an entry, in this order) → what the line says
 PTXAS_KERNELS = {
@@ -374,6 +386,10 @@ PTXAS_KERNELS = {
     "row_digits_kernelILb1Ei": "row_digits_kernel<masked>",
     "w_rot_digits_kernel": "w_rot_digits_kernel",
     "integer_sgd_many_kernel": "integer_sgd_many_kernel",
+    "gemm_s8_kernelILi256ELb0": "gemm_s8_kernel<128x256> (int_matmul route W)",
+    "gemm_s8_kernelILi128ELb1": "gemm_s8_kernel<128x128, folds> (int_matmul route W)",
+    "thin_kernelIiiE": "thin_kernel<int32, int32> (int_matmul route T)",
+    "transpose_s8_kernel": "transpose_s8_kernel (int_matmul route W's pass)",
 }
 I32 = (-(2 ** 31), 2 ** 31)
 #: bounds of x and w whose values need one to four base-256 digits (the
@@ -3737,6 +3753,12 @@ CLI_EVAL_BATCHES = 512 // TRAIN_BATCH
 #: the LM's NITRO int8 MLP products at llama3.2-1b's full width, batch 4 ×
 #: seq 512: x (tokens, d_model) · w_in (d_model, d_ff), and back down
 LM_INT8_SHAPES = [(2048, 2048, 8192), (2048, 8192, 2048)]
+#: the learning and output layers' fan-ins of a VGG8B step (grad_x or not)
+VGG8B_FAN_INS = [(1024, False), (3200, True), (4096, True), (4096, True), (2048, True),
+                 (2048, True), (2048, True), (1024, True)]
+#: routes a step's int_matmul calls take: every VGG8B and mlp4 training
+#: call on T (one launch), every llama3.2-1b int8 product on W
+STEP_ROUTES = {"VGG8B": "T", "mlp4": "T", "llama3.2-1b int8": "W"}
 
 
 def int_matmul_counter():
@@ -3745,10 +3767,30 @@ def int_matmul_counter():
     return int_matmul_cuda.launches
 
 
+def device_parts(fn, calls: int, parts: dict, tries: int = 3) -> dict:
+    """Device ms per call of ``fn`` by part, from the profiler: ``parts``
+    maps a label to a substring of its kernels' names (a memset's is
+    "Memset"); the device operations no label names go to "other", and
+    "total" sums them all.  From a profiler session that saw device time."""
+    for _ in range(tries):
+        _, kernels = device_profile(fn, calls)
+        if kernels:
+            break
+    out = {label: 0.0 for label in parts}
+    out["other"] = 0.0
+    for name, (ms, _) in kernels.items():
+        label = next((p for p, key in parts.items() if key in name), "other")
+        out[label] += ms / calls
+    out["total"] = sum(ms for ms, _ in kernels.values()) / calls
+    return out
+
+
 def record_int_matmul(fn):
-    """``(fn(), calls)``: every ``int_matmul`` kernel call inside ``fn``
-    with copies of its operands, and ``fn``'s launches of it (the counter
-    set to 0 just before and read just after)."""
+    """``(fn(), calls, routes)``: every ``int_matmul`` kernel call inside
+    ``fn`` with copies of its operands (strides kept), ``fn``'s launches of
+    it and of each route (the counters set to 0 just before and read just
+    after); the recorded calls must match the launches, and the routes
+    the rule's choice for each call."""
     from repro_torch.kernels.int_matmul import int_matmul as mod
 
     real, calls = mod.int_matmul_cuda, []
@@ -3757,8 +3799,10 @@ def record_int_matmul(fn):
         calls.append((a.clone(), b.clone()))
         return real(a, b)
 
-    rec.launches = real.launches
+    rec.launches, rec.routes = real.launches, real.routes
     real.launches.reset()
+    for counter in real.routes.values():
+        counter.reset()
     mod.int_matmul_cuda = rec
     try:
         out = fn()
@@ -3766,13 +3810,45 @@ def record_int_matmul(fn):
         mod.int_matmul_cuda = real
     if len(calls) != real.launches.value:
         die(f"int_matmul: {len(calls)} calls recorded, {real.launches.value} launches counted")
-    return out, calls
+    routes = {r: c.value for r, c in real.routes.items() if c.value}
+    want = Counter(route_of(a, b) for a, b in calls)
+    if routes != dict(want):
+        die(f"int_matmul: routes launched {routes}, the rule's {dict(want)}")
+    return out, calls, routes
+
+
+def route_of(a, b) -> str:
+    """The route ``plan`` gives ``a @ b`` ("WT", route W after the
+    transpose pass, counts as "W")."""
+    from repro_torch.kernels.int_matmul import plan
+
+    r = plan(tuple(a.shape), a.dtype, a.stride(), a.data_ptr(),
+             tuple(b.shape), b.dtype, b.stride(), b.data_ptr())
+    return "W" if r == "WT" else r
+
+
+def routed(a, b) -> tuple:
+    """``(int_matmul_cuda(a, b), the route it launched)``; dies unless that
+    is the rule's."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+
+    before = {r: c.value for r, c in int_matmul_cuda.routes.items()}
+    out = int_matmul_cuda(a, b)
+    took = [r for r, c in int_matmul_cuda.routes.items() if c.value != before[r]]
+    want = [route_of(a, b)] if out.numel() and a.shape[1] else []  # empty: no launch
+    if took != want:
+        die(f"int_matmul {tuple(a.shape)} x {tuple(b.shape)}: launched {took}, the rule says "
+            f"{want}")
+    return out, (took or ["none"])[0]
 
 
 def int_matmul_cases(g):
     """(label, a, b) on the card: the materialise conv shapes, the LM int8
-    products at full width, ragged M/N/K, a contraction deeper than 16,384
-    (it splits) and full-range int32 operands that wrap."""
+    products at full width with b N-major and K-major, route W ragged, at
+    K = 48 and at M = 16, K = 131,072 whose sum is 2³¹ and wraps, a VGG8B
+    step's thin products on the views it passes, ragged M/N/K, a
+    contraction deeper than 16,384 (it splits) and full-range int32
+    operands that wrap."""
     import torch
 
     def ints(shape, lo, hi, dtype=torch.int32):
@@ -3790,8 +3866,31 @@ def int_matmul_cases(g):
         cases.append((f"materialise grad_x ({p}x{9 * f})x({9 * f}x{c})",
                       ints((p, 9 * f), -2 ** 20, 2 ** 20), ints((9 * f, c), -64, 65)))
     for m, k, n in LM_INT8_SHAPES:
-        cases.append((f"LM int8 ({m}x{k})x({k}x{n})",
-                      ints((m, k), -127, 128, torch.int8), ints((k, n), -127, 128, torch.int8)))
+        a = ints((m, k), -127, 128, torch.int8)
+        cases.append((f"LM int8 ({m}x{k})x({k}x{n}) b N-major", a,
+                      ints((k, n), -127, 128, torch.int8)))
+        cases.append((f"LM int8 ({m}x{k})x({k}x{n}) b K-major", a,
+                      ints((n, k), -127, 128, torch.int8).t()))
+    cases.append(("ragged route W (2047x2064)x(2064x8200) b K-major",
+                  ints((2047, 2064), -128, 128, torch.int8),
+                  ints((8200, 2064), -128, 128, torch.int8).t()))
+    cases.append(("route W, K of one partial stage (4096x48)x(48x4096) b K-major",
+                  ints((4096, 48), -128, 128, torch.int8),
+                  ints((4096, 48), -128, 128, torch.int8).t()))
+    cases.append(("route W, M of 16 (16x2048)x(2048x2048) b K-major",
+                  ints((16, 2048), -128, 128, torch.int8),
+                  ints((2048, 2048), -128, 128, torch.int8).t()))
+    cases.append(("wrap K=131072 (128x131072)x(131072x144), every term (-128)(-128)",
+                  torch.full((128, 131072), -128, dtype=torch.int8, device="cuda"),
+                  torch.full((144, 131072), -128, dtype=torch.int8, device="cuda").t()))
+    # a VGG8B step's thin products as the step passes them: forward x·W,
+    # grad_x δ·Wᵀ and grad_W xᵀ·δ on the transposed views, δ wide
+    for k in sorted({k for k, _ in VGG8B_FAN_INS}):
+        x, w, delta = ints((TRAIN_BATCH, k), -127, 128), ints((k, 10), -9, 10), \
+            ints((TRAIN_BATCH, 10), -2 ** 22, 2 ** 22)
+        cases.append((f"VGG8B forward ({TRAIN_BATCH}x{k})x({k}x10)", x, w))
+        cases.append((f"VGG8B grad_x ({TRAIN_BATCH}x10)x(10x{k}) w.T", delta, w.T))
+        cases.append((f"VGG8B grad_W ({k}x{TRAIN_BATCH})x({TRAIN_BATCH}x10) x.T", x.T, delta))
     cases.append(("ragged int8 (37x1000)x(1000x23)", ints((37, 1000), -128, 128, torch.int8),
                   ints((1000, 23), -128, 128, torch.int8)))
     cases.append(("ragged int8 x int32 (5x77)x(77x130)", ints((5, 77), -128, 128, torch.int8),
@@ -3816,7 +3915,8 @@ def int_matmul_step(what: str, batches_fn, errs: dict) -> tuple:
     ``int_matmul_ref`` on its inputs, and the same step under the
     quickstart's float audit, which must count 0; then one ``eval_step``
     (the train CLI's evaluation, a batch) likewise recorded and held.
-    Returns (the step's launches, its calls, the eval batch's launches)."""
+    Returns (the step's launches, its calls, the eval batch's launches, the
+    step's launches by route)."""
     import importlib.util
 
     from repro_torch.core import les, prng
@@ -3826,9 +3926,11 @@ def int_matmul_step(what: str, batches_fn, errs: dict) -> tuple:
     cfg, steps = batches_fn()
     x, y, key = steps[0]
     state = les.create_train_state(prng.PRNGKey(0), cfg, device="cuda")
-    _, calls = record_int_matmul(lambda: les.train_step(state, cfg, x, y, key))
+    _, calls, routes = record_int_matmul(lambda: les.train_step(state, cfg, x, y, key))
     if not calls:
         die(f"11a: a {what} step launched no int_matmul")
+    if routes != {STEP_ROUTES[what]: len(calls)}:
+        die(f"11a: a {what} step's {len(calls)} int_matmul calls took routes {routes}")
     for i, (a, b) in enumerate(calls):
         compare(f"int_matmul {what} step call {i} {a.dtype}{tuple(a.shape)} x "
                 f"{b.dtype}{tuple(b.shape)}", int_matmul_cuda(a, b), int_matmul_ref(a, b), errs)
@@ -3840,15 +3942,16 @@ def int_matmul_step(what: str, batches_fn, errs: dict) -> tuple:
     if audit.n_float != 0:
         die(f"11a: the quickstart audit counts {audit.n_float} float tensors in a {what} "
             f"card train step: {dict(audit.ops)}")
-    _, eval_calls = record_int_matmul(lambda: les.eval_step(state, cfg, x, y))
+    _, eval_calls, eval_routes = record_int_matmul(lambda: les.eval_step(state, cfg, x, y))
     for i, (a, b) in enumerate(eval_calls):
         compare(f"int_matmul {what} eval batch call {i} {a.dtype}{tuple(a.shape)} x "
                 f"{b.dtype}{tuple(b.shape)}", int_matmul_cuda(a, b), int_matmul_ref(a, b), errs)
     print(f"[int-matmul] {what} step on the card: {len(calls)} int_matmul launches "
           f"({', '.join(sorted({f'{tuple(a.shape)}x{tuple(b.shape)}' for a, b in calls}))}), "
-          f"each bitwise int_matmul_ref; the quickstart audit counts 0 float tensors; "
-          f"an eval batch {len(eval_calls)} launches, bitwise")
-    return len(calls), calls, len(eval_calls)
+          f"routes {routes}, each bitwise int_matmul_ref; the quickstart audit counts 0 "
+          f"float tensors; an eval batch {len(eval_calls)} launches, routes {eval_routes}, "
+          f"bitwise")
+    return len(calls), calls, len(eval_calls), routes
 
 
 def int_matmul_phase(errs: dict) -> dict:
@@ -3858,31 +3961,41 @@ def int_matmul_phase(errs: dict) -> dict:
     import torch
 
     from repro_torch.core.numerics import int_matmul_ref
-    from repro_torch.kernels.int_matmul import int_matmul_cuda
 
     g = torch.Generator().manual_seed(11)
+    taken = []
     for label, a, b in int_matmul_cases(g):
         want = int_matmul_ref(a, b)
         for rep in (1, 2):
-            compare(f"int_matmul {label} #{rep}", int_matmul_cuda(a, b), want, errs)
-    vgg, vgg_calls, vgg_eval = int_matmul_step("VGG8B", cli_batches, errs)
-    mlp, _, _ = int_matmul_step("mlp4", mlp_batches, errs)
-    return {"vgg8b": vgg, "mlp4": mlp, "vgg_calls": vgg_calls, "vgg8b_eval": vgg_eval}
+            got, route = routed(a, b)
+            compare(f"int_matmul {label} #{rep}", got, want, errs)
+        taken.append(f"{label}: {route}")
+    print(f"[int-matmul] {len(taken)} cases, each bitwise twice on the route the rule "
+          f"gives: {'; '.join(taken)}")
+    vgg, vgg_calls, vgg_eval, vgg_routes = int_matmul_step("VGG8B", cli_batches, errs)
+    mlp, _, _, mlp_routes = int_matmul_step("mlp4", mlp_batches, errs)
+    return {"vgg8b": vgg, "mlp4": mlp, "vgg_calls": vgg_calls, "vgg8b_eval": vgg_eval,
+            "routes": {"vgg8b": vgg_routes, "mlp4": mlp_routes}}
 
 
 def int_matmul_timing(vgg_calls, card: str) -> dict:
     """int_matmul's row of the kernels line: one VGG8B training step's calls
-    (11a's recorded operands, int32) replayed, the kernel's device time
-    (the profiler: its launches are shorter than the wrapper's host path;
-    the back-to-back time printed beside it) against the float64 limb
-    GEMMs it replaced, and the bound of the same products.  No PyTorch call
-    multiplies int32 matrices on the card (``torch._int_mm`` takes int8),
-    so ``library_ms`` is null here; the LM's int8 products have it.  Then
-    ``[time]`` at the two LM int8 shapes beside ``torch._int_mm``."""
+    (11a's recorded operands, int32, the views the step passes: route T)
+    replayed, the kernel's device time and device launches (the profiler:
+    its launches are shorter than the wrapper's host path; the
+    back-to-back time printed beside it) against the float64 limb GEMMs,
+    and the bound of the same products.  No PyTorch call multiplies int32
+    matrices on the card (``torch._int_mm`` takes int8), so
+    ``library_ms`` is null here; the LM's int8 products have it.  Then
+    ``[time]`` at the two LM int8 shapes: route W on a K-major b beside
+    ``torch._int_mm`` on the same operands, the bound and its share; the
+    N-major b's transpose pass on its own line; route D's split (the
+    parent's digit GEMM, unchanged) at the same shape."""
     import torch
 
     from repro_torch.core.numerics import int_matmul_ref
-    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.kernels.int_matmul import int_matmul_cuda, run_route
+    from repro_torch.kernels.int_matmul.int_matmul import transpose_int8
 
     def replay(fn):
         return lambda: [fn(a, b) for a, b in vgg_calls]
@@ -3890,6 +4003,7 @@ def int_matmul_timing(vgg_calls, card: str) -> dict:
     _, kern = device_profile(replay(int_matmul_cuda), 10)
     _, limb = device_profile(replay(int_matmul_ref), 10)
     dev, dev_limb = sum(v for v, _ in kern.values()) / 10, sum(v for v, _ in limb.values()) / 10
+    dev_launches = sum(n for _, n in kern.values()) / 10
     b2b = time_cuda(replay(int_matmul_cuda), iters=20, warmup=3)
     ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in vgg_calls)
     nbytes = sum(a.numel() * a.element_size() + b.numel() * b.element_size()
@@ -3897,27 +4011,43 @@ def int_matmul_timing(vgg_calls, card: str) -> dict:
     ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     print(f"[int-matmul-step] {card} | one VGG8B step's {len(vgg_calls)} int_matmul calls "
           f"({', '.join(sorted({str(a.dtype).replace('torch.', '') for a, _ in vgg_calls}))} "
-          f"operands): device {dev:.4f} ms (int_matmul kernel; back to back {b2b:.4f} ms) "
-          f"against {dev_limb:.4f} ms (the float64 limb GEMMs it replaced) | bound "
+          f"operands, routes {dict(Counter(route_of(a, b) for a, b in vgg_calls))}, route T "
+          f"launching once a call): device {dev:.4f} ms, {dev_launches:g} device launches a "
+          f"replay in the profiler's record (int_matmul kernel; back to back {b2b:.4f} ms) "
+          f"against {dev_limb:.4f} ms (the float64 limb GEMMs) | bound "
           f"{max(ops_ms, bytes_ms):.5f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'})")
     g = torch.Generator().manual_seed(12)
+    stream = torch.cuda.current_stream().cuda_stream
+    parts = {"memset": "Memset", "b's planes": "delta_digits_kernel",
+             "a's planes": "row_digits_kernel", "GEMM": "matmul_digit_kernel"}
     for m, k, n in LM_INT8_SHAPES:
         a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).cuda()
-        b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).cuda()
+        b_n = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8).cuda()
+        b = b_n.t().contiguous().t()  # the same values K-major, as the LM's weight lies
+        if route_of(a, b) != "W" or not torch.equal(int_matmul_cuda(a, b), torch._int_mm(a, b)):
+            die(f"int_matmul ({m}x{k})x({k}x{n}): not route W, or not torch._int_mm's product")
         ms = time_cuda(lambda: int_matmul_cuda(a, b), iters=20, warmup=3)
+        w_dev = device_parts(lambda: int_matmul_cuda(a, b), 20, {"W": "gemm_s8_kernel"})
         plain = time_cuda(lambda: int_matmul_ref(a, b), iters=3, warmup=1)
-        bt = b.t().contiguous().t()  # _int_mm wants b column-major
-        if not torch.equal(torch._int_mm(a, bt), int_matmul_cuda(a, b)):
-            die(f"torch._int_mm ({m}x{k})x({k}x{n}) disagrees with int_matmul")
-        lib = time_cuda(lambda: torch._int_mm(a, bt), iters=20, warmup=3)
+        lib = time_cuda(lambda: torch._int_mm(a, b), iters=20, warmup=3)
         o_ms, b_ms = 2 * m * k * n / PEAK_OPS * 1e3, (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3
-        print(f"[time] {card} | int_matmul LM int8 ({m}x{k})x({k}x{n}) | kernel {ms:.4f} ms | "
-              f"plain {plain:.4f} ms | bound {max(o_ms, b_ms):.5f} ms ("
-              f"{'operations' if o_ms >= b_ms else 'bytes'}) | "
-              f"{100 * max(o_ms, b_ms) / ms:.2f}% of bound | library torch._int_mm "
-              f"{lib:.4f} ms")
+        bound = max(o_ms, b_ms)
+        print(f"[time] {card} | int_matmul LM int8 ({m}x{k})x({k}x{n}) route W, b K-major | "
+              f"kernel {ms:.4f} ms (device {w_dev['total']:.4f}, one launch) | plain "
+              f"{plain:.4f} ms | bound {bound:.5f} ms ({'operations' if o_ms >= b_ms else 'bytes'})"
+              f" | {100 * bound / ms:.2f}% of bound | library torch._int_mm {lib:.4f} ms, "
+              f"same operands")
+        tr = time_cuda(lambda: transpose_int8(b_n, stream), iters=20, warmup=3)
+        wt = time_cuda(lambda: int_matmul_cuda(a, b_n), iters=20, warmup=3)
+        print(f"[time] {card} | int_matmul LM int8 ({m}x{k})x({k}x{n}) route W, b N-major | "
+              f"transpose pass {tr:.4f} ms ({k * n / 1e6:.1f} MB each way) | the call with it "
+              f"{wt:.4f} ms")
+        d = device_parts(lambda: run_route("D", a, b_n), 10, parts)
+        print(f"[time] {card} | int_matmul LM int8 ({m}x{k})x({k}x{n}) route D (the parent's "
+              f"digit GEMM), device | " + " | ".join(f"{p} {v:.4f} ms" for p, v in d.items()))
     return {"ms": dev, "plain_ms": dev_limb, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "library_ms": None,
+            "device_launches_per_step": dev_launches, "back_to_back_ms": b2b,
             "timed_on": f"one VGG8B training step's {len(vgg_calls)} calls (batch "
                         f"{TRAIN_BATCH}), device time"}
 
@@ -3934,7 +4064,11 @@ def lm_int8_timing(calls, card: str) -> dict:
 
     if any(a.dtype != torch.int8 or b.dtype != torch.int8 for a, b in calls):
         die("11c: an int8_matmul product with operands that are not int8")
-    cols = [(a, b.t().contiguous().t()) for a, b in calls]  # _int_mm wants b column-major
+    # the recorded b keeps the weight's K-major strides: the replay takes
+    # route W, and _int_mm (which wants b column-major) reads it as it is
+    if {route_of(a, b) for a, b in calls} != {"W"}:
+        die("11c: a replayed int8 product does not take route W")
+    cols = [(a, b.t().contiguous().t()) for a, b in calls]
 
     def total(fn, pairs, n):
         _, kernels = device_profile(lambda: [fn(a, b) for a, b in pairs], n)
@@ -3947,8 +4081,8 @@ def lm_int8_timing(calls, card: str) -> dict:
     ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     shapes = sorted({f"{tuple(a.shape)}x{tuple(b.shape)}" for a, b in calls})
     print(f"[int-matmul-lm] {card} | one llama3.2-1b int8_matmul step's {len(calls)} "
-          f"int_matmul calls ({', '.join(shapes)}): device {ms:.4f} ms (int_matmul "
-          f"kernel) | plain {plain:.4f} ms (float64 limb GEMMs) | library torch._int_mm "
+          f"int_matmul calls ({', '.join(shapes)}), all on route W: device {ms:.4f} ms "
+          f"(int_matmul kernel) | plain {plain:.4f} ms (float64 limb GEMMs) | library torch._int_mm "
           f"{lib:.4f} ms | bound {max(ops_ms, bytes_ms):.5f} ms "
           f"({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
           f"{100 * max(ops_ms, bytes_ms) / ms:.2f}% of bound)")
@@ -4159,21 +4293,25 @@ def lm_full_width(card: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     steps8 = LM_FULL["int8_steps"]
-    res8, calls = record_int_matmul(lambda: train.train_lm(
+    res8, calls, routes = record_int_matmul(lambda: train.train_lm(
         arch, cfg=dataclasses.replace(cfg, int8_matmul=True), steps=steps8, **run))
     n8 = len(calls)
     if n8 == 0 or n8 % steps8 or not all(math.isfinite(v) for v in res8["losses"]):
         die(f"11c int8: {n8} int_matmul launches over {steps8} steps, losses {res8['losses']}")
+    if routes != {STEP_ROUTES["llama3.2-1b int8"]: n8}:
+        die(f"11c int8: the {n8} int_matmul calls took routes {routes}")
     print(f"[lm-step] {card} | llama3.2-1b full_config int8_matmul=True, "
           f"{steps8} steps: losses {[round(v, 4) for v in res8['losses']]}, "
           f"{n8} int_matmul launches ({n8 // steps8} a step: 3 MLP products a "
-          f"layer forward, and those the remat backward recomputes), host to host "
+          f"layer forward, and those the remat backward recomputes; routes {routes}: "
+          f"the int8 weight lies K-major), host to host "
           f"{[round(1e3 * t, 1) for t in res8['step_s']]} ms ({time.perf_counter() - t0:.1f} s)")
     del res8
     step_calls = calls[-(n8 // steps8):]
     del calls
     torch.cuda.empty_cache()
-    return {"launches": n8, "per_step": n8 // steps8, "calls": step_calls}
+    return {"launches": n8, "per_step": n8 // steps8, "calls": step_calls,
+            "routes_per_step": {r: v // steps8 for r, v in routes.items()}}
 
 
 def lm_phase(card: str, errs: dict, train_int: int) -> dict:
@@ -4199,11 +4337,13 @@ def lm_phase(card: str, errs: dict, train_int: int) -> dict:
     row["launches_per_step"] = {"vgg8b": res["vgg8b"], "vgg8b eval batch": res["vgg8b_eval"],
                                 "mlp4": res["mlp4"],
                                 "llama3.2-1b int8_matmul": lm8["per_step"]}
+    row["routes_per_step"] = {**res["routes"], "llama3.2-1b int8_matmul": lm8["routes_per_step"]}
     print(f"[phase-11] int_matmul launches per step: VGG8B {res['vgg8b']} (phase 5's run, "
           f"{TRAIN_STEPS} steps and {CLI_EVAL_BATCHES} eval batches of {res['vgg8b_eval']}: "
           f"{train_int}), mlp4 {res['mlp4']}, llama3.2-1b int8_matmul "
-          f"{lm8['per_step']} ({lm8['launches']} over {LM_FULL['int8_steps']} steps); 11b "
-          f"{t_b:.1f} s; phase 11 {time.perf_counter() - t0:.1f} s")
+          f"{lm8['per_step']} ({lm8['launches']} over {LM_FULL['int8_steps']} steps); by "
+          f"route a step {row['routes_per_step']}; 11b {t_b:.1f} s; phase 11 "
+          f"{time.perf_counter() - t0:.1f} s")
     return row
 
 

@@ -30,6 +30,7 @@ COMMON_HEADERS = (
     _HERE / "csrc_common" / "conv_digits.cuh",
     _HERE / "csrc_common" / "linear_grad_w.cuh",
     _HERE / "csrc_common" / "split_matmul.cuh",
+    _HERE / "csrc_common" / "wgmma_s8.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -201,7 +202,7 @@ def sm_count(device: torch.device) -> int:
 
 
 def split_workspace(device: torch.device, m: int, n: int,
-                    tile: tuple[int, int] = (GEMM_TILE, GEMM_TILE),
+                    tile: tuple[int, int] = (GEMM_TILE, GEMM_TILE), stream: int | None = None,
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(ws, arrivals)`` for a split-K launch with an M×N output on
     ``device``'s current stream (``stream_conv_grad_w_opt``, the forward
@@ -212,11 +213,13 @@ def split_workspace(device: torch.device, m: int, n: int,
     Each launch leaves them zero again, so one pair per (device, stream)
     serves every call in stream order, whichever kernel makes it; it
     grows to the largest output and tile count seen (9.4 MB at VGG8B's
-    conv 6) and is zeroed once, when allocated.
+    conv 6) and is zeroed once, when allocated.  ``stream``: the current
+    stream's handle, where the caller has it already.
     """
     tiles = -(-m // tile[0]) * -(-n // tile[1])
-    stream = torch.cuda.current_stream(device)
-    key = (device, stream.cuda_stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, stream)
     with _lock:
         ws, arrivals = _workspaces.get(key, (None, None))
         if ws is None or ws.numel() < m * n:

@@ -7,7 +7,8 @@ power-of-two scale (2⁶, the paper's σ=64 operating point) and weights are
 stored int8 against a power-of-two scale frozen at the call, so the
 de-scale is a shift.  The int8 × int8 → int32 product is
 ``numerics.int_matmul``: on the card the hand-written integer GEMM
-(``kernels/int_matmul``), one digit product a pair.
+(``kernels/int_matmul``), whose route W (wgmma fed by TMA) reads the
+K-major int8 weight as it lies.
 """
 
 from __future__ import annotations
@@ -93,12 +94,17 @@ ACT_SHIFT = 6  # static activation scale 2⁶ — the paper's σ=64 operating po
 
 def quantize_weight_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Quantise against a power-of-two per-tensor scale frozen at call
-    time: shift = ceil(log2(max|w|/127)).  Returns (int8 weights, shift)."""
+    time: shift = ceil(log2(max|w|/127)).  Returns (int8 weights, shift).
+
+    The int8 weight (K, N) is the view of an (N, K) row-major tensor, so
+    the card's int8 GEMM reads it K-major as it lies (``int_matmul``'s
+    route W); the narrowing copy writes that layout, no extra pass."""
     wf = w.to(torch.float32)
     amax = wf.abs().max()
     shift = torch.ceil(torch.log2(torch.clamp(amax / 127.0, min=1e-30)))
     wq = torch.clamp(torch.round(wf * torch.exp2(-shift)), -127, 127)
-    return wq.to(torch.int8), shift
+    out = torch.empty(wq.shape[::-1], dtype=torch.int8, device=wq.device).t()
+    return out.copy_(wq), shift
 
 
 class _Int8Matmul(torch.autograd.Function):

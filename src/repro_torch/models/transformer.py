@@ -17,6 +17,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import prng
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -121,9 +122,10 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
-def init_params(key, cfg: ModelConfig, device="cpu") -> dict:
+def init_params(key, cfg: ModelConfig, device=DEFAULT_DEVICE) -> dict:
     """Full model parameters: embeddings + stacked units + tail (+ encoder),
     drawn from ``key`` as the JAX package draws them (``prng.normal``)."""
+    device = resolve_device(device)
     keys = prng.split(key, 6)
     d, v = cfg.d_model, cfg.vocab_size
     # gemma-style: σ_embed = 1/√d, inputs rescaled by √d at lookup

@@ -16,6 +16,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import lm
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -83,11 +84,12 @@ def build_train_step(cfg: ModelConfig, *, causal_mode: str = "masked",
     return fn
 
 
-def init_state(key, cfg: ModelConfig, device="cpu"):
+def init_state(key, cfg: ModelConfig, device=DEFAULT_DEVICE):
     """``(params, AdamWState, step)`` from ``key``, as the JAX package's."""
+    device = resolve_device(device)
     params = T.init_params(key, cfg, device=device)
     return (params, opt.init(params),
-            torch.zeros((), dtype=torch.int32, device=torch.device(device)))
+            torch.zeros((), dtype=torch.int32, device=device))
 
 
 # ---------------------------------------------------------------------------
@@ -95,9 +97,10 @@ def init_state(key, cfg: ModelConfig, device="cpu"):
 # ---------------------------------------------------------------------------
 
 
-def tree_from_numpy(tree, device="cpu") -> Any:
+def tree_from_numpy(tree, device=DEFAULT_DEVICE) -> Any:
     """A numpy tree (dicts, lists, arrays; bfloat16 arrays as ml_dtypes
     gives them) as torch tensors on ``device``, structure kept."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: tree_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
@@ -109,7 +112,7 @@ def tree_from_numpy(tree, device="cpu") -> Any:
     return torch.from_numpy(np.array(arr, copy=True)).to(device)
 
 
-def state_from_numpy(state, device="cpu"):
+def state_from_numpy(state, device=DEFAULT_DEVICE):
     """A JAX LM train state ``(params, AdamWState(mu, nu, count), step)``
     with numpy leaves (stacked unit leaves included, as
     ``jax.tree.map(np.asarray, state)`` gives it) as the port's state."""

@@ -124,7 +124,7 @@ def run_case(arch: str, *, f32: bool = False, les: int = 0, int8: bool = False) 
     from repro_torch.core import prng
 
     jc, tc = variant(jget(arch), tget(arch), f32=f32, les=les, int8=int8)
-    ts = ttr.init_state(prng.PRNGKey(0), tc)
+    ts = ttr.init_state(prng.PRNGKey(0), tc, device="cpu")
     host = tree_map(lambda t: t.numpy(), ts[0])
     js = (jax.tree.map(jnp.asarray, host), jopt.init(host), jnp.zeros((), jnp.int32))
     b = make_batch(jc)

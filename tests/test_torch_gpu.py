@@ -609,3 +609,36 @@ def test_stream_conv_grad_x_matches_plain(cuda_device):
                     torch.cuda.synchronize()
                     assert got.dtype == want.dtype and torch.equal(got, want), \
                         (n, h, w_sp, c, f, k, d_lim, w_lim)
+
+
+#: int_matmul's routes: (route the rule gives, a, b) builders on the card
+_ROUTE_CASES = {
+    "T": lambda g, d: (_wide(g, (64, 10), 2 ** 31 - 1, d), _wide(g, (3000, 10), 2 ** 31 - 1, d).T),
+    "W": lambda g, d: (_ints(g, (300, 1040), torch.int8, d),
+                       _ints(g, (520, 1040), torch.int8, d).t()),
+    "WT": lambda g, d: (_ints(g, (600, 1040), torch.int8, d), _ints(g, (1040, 77), torch.int8, d)),
+    "D": lambda g, d: (_wide(g, (300, 1000), 2 ** 31 - 1, d), _wide(g, (1000, 200), 2 ** 31 - 1, d)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(_ROUTE_CASES))
+def test_int_matmul_routes_match_plain(cuda_device, route):
+    """int_matmul on each route (T: a thin product on a transposed view; W:
+    int8 with a K-major b; W after the transpose pass: an N-major b; D:
+    wide int32) ≡ int_matmul_ref, bitwise, twice, one launch counted on
+    the route the rule gives."""
+    from repro_torch.core.numerics import int_matmul_ref
+    from repro_torch.kernels.int_matmul import int_matmul_cuda, plan
+
+    a, b = _ROUTE_CASES[route](torch.Generator().manual_seed(27), cuda_device)
+    assert plan(tuple(a.shape), a.dtype, a.stride(), a.data_ptr(),
+                tuple(b.shape), b.dtype, b.stride(), b.data_ptr()) == route
+    want = int_matmul_ref(a, b)
+    counter = int_matmul_cuda.routes["W" if route == "WT" else route]
+    for _ in range(2):
+        before = counter.value
+        got = int_matmul_cuda(a, b)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        assert counter.value == before + 1

@@ -121,6 +121,25 @@ def test_default_device_entry_points_raise(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve_vision.main(["--arch", "mlp1", "--scale", "0.1", "--requests", "1"])
     assert compile_plan(fm, device="cpu").logits(np.zeros((1, 784), np.int32)).shape == (1, 10)
+    # the LM path's entry points default to the card too
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as lm_opt
+    from repro_torch.train import trainer
+
+    lm_cfg = get_smoke_config("llama3.2-1b")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.init_state(prng.PRNGKey(0), lm_cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        T.init_params(prng.PRNGKey(0), lm_cfg)
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3)}
+    host = (tree, lm_opt.AdamWState(mu=tree, nu=tree, count=np.int32(0)), np.int32(0))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.tree_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.state_from_numpy(host)
+    assert trainer.state_from_numpy(host, device="cpu")[0]["w"].device.type == "cpu"
+    assert trainer.init_state(prng.PRNGKey(0), lm_cfg, device="cpu")[2].device.type == "cpu"
 
 
 def test_serving_control_plane_raises_without_cuda(no_cuda, tmp_path):

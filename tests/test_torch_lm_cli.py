@@ -50,7 +50,7 @@ def _run(fn, *args, **kw):
 
 def _eps() -> float:
     cfg = get_smoke_config("llama3.2-1b")
-    state = ttr.init_state(prng.PRNGKey(0), cfg)
+    state = ttr.init_state(prng.PRNGKey(0), cfg, device="cpu")
     b = {k: torch.from_numpy(v) for k, v in make_batch(cfg).items()}
     _, g = ttr.value_and_grad(state[0], cfg, b)
     return rounding_level(state[0], cfg, b, g)

@@ -55,7 +55,7 @@ def test_init_params(arch):
     leaf in shape and dtype, values within ``INIT_TOL``."""
     jc = jget(arch)
     jp = jax.jit(lambda k: jT.init_params(k, jc))(jax.random.PRNGKey(0))
-    tp = tT.init_params(prng.PRNGKey(0), tget(arch))
+    tp = tT.init_params(prng.PRNGKey(0), tget(arch), device="cpu")
     jl, tl = jax.tree.leaves(jp), leaves(tp)
     assert len(jl) == len(tl)
     for a, b in zip(tl, jl):

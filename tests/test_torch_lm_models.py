@@ -129,7 +129,7 @@ def test_moe_mlp(arch, skew):
 
     def port(dtype):
         p = {k: v.to(dtype).requires_grad_(True) for k, v in tree_from_numpy(
-            jax.tree.map(np.asarray, params)).items()}
+            jax.tree.map(np.asarray, params), device="cpu").items()}
         xt = _t(x, dtype).requires_grad_(True)
         o, a = tmlp.moe_mlp(p, dataclasses.replace(tc, dtype=dtype), xt)
         grads = torch.autograd.grad((o.sum() + a), [xt, *(p[k] for k in sorted(p))])
@@ -163,7 +163,7 @@ def test_rwkv_layer_chunked_scan():
 
     def port(dtype):
         p = {k: v.to(dtype).requires_grad_(True) for k, v in tree_from_numpy(
-            jax.tree.map(np.asarray, params)).items()}
+            jax.tree.map(np.asarray, params), device="cpu").items()}
         xt = _t(x, dtype).requires_grad_(True)
         o, _ = trwkv.rwkv_layer(p, dataclasses.replace(tc, dtype=dtype), xt,
                                 trwkv.init_rwkv_state(tc, 2))
@@ -199,7 +199,7 @@ def test_rglru_scan_and_block():
 
     def port(dtype):
         p = {k: v.to(dtype).requires_grad_(True) for k, v in tree_from_numpy(
-            jax.tree.map(np.asarray, params)).items()}
+            jax.tree.map(np.asarray, params), device="cpu").items()}
         h, last = trg.rglru_scan(p, _t(x, dtype), _t(h0, dtype))
         xt = _t(xb, dtype).requires_grad_(True)
         o, _ = trg.rglru_block(p, dataclasses.replace(tc, dtype=dtype), xt,
