@@ -233,7 +233,35 @@ Phases, each fatal on failure:
      ``int8_matmul=True``, every int_matmul call recorded and counted,
      which must be some, all on route W; ``[int-matmul-lm]`` one such
      step's calls: int_matmul, the limb GEMMs and ``torch._int_mm``,
-     device time.
+     device time;
+ 12. LM serving (``models/lm.py`` ``prefill`` / ``decode_step``, the KV and
+     recurrent caches, ``serving.Engine``): (12a, ``[lm-serve-parity]``)
+     every LM arch's smoke config, 2 × 12 prompt tokens and 6 decode steps
+     teacher-forced with the CPU run's tokens, through the Engine (the
+     eight token archs) or ``prefill`` / ``decode_step`` (qwen2-vl,
+     whisper), on the card against the port's CPU path: each step's logits
+     and the final cache, leaf by leaf (dtypes, shapes and ``t`` equal),
+     within 2 ε, ε the CPU path's distance from its own float64 run;
+     (12b, ``[lm-serve]``) llama3.2-1b's published config (fp32 master
+     weights from ``init_params(PRNGKey(0))``, not cut) served by
+     ``Engine(max_seq=1024)``: 8 requests of 512 prompt tokens drawn as
+     ``launch/serve.py`` draws them (seed 0), 64 new tokens each; the
+     prefill and the first 4 decode steps' logits within 5% (relative to
+     the largest |logit|) of the same steps in float64 on the card, the
+     greedy tokens equal float64's wherever its top-2 margin exceeds twice
+     that; the prefill ms host to host, the decode ms a token (p50, p90),
+     tokens/s, one profiled decode step (device time, launches, busy
+     share, time by kernel family), the step's float32 → bf16 weight casts
+     replayed alone, peak memory; (12c) the same with
+     ``int8_matmul=True`` and 16 new tokens: the prefill's and one decode
+     step's int_matmul calls recorded (48 each, 3 a layer, on route W as
+     ``plan`` gives at M = 4,096 and M = 8) and held bitwise
+     ``int_matmul_ref``, the Engine's run counted (48 a step);
+     ``[int-matmul-decode]`` one decode step's 48 calls: device time and
+     launches against the bound by operations and by bytes, the limb
+     GEMMs, ``torch._int_mm`` on the same operands (it refuses M = 8: the
+     line says so), ``quantize_weight_int8``'s device time over the
+     step's 48 weights.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -262,11 +290,14 @@ evaluation, 8 batches), its ``ms``, ``plain_ms`` and
 ``bound_ms`` one step's 23 int32 products (``timed_on`` says so), and
 its ``library_ms`` null, since no PyTorch call multiplies int32 matrices
 on the card.  Beside them, ``launches_per_step`` gives each path's count
-a step (VGG8B, mlp4, the llama3.2-1b int8 run), ``routes_per_step`` the
-same by route, and ``lm_int8`` the LM
-int8 path's own launches and its ``ms``, ``plain_ms``, ``bound_ms`` and
-``library_ms`` (``torch._int_mm`` on the same int8 operands) over one
-step's calls.
+a step (VGG8B, mlp4, the llama3.2-1b int8 run; phase 12's int8 prefill
+of 8 × 512 tokens and its decode step of 8), ``routes_per_step`` the
+same by route, ``lm_int8`` the LM int8 training path's own launches and
+its ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms``
+(``torch._int_mm`` on the same int8 operands) over one step's calls, and
+``lm_int8_decode`` the same fields for phase 12c's serving run (its
+launches) over one decode step's calls (``library_ms`` null where
+``torch._int_mm`` refuses M = 8).
 """
 
 from __future__ import annotations
@@ -4347,6 +4378,472 @@ def lm_phase(card: str, errs: dict, train_int: int) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: LM serving on the card (prefill, decode_step, the Engine)
+# ---------------------------------------------------------------------------
+
+#: 12a: each smoke config prefills a batch × prompt, then decodes ``steps``
+#: tokens, into caches of ``max_seq`` positions (h2o-danube's and mixtral's
+#: windows of 16 wrap their rings at t = 16)
+SERVE_PARITY = {"batch": 2, "prompt": 12, "steps": 6, "max_seq": 32}
+#: card and CPU each lie within about ε of the float64 result, so the two
+#: within 2 ε; a bf16 cache leaf that the two round to neighbouring bf16
+#: numbers lies one unit apart, 2 ε where the float64 run places ε at half
+#: a unit (tests/_torch_lm_serve.py's SERVE_LEVELS, the port against JAX)
+SERVE_LEVELS = 2.0
+#: the two archs JAX's Engine cannot serve (its prefill reads stub inputs
+#: that the Engine does not pass): served through prefill / decode_step
+EMBED_ARCHS = ("qwen2-vl-72b", "whisper-large-v3")
+#: 12b / 12c: llama3.2-1b's published config served at full width: requests
+#: × prompt (drawn as the serve launcher draws them, seed 0), new tokens,
+#: cache length, the int8 run's new tokens, the decode steps held against
+#: float64 after the prefill
+LM_SERVE = {"requests": 8, "prompt": 512, "max_new": 64, "max_seq": 1024,
+            "int8_max_new": 16, "checked_steps": 4}
+#: the bf16 logits against the same prefill and decode steps in float64 on
+#: the card, relative to the largest |logit|: bf16 rounding moves the
+#: logits of a 2-layer smoke config by 0.4–1.8% of their largest value
+#: (SERVE_PARITY's ε, the CPU's float64 runs) and of a 16-layer llama at
+#: smoke width by 1.2–1.9%; 16 layers at full width, within 5%
+LM_SERVE_TOL = 5e-2
+
+
+class serve_recorder:
+    """Inside: every ``lm.prefill`` and ``lm.decode_step`` call (the
+    Engine's too) records its logits (the first ``keep``) and the latest
+    cache; with ``tokens``, decode step i is fed ``tokens[i]`` in place of
+    the caller's (teacher forcing), and every step's tokens are kept."""
+
+    def __init__(self, tokens=None, keep: int | None = None):
+        self.tokens, self.keep = tokens, keep
+        self.logits, self.fed, self.cache = [], [], None
+
+    def _keep(self, logits, cache):
+        if self.keep is None or len(self.logits) < self.keep:
+            self.logits.append(logits)
+        self.cache = cache
+        return logits, cache
+
+    def __enter__(self):
+        from repro_torch.models import lm
+
+        self.real = lm.prefill, lm.decode_step
+        real_prefill, real_decode = self.real
+
+        def prefill(*a, **kw):
+            return self._keep(*real_prefill(*a, **kw))
+
+        def decode(params, cfg, tokens, cache, enc_out=None):
+            if self.tokens is not None:
+                tokens = self.tokens[len(self.fed)].to(tokens.device)
+            self.fed.append(tokens)
+            return self._keep(*real_decode(params, cfg, tokens, cache, enc_out))
+
+        lm.prefill, lm.decode_step = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import lm
+
+        lm.prefill, lm.decode_step = self.real
+        return False
+
+
+def serve_run(arch: str, cfg, params, batch: dict, device: str, tokens=None,
+              f64: bool = False) -> serve_recorder:
+    """One 12a run: SERVE_PARITY's prefill and decode steps through the
+    Engine (the token archs) or ``prefill`` / ``decode_step`` (EMBED_ARCHS),
+    recorded; ``tokens`` teacher-forces the decode steps; ``f64`` runs it
+    under ``float64_math`` with params, inputs and cfg.dtype in float64."""
+    import contextlib
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.tree import tree_map
+    from repro_torch.serving import Engine, Request
+    from tools_torch.fp_rounding import float64_math
+
+    n, steps = SERVE_PARITY["batch"], SERVE_PARITY["steps"]
+    tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    if f64:
+        cfg = dataclasses.replace(cfg, dtype=torch.float64)
+        params = tree_map(torch.Tensor.double, params)
+        tb = {k: v.double() if v.is_floating_point() else v for k, v in tb.items()}
+    ctx = float64_math() if f64 else contextlib.nullcontext()
+    with torch.no_grad(), ctx, serve_recorder(tokens) as rec:
+        if arch in EMBED_ARCHS:
+            cache = T.init_cache(cfg, n, SERVE_PARITY["max_seq"], device=device)
+            logits, cache = lm.prefill(params, cfg, tb, cache)
+            enc_out = lm.run_encoder(params, cfg, tb["enc_embeds"]) if cfg.encoder_layers \
+                else None
+            for _ in range(steps):
+                tok = torch.argmax(logits, -1).to(torch.int32)
+                logits, cache = lm.decode_step(params, cfg, tok, cache, enc_out)
+        else:
+            Engine(cfg, params, max_seq=SERVE_PARITY["max_seq"], device=device).generate(
+                [Request(prompt=row.tolist(), max_new_tokens=steps + 1)
+                 for row in batch["tokens"]])
+    if len(rec.logits) != steps + 1 or len(rec.fed) != steps:
+        die(f"12a {arch}: {len(rec.logits)} logits, {len(rec.fed)} decode steps recorded")
+    return rec
+
+
+def serve_case(arch: str) -> str:
+    """One 12a case: the smoke config on the card against the port's CPU
+    path, teacher-forced with the CPU run's tokens.  ε is the CPU path's
+    distance from its own float64 run (the largest over each step's logits
+    and the final cache's float leaves); the card's logits at every step and
+    its final cache lie within SERVE_LEVELS · ε, leaf by leaf, with the
+    CPU's shapes and dtypes and the same ``t``."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.tree import leaves, tree_map
+
+    cfg = get_smoke_config(arch)
+    params = T.init_params(prng.PRNGKey(0), cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    n, s = SERVE_PARITY["batch"], SERVE_PARITY["prompt"]
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (n, s)).astype(np.int32)}
+    if cfg.embeds_input:
+        batch["embeds"] = rng.standard_normal((n, s, cfg.d_model)).astype(np.float32)
+    if cfg.encoder_layers:
+        batch["enc_embeds"] = rng.standard_normal((n, cfg.encoder_seq,
+                                                   cfg.d_model)).astype(np.float32)
+    cpu = serve_run(arch, cfg, params, batch, "cpu")
+    fed = [t.cpu() for t in cpu.fed]
+    cpu64 = serve_run(arch, cfg, params, batch, "cpu", tokens=fed, f64=True)
+    gpu = serve_run(arch, cfg, tree_map(lambda t: t.cuda(), params), batch, "cuda",
+                    tokens=fed)
+
+    def floats(cache):
+        return [c for c in leaves(cache) if c.is_floating_point()]
+
+    eps = max(_rel(a, b) for a, b in zip(cpu.logits + floats(cpu.cache),
+                                          cpu64.logits + floats(cpu64.cache)))
+    ldev = max(_rel(a, b) for a, b in zip(gpu.logits, cpu.logits))
+    got, want = leaves(gpu.cache), leaves(cpu.cache)
+    if [(c.dtype, c.shape) for c in got] != [(c.dtype, c.shape) for c in want]:
+        die(f"12a {arch}: the card's cache leaves differ in dtype or shape from the CPU's")
+    if not int(gpu.cache["t"]) == int(cpu.cache["t"]) == s + SERVE_PARITY["steps"]:
+        die(f"12a {arch}: t {int(gpu.cache['t'])} on the card, {int(cpu.cache['t'])} on the CPU")
+    cdev = max(_rel(a, b) for a, b in zip(floats(gpu.cache), floats(cpu.cache)))
+    tag = f"{arch} {str(cfg.dtype).replace('torch.', '')}"
+    if not max(ldev, cdev) <= SERVE_LEVELS * eps:
+        die(f"12a {tag}: card logits {ldev:.3e}, cache {cdev:.3e} from the CPU's, past "
+            f"{SERVE_LEVELS:g} ε = {SERVE_LEVELS * eps:.3e}")
+    how = "prefill / decode_step" if arch in EMBED_ARCHS else "Engine"
+    return (f"{tag} ({how}, {n} x {s} prompt, {SERVE_PARITY['steps']} decode steps): ε "
+            f"{eps:.2e}, card logits {ldev:.2e}, cache {cdev:.2e} (≤ {SERVE_LEVELS:g} ε)")
+
+
+def serve_parity() -> float:
+    """Phase 12a: every arch's smoke config served on the card against the
+    port's CPU path; bf16 GEMMs with full-precision reductions, as the
+    CPU's."""
+    import torch
+
+    from repro_torch.configs import list_archs
+
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    try:
+        for arch in list_archs():
+            print(f"[lm-serve-parity] {serve_case(arch)}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
+    return time.perf_counter() - t0
+
+
+def serve_prompts(cfg) -> list:
+    """LM_SERVE's prompts, drawn as ``launch/serve.py`` draws them (seed 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, LM_SERVE["prompt"]).tolist()
+            for _ in range(LM_SERVE["requests"])]
+
+
+def serve_times(engine) -> str:
+    """The last ``generate``'s figures: the prefill host to host (to its
+    tokens on the host), the decode ms a token (p50, p90) and tokens/s."""
+    import numpy as np
+
+    pre, dec = 1e3 * engine.step_s[0], 1e3 * np.asarray(engine.step_s[1:])
+    n = LM_SERVE["requests"]
+    total = n * len(engine.step_s) / sum(engine.step_s)
+    return (f"prefill {pre:.2f} ms host to host, decode {np.percentile(dec, 50):.3f} ms a "
+            f"token p50, {np.percentile(dec, 90):.3f} p90 ({len(dec)} steps of {n} tokens: "
+            f"{n * len(dec) / dec.sum() * 1e3:.1f} tokens/s), {total:.1f} generated tokens/s "
+            f"with the prefill")
+
+
+def profile_decode(params, cfg, cache, tokens) -> dict:
+    """One ``lm.decode_step`` on ``cache`` (as the Engine runs it: then its
+    tokens to the host) under the profiler: host-to-host ms, device ms,
+    device launches, busy share, and the device time by kernel family (its
+    name up to the template arguments), the largest six."""
+    import torch
+
+    from repro_torch.models import lm
+
+    box = [cache]
+
+    def one():
+        logits, box[0] = lm.decode_step(params, cfg, tokens, box[0])
+        torch.argmax(logits, -1).tolist()
+
+    wall, kernels = device_profile(one, 1)
+    fams = Counter()
+    for name, (ms, _) in kernels.items():
+        fams[name.split("<")[0].split("(")[0].removeprefix("void ")[-48:]] += ms
+    dev_ms = sum(v for v, _ in kernels.values())
+    return {"wall": wall, "ms": dev_ms, "launches": sum(c for _, c in kernels.values()),
+            "busy": dev_ms / wall,
+            "top": "; ".join(f"{k} {v:.3f}" for k, v in fams.most_common(6))}
+
+
+def weight_casts(params, cfg) -> list:
+    """The float32 weights a decode step casts to bf16: the embedding table
+    twice (the lookup and the tied unembedding) and each layer's wq, wk, wv,
+    wo and MLP weights."""
+    from repro_torch.models import lm
+
+    ws = [params["embed"], params["embed"]]
+    for i in range(cfg.scan_repeats):
+        p = lm._unit(params["scan"], i)["u0"]
+        ws += [p["wq"], p["wk"], p["wv"], p["wo"], *(p["mlp"][k] for k in sorted(p["mlp"]))]
+    return ws
+
+
+def lm_serve_full(card: str) -> dict:
+    """Phase 12b, ``[lm-serve]``: llama3.2-1b's published config served by
+    the Engine on the card (LM_SERVE: 8 requests of 512 tokens, 64 new
+    tokens each, a cache of 1,024): the prefill and the first
+    ``checked_steps`` decode steps' logits within LM_SERVE_TOL of the same
+    prefill and steps (teacher-forced with the run's tokens) in float64 on
+    the card, and the greedy tokens equal float64's wherever its top-2
+    margin exceeds 2 · LM_SERVE_TOL · max |logit|; the serving figures, one
+    profiled decode step (device time, launches, busy share), the step's
+    float32 → bf16 weight casts replayed alone, peak memory.  Returns the
+    params and the prompts for 12c."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.tree import tree_map
+    from repro_torch.serving import Engine, Request
+    from tools_torch.fp_rounding import float64_math
+
+    cfg = get_config("llama3.2-1b")
+    params = T.init_params(prng.PRNGKey(0), cfg, device="cuda")
+    prompts = serve_prompts(cfg)
+    n, steps = LM_SERVE["requests"], LM_SERVE["checked_steps"]
+    engine = Engine(cfg, params, max_seq=LM_SERVE["max_seq"], device="cuda")
+    engine.generate([Request(prompt=p, max_new_tokens=2) for p in prompts])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with serve_recorder(keep=steps + 1) as rec:
+        out = engine.generate([Request(prompt=p, max_new_tokens=LM_SERVE["max_new"])
+                               for p in prompts])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if [len(r.generated) for r in out] != [LM_SERVE["max_new"]] * n:
+        die(f"12b: generated {[len(r.generated) for r in out]} tokens")
+    if not all(bool(torch.isfinite(lg).all()) for lg in rec.logits):
+        die("12b: non-finite logits")
+    times = serve_times(engine)
+
+    prof = profile_decode(params, cfg, rec.cache, rec.fed[-1])
+    ws = weight_casts(params, cfg)
+    # device-bound launches back to back: CUDA events time the device
+    cast_ms = time_cuda(lambda: [w.to(torch.bfloat16) for w in ws], iters=5, warmup=1)
+    cast_gb = sum(w.numel() * 6 for w in ws) / 1e9
+    p50 = 1e3 * sorted(engine.step_s[1:])[len(engine.step_s[1:]) // 2]
+    del rec.cache, engine
+    torch.cuda.empty_cache()
+
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    with torch.no_grad(), float64_math():
+        p64 = tree_map(torch.Tensor.double, params)
+        logits, c64 = lm.prefill(p64, cfg64, {"tokens": toks},
+                                 T.init_cache(cfg64, n, LM_SERVE["max_seq"], device="cuda"))
+        outs64 = [logits]
+        for tok in rec.fed[:steps]:
+            logits, c64 = lm.decode_step(p64, cfg64, tok, c64)
+            outs64.append(logits)
+    del p64, c64
+    torch.cuda.empty_cache()
+    devs, ties = [], 0
+    for i, (lb, l64) in enumerate(zip(rec.logits, outs64)):
+        d = _rel(lb, l64)
+        devs.append(d)
+        if not d <= LM_SERVE_TOL:
+            die(f"12b: step {i}'s logits {d:.3e} from float64's, past {LM_SERVE_TOL:g}")
+        top = torch.topk(l64.double(), 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > 2 * LM_SERVE_TOL * l64.abs().max()
+        got = torch.tensor([r.generated[i] for r in out], device="cuda")
+        want = torch.argmax(l64, -1)
+        if bool((sure & (got != want)).any()):
+            die(f"12b: step {i}'s greedy tokens {got.tolist()} differ from float64's "
+                f"{want.tolist()} past the margin")
+        ties += int((~sure).sum())
+    ffn = sum(r.generated[0] == p[-1] for r, p in zip(out, prompts))
+    print(f"[lm-serve] {card} | llama3.2-1b full_config ({cfg.param_count() / 1e9:.3f} B params,"
+          f" fp32 master weights, bf16 compute), Engine(max_seq={LM_SERVE['max_seq']}), "
+          f"{n} requests x {LM_SERVE['prompt']} prompt tokens, {LM_SERVE['max_new']} new "
+          f"tokens each: {times} | one decode step profiled: {prof['wall']:.2f} ms host to "
+          f"host, device {prof['ms']:.3f} ms over {prof['launches']} device launches, busy "
+          f"{100 * prof['busy']:.1f}% ({100 * prof['ms'] / p50:.1f}% of the unprofiled p50); "
+          f"by kernel family (ms) {prof['top']} | its float32 -> bf16 weight casts replayed "
+          f"alone {cast_ms:.3f} ms (CUDA events, back to back; {cast_gb:.2f} GB moved, "
+          f"{cast_gb / cast_ms:.2f} TB/s) | peak memory {peak:.2f} GiB")
+    print(f"[lm-serve] {card} | float64 check: the prefill and {steps} decode steps' logits "
+          f"{', '.join(f'{d:.2e}' for d in devs)} from float64 (≤ {LM_SERVE_TOL:g}), greedy "
+          f"tokens equal float64's wherever its top-2 margin exceeds {2 * LM_SERVE_TOL:g} "
+          f"max |logit| ({ties} of {n * (steps + 1)} within it); {ffn} of {n} first tokens "
+          f"repeat the prompt's last (tied embeddings at init)")
+    return {"params": params, "prompts": prompts}
+
+
+def lm_serve_int8(card: str, params, prompts, errs: dict) -> dict:
+    """Phase 12c: the same served model with ``int8_matmul=True``: every
+    int_matmul call of the prefill and of one decode step recorded (the
+    counters set to 0 just before, read just after) and held bitwise
+    against ``int_matmul_ref``: 3 a layer, 48 each, on the route ``plan``
+    gives (W at M = 8 too); the Engine's run of ``int8_max_new`` tokens
+    counted (48 a step); ``[int-matmul-decode]`` one decode step's calls
+    replayed: device time and launches against their bound, the float64
+    limb GEMMs, ``torch._int_mm`` on the same operands where it takes them,
+    and ``quantize_weight_int8``'s device time over the step's weights."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.numerics import int_matmul_ref
+    from repro_torch.kernels.int_matmul import int_matmul as int_matmul_mod
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import quantize_weight_int8
+    from repro_torch.serving import Engine, Request
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), int8_matmul=True)
+    n, per_step = LM_SERVE["requests"], 3 * cfg.num_layers
+    int_matmul_cuda = int_matmul_mod.int_matmul_cuda
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        cache = T.init_cache(cfg, n, LM_SERVE["max_seq"], device="cuda")
+        (logits, cache), pre_calls, pre_routes = record_int_matmul(
+            lambda: lm.prefill(params, cfg, {"tokens": toks}, cache))
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        _, dec_calls, dec_routes = record_int_matmul(
+            lambda: lm.decode_step(params, cfg, tok, cache))
+    prof = profile_decode(params, cfg, cache, tok)
+    del cache
+    for what, calls, routes in (("prefill", pre_calls, pre_routes),
+                                ("decode step", dec_calls, dec_routes)):
+        if len(calls) != per_step or routes != {"W": per_step}:
+            die(f"12c: the int8 {what} launched int_matmul {len(calls)} times on routes "
+                f"{routes}, not {per_step} on W")
+        for i, (a, b) in enumerate(calls):
+            compare(f"int_matmul llama3.2-1b int8 {what} call {i} {tuple(a.shape)} x "
+                    f"{tuple(b.shape)}", int_matmul_cuda(a, b), int_matmul_ref(a, b), errs)
+    del pre_calls
+    torch.cuda.empty_cache()
+
+    engine = Engine(cfg, params, max_seq=LM_SERVE["max_seq"], device="cuda")
+    engine.generate([Request(prompt=p, max_new_tokens=2) for p in prompts])  # warm-up
+    counters = [int_matmul_cuda.launches, *int_matmul_cuda.routes.values()]
+    for c in counters:
+        c.reset()
+    out = engine.generate([Request(prompt=p, max_new_tokens=LM_SERVE["int8_max_new"])
+                           for p in prompts])
+    total = int_matmul_cuda.launches.value
+    routes = {r: c.value for r, c in int_matmul_cuda.routes.items() if c.value}
+    if total != per_step * LM_SERVE["int8_max_new"] or routes != {"W": total} or \
+            [len(r.generated) for r in out] != [LM_SERVE["int8_max_new"]] * n:
+        die(f"12c: the Engine's int8 run launched int_matmul {total} times ({routes})")
+    times = serve_times(engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    def replay(fn, pairs):
+        return lambda: [fn(a, b) for a, b in pairs]
+
+    _, kern = device_profile(replay(int_matmul_cuda, dec_calls), 3)
+    ms = sum(v for v, _ in kern.values()) / 3
+    dev_launches = sum(c for _, c in kern.values()) / 3
+    _, limb = device_profile(replay(int_matmul_ref, dec_calls), 1)
+    plain = sum(v for v, _ in limb.values())
+    cols = [(a, b.t().contiguous().t()) for a, b in dec_calls]
+    try:
+        _, lib_k = device_profile(replay(torch._int_mm, cols), 3)
+        lib, lib_txt = sum(v for v, _ in lib_k.values()) / 3, None
+    except RuntimeError as e:  # the library's refusal of M = 8, reported
+        lib, lib_txt = None, str(e).splitlines()[0]
+    ws = [b for _, b in dec_calls]
+    mlp = [w for i in range(cfg.scan_repeats)
+           for w in (lm._unit(params["scan"], i)["u0"]["mlp"][k] for k in ("wi", "wg", "wo"))]
+    quant = time_cuda(lambda: [quantize_weight_int8(w) for w in mlp], iters=3, warmup=1)
+    ops = sum(2 * a.shape[0] * a.shape[1] * b.shape[1] for a, b in dec_calls)
+    nbytes = sum(a.numel() + b.numel() + 4 * a.shape[0] * b.shape[1] for a, b in dec_calls)
+    ops_ms, bytes_ms = ops / PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound = max(ops_ms, bytes_ms)
+    shapes = sorted({f"{tuple(a.shape)}x{tuple(b.shape)}" for a, b in dec_calls})
+    lib_line = f"{lib:.4f} ms" if lib is not None else f"refuses M = {n} ({lib_txt})"
+    print(f"[lm-serve] {card} | llama3.2-1b full_config int8_matmul=True, Engine, {n} x "
+          f"{LM_SERVE['prompt']} prompts, {LM_SERVE['int8_max_new']} new tokens: {times} | one "
+          f"decode step profiled: {prof['wall']:.2f} ms host to host, device {prof['ms']:.3f} ms "
+          f"over {prof['launches']} device launches, busy {100 * prof['busy']:.1f}%; by kernel "
+          f"family (ms) {prof['top']} | int_matmul: the prefill's {per_step} calls and one "
+          f"decode step's {per_step} bitwise int_matmul_ref, all on route W; the run {total} "
+          f"launches ({per_step} a step)")
+    print(f"[int-matmul-decode] {card} | one llama3.2-1b int8 decode step's {len(dec_calls)} "
+          f"int_matmul calls ({', '.join(shapes)}; route W, {n} of its 128-row tile's rows "
+          f"hold data): device {ms:.4f} ms over {dev_launches:g} device launches | bound "
+          f"{bound:.5f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}; operations "
+          f"{ops_ms:.5f}, bytes {bytes_ms:.5f}: b's {sum(w.numel() for w in ws) / 1e6:.1f} MB "
+          f"read), {100 * bound / ms:.2f}% of it | plain {plain:.4f} ms (float64 limb GEMMs) "
+          f"| library torch._int_mm {lib_line} | quantize_weight_int8 over the step's "
+          f"{len(mlp)} weights {quant:.4f} ms (CUDA events, back to back)")
+    return {"per_step": per_step, "routes": {"W": per_step},
+            "decode": {"launches": total, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                       "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                       "library_ms": lib,
+                       "timed_on": f"one llama3.2-1b int8_matmul decode step's {len(dec_calls)} "
+                                   f"calls ({n} requests), device time"}}
+
+
+def serve_phase(card: str, errs: dict, int_row: dict) -> None:
+    """Phase 12: LM serving (12a parity, 12b llama3.2-1b at full width, 12c
+    its int8 path); adds the int8 serving counts to int_matmul's row."""
+    import torch
+
+    t0 = time.perf_counter()
+    t_a = serve_parity()
+    full = lm_serve_full(card)
+    res = lm_serve_int8(card, full["params"], full["prompts"], errs)
+    del full
+    torch.cuda.empty_cache()
+    prefill = f"llama3.2-1b int8 prefill ({LM_SERVE['requests']} x {LM_SERVE['prompt']})"
+    decode = f"llama3.2-1b int8 decode step ({LM_SERVE['requests']})"
+    int_row["launches_per_step"].update({prefill: res["per_step"], decode: res["per_step"]})
+    int_row["routes_per_step"].update({prefill: res["routes"], decode: res["routes"]})
+    int_row["lm_int8_decode"] = res["decode"]
+    print(f"[phase-12] 12a {t_a:.1f} s; phase 12 {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         die("src/repro_torch not found beside chip_smoke.py: run it from the "
@@ -4429,6 +4926,7 @@ def main() -> int:
     obs_train(train_res, cfg, card)
     fp_phase(card)
     int_row = lm_phase(card, errs, train_int)
+    serve_phase(card, errs, int_row)
 
     print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
           f"{dict(PARITY_CASES)}")

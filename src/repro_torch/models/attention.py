@@ -1,6 +1,7 @@
 """Attention: GQA flash (blockwise, online softmax, custom backward) with
-causal, triangle, sliding-window and non-causal modes (port of
-``repro.models.attention``, the training half).
+causal, triangle, sliding-window and non-causal modes, and single-token
+decode attention against a (ring) KV cache (port of
+``repro.models.attention``).
 
 Plain torch ops with the JAX package's block structure, not
 ``scaled_dot_product_attention``: the port computes what the reference
@@ -254,4 +255,41 @@ def flash_attention(
         causal_mode=causal_mode, compute_dtype=compute_dtype,
     )
     out, _ = _Flash.apply(cfg, q, k, v)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def _bf16(a: torch.Tensor) -> torch.Tensor:
+    """A matmul operand rounded to bf16 and held in float32."""
+    return a.to(torch.bfloat16).to(torch.float32)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     t: torch.Tensor, *, window: int | None = None) -> torch.Tensor:
+    """Single-token attention against a (possibly ring-buffered) KV cache.
+
+    q: (B, G, P, D);  k_cache/v_cache: (B, S_cache, G, D);  t: the current
+    step, a 0-d int32 tensor (read on the device, never on the host).
+    bf16 matmul inputs, float32 accumulation and softmax.
+    """
+    d = q.shape[-1]
+    s_cache = k_cache.shape[1]
+    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    qf = q.to(torch.float32) * scale
+    s = torch.einsum("bgpd,bsgd->bgps", _bf16(qf), _bf16(k_cache))
+    slot = torch.arange(s_cache, device=q.device)
+    if window is None:
+        valid = slot <= t
+    else:
+        # ring buffer: slot holds position t - ((t - slot) mod S_cache), a
+        # floor mod (torch.remainder, as JAX's %)
+        pos = t - torch.remainder(t - slot, s_cache)
+        valid = (pos >= 0) & (pos > t - window)
+    s = torch.where(valid, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgps,bsgd->bgpd", _bf16(w), _bf16(v_cache))
     return out.to(q.dtype)

@@ -1,6 +1,11 @@
-"""Model facade, the training half (port of ``repro.models.lm``):
-``train_loss``, a full-sequence forward + next-token cross-entropy (+ the
-MoE aux loss, + the LES local-group losses when ``cfg.les_groups > 0``).
+"""Model facade (port of ``repro.models.lm``), three entry points:
+
+  * ``train_loss``  — a full-sequence forward + next-token cross-entropy
+    (+ the MoE aux loss, + the LES local-group losses when
+    ``cfg.les_groups > 0``);
+  * ``prefill``     — the full-sequence forward that also fills the KV /
+    recurrent caches and returns the last position's logits;
+  * ``decode_step`` — one token against the caches.
 
 LES mode (the paper's learning algorithm, applied to LMs): the stacked
 units are split into ``les_groups`` segments with a stop-gradient
@@ -21,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Stack execution
@@ -234,3 +240,130 @@ def _run_decoder_with_cross(params, cfg, x, positions, enc_out, causal_mode):
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     x, aux = _run_units(cfg, params["scan"], x, zero, body, 0, _n_units(params["scan"]))
     return x, aux, []
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def _window(cfg: ModelConfig, kind: str):
+    return cfg.local_attn_window if kind == "local_attn" else cfg.sliding_window
+
+
+def _unit_cache(tree, i: int):
+    """Unit ``i`` of a stacked cache tree (views of its tensors)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def _prefill_layer(p, cfg, kind, h, positions, c, enc_out):
+    """One layer of the prefill: the train-mode forward, and its cache."""
+    if kind in ("attn", "local_attn", "attn_cross"):
+        # the cache is filled from the layer *input* (the tensor the layer's
+        # attention projects), before the layer moves h
+        c = _fill_kv_cache(p, cfg, h, positions, c)
+        h, _ = T.attn_layer(p, cfg, h, positions, window=_window(cfg, kind))
+        if kind == "attn_cross":
+            h = T.cross_attn(p, cfg, h, enc_out)
+        return h, c
+    if kind == "rec":
+        return T.rec_layer(p, cfg, h, T.rglru_mod.init_rglru_state(cfg, h.shape[0], h.device))
+    if kind == "rwkv":
+        return T.rwkv_mod.rwkv_layer(p, cfg, h, T.rwkv_mod.init_rwkv_state(
+            cfg, h.shape[0], h.device))
+    raise ValueError(kind)
+
+
+def _decode_layer(p, cfg, kind, h, t, c, enc_out):
+    """One layer of a decode step against its cache."""
+    if kind in ("attn", "local_attn", "attn_cross"):
+        return T.attn_layer_decode(p, cfg, h, t, c, window=_window(cfg, kind),
+                                   enc_out=enc_out if kind == "attn_cross" else None)
+    if kind == "rec":
+        return T.rec_layer(p, cfg, h, c, decode=True)
+    if kind == "rwkv":
+        return T.rwkv_mod.rwkv_layer(p, cfg, h, c, decode=True)
+    raise ValueError(kind)
+
+
+def _run_cached(params, cfg, cache, x, layer):
+    """The stacked units one after another, then the tail, each layer by
+    ``layer(p, kind, x, its cache) -> (x, its new cache)``.  Returns x and
+    the new "scan" / "tail" caches: an attention layer's KV tensors are
+    those of ``cache`` (written in place), the recurrent states new
+    tensors, stacked per unit kind."""
+    per_unit = []
+    for i in range(_n_units(params["scan"])):
+        unit, unit_cache, new = _unit(params["scan"], i), _unit_cache(cache["scan"], i), {}
+        for j, kind in enumerate(cfg.scan_unit):
+            x, new[f"u{j}"] = layer(unit[f"u{j}"], kind, x, unit_cache[f"u{j}"])
+        per_unit.append(new)
+    scan = {}
+    for j, kind in enumerate(cfg.scan_unit):
+        key = f"u{j}"
+        if isinstance(cache["scan"][key], T.LayerCache):
+            scan[key] = cache["scan"][key]
+        else:
+            scan[key] = tree_map(lambda *xs: torch.stack(xs), *[u[key] for u in per_unit])
+    tail = []
+    for p, kind, c in zip(params["tail"], cfg.tail, cache["tail"]):
+        x, c = layer(p, kind, x, c)
+        tail.append(c)
+    return x, scan, tail
+
+
+def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that fills the caches: the train-mode forward
+    (flash attention, the matmul form of the recurrences) per layer, each
+    attention layer's K/V laid into its (ring) cache in place, each
+    recurrent layer's state from a zero state.  Returns the last
+    position's logits and the cache with ``t = s``."""
+    inp = batch["embeds"] if cfg.embeds_input else batch["tokens"]
+    b, s = inp.shape[0], inp.shape[1]
+    x = _embed(params, cfg, inp)
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _positions(cfg, b, s, x.device)
+    enc_out = run_encoder(params, cfg, batch["enc_embeds"]) if cfg.encoder_layers else None
+
+    x, scan, tail = _run_cached(params, cfg, cache, x, lambda p, kind, h, c: _prefill_layer(
+        p, cfg, kind, h, positions, c, enc_out))
+    x = T.rms_norm(x, params["final_ln"])
+    logits = _logits(params, cfg, x[:, -1, :])
+    return logits, {"scan": scan, "tail": tail,
+                    "t": torch.tensor(s, dtype=torch.int32, device=x.device)}
+
+
+def _fill_kv_cache(p, cfg: ModelConfig, x_in, positions, cache: T.LayerCache) -> T.LayerCache:
+    """K/V from the layer input laid into the (ring) cache, in place.  For
+    windows shorter than the sequence only the last ``S_cache`` entries are
+    kept, rotated so slot ``p % S_cache`` holds position ``p``."""
+    xn = T.rms_norm(x_in, p["ln1"])
+    _, k, v = T._project_qkv(p, cfg, xn, positions)
+    k = T._expand_kv(k, cfg.kv_repeat)
+    v = T._expand_kv(v, cfg.kv_repeat)
+    s_cache, s = cache.k.shape[1], k.shape[1]
+    if s >= s_cache:  # keep the last window, ring-ordered
+        start = (s - s_cache) % s_cache
+        cache.k.copy_(torch.roll(k[:, -s_cache:], start, dims=1))
+        cache.v.copy_(torch.roll(v[:, -s_cache:], start, dims=1))
+    else:
+        cache.k[:, :s].copy_(k)
+        cache.v[:, :s].copy_(v)
+    return cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+    """One greedy decode step.  tokens: (B,) int32 → (logits, new cache);
+    the KV caches are written in place (``T.attn_layer_decode``)."""
+    t = cache["t"]
+    # decode always consumes token ids (stub-frontend archs emit text too)
+    scale = torch.sqrt(torch.tensor(cfg.d_model, dtype=torch.float32)).to(cfg.dtype)
+    x = params["embed"].to(cfg.dtype)[tokens] * scale.to(tokens.device)
+
+    x, scan, tail = _run_cached(params, cfg, cache, x, lambda p, kind, h, c: _decode_layer(
+        p, cfg, kind, h, t, c, enc_out))
+    x = T.rms_norm(x[:, None, :], params["final_ln"])[:, 0]
+    return _logits(params, cfg, x), {"scan": scan, "tail": tail, "t": t + 1}

@@ -1,5 +1,5 @@
 """RG-LRU recurrent block, RecurrentGemma / Griffin (port of
-``repro.models.rglru``, the training half).
+``repro.models.rglru``).
 
     i_t = σ(x_t W_x + b_x)                      (input gate)
     r_t = σ(x_t W_a + b_a)                      (recurrence gate)
@@ -11,7 +11,8 @@ recurrence is a log-depth inclusive scan (``rglru_scan``), JAX's
 ``lax.associative_scan`` with the same combine; torch has none, so it is
 written as a Hillis–Steele scan, whose products associate in another tree
 than JAX's: equal in exact arithmetic, within float32 rounding otherwise
-(``tests/test_torch_lm_models.py`` states the tolerance).
+(``tests/test_torch_lm_models.py`` states the tolerance).  Decode runs one
+gate step (``rglru_step``) on the width-4 conv over the cached tail.
 
 Full recurrent block (Griffin layout): y = W_out( GeLU(x W_g) ⊙
 RG-LRU(conv1d₄(x W_in)) ).
@@ -117,6 +118,13 @@ def rglru_scan(p, x: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torc
     return h.to(x.dtype), h[:, -1, :]
 
 
+def rglru_step(p, x: torch.Tensor, h0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step.  x: (B,W)."""
+    a, b = _gates(p, x[:, None, :])
+    h = a[:, 0] * h0.to(torch.float32) + b[:, 0]
+    return h.to(x.dtype), h
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Depthwise causal conv1d (width 4).  x: (B,S,W), tail: (B,3,W)."""
@@ -127,12 +135,21 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor
     return out, xp[:, -(CONV_WIDTH - 1):, :]
 
 
-def rglru_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RglruState
-                ) -> tuple[torch.Tensor, RglruState]:
-    """Full Griffin recurrent block (pre-norm, residual added by caller)."""
-    xn = rms_norm(x, p["ln"])
+def rglru_block(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RglruState, *,
+                decode: bool = False) -> tuple[torch.Tensor, RglruState]:
+    """Full Griffin recurrent block (pre-norm, residual added by caller).
+    ``decode``: x is one token (B, d), run against ``state``."""
+    xn = rms_norm(x[:, None, :] if decode else x, p["ln"])
     gate = F.gelu(xn @ p["w_gate"].to(xn.dtype), approximate="tanh")
     u = xn @ p["w_in"].to(xn.dtype)
+    if decode:
+        conv_in = torch.cat([state.conv.to(u.dtype), u], dim=1)
+        u_c = 0
+        for i in range(CONV_WIDTH):
+            u_c = u_c + conv_in[:, i, :] * p["conv_w"][i].to(u.dtype)
+        h, h_last = rglru_step(p, u_c, state.h)
+        y = h * gate[:, 0]
+        return y @ p["w_out"].to(y.dtype), RglruState(h=h_last, conv=conv_in[:, 1:, :])
     u_c, new_tail = _causal_conv(u, p["conv_w"], state.conv)
     h, h_last = rglru_scan(p, u_c, state.h)
     y = h * gate

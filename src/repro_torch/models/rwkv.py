@@ -1,6 +1,6 @@
 """RWKV6 ("Finch") layer: attention-free token mixing with data-dependent
 per-channel decay, plus squared-ReLU channel mixing (port of
-``repro.models.rwkv``, the training half).
+``repro.models.rwkv``).
 
 Semantics (per head, key/value dims D)::
 
@@ -15,7 +15,8 @@ matmuls; with L_t = Σ_{u≤t} log w_u (chunk-local, per channel)::
     bonus :  out_t += (r_t ⊙ u · k_t) v_t
     state :  S_C = diag(e^{L_C}) S₀ + (k ⊙ e^{L_C - L})ᵀ v
 
-The state is carried across chunks by a loop (JAX's ``lax.scan``).
+The state is carried across chunks by a loop (JAX's ``lax.scan``).  Decode
+runs the naive recurrence (C = 1) on one token against the state.
 """
 
 from __future__ import annotations
@@ -162,16 +163,47 @@ def rwkv_time_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RwkvState
     return out, RwkvState(s=s_state, x_prev_tm=x[:, -1, :], x_prev_cm=state.x_prev_cm)
 
 
-def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RwkvState
-                     ) -> tuple[torch.Tensor, RwkvState]:
-    xs = _shift(x, state.x_prev_cm)
+def rwkv_time_mix_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RwkvState
+                         ) -> tuple[torch.Tensor, RwkvState]:
+    """Single-token recurrence (the naive form — C = 1).  x: (B, d)."""
+    b, d = x.shape
+    hd = cfg.rwkv_head_dim
+    h = d // hd
+    xs = state.x_prev_tm
+    mu = p["mu"].to(x.dtype)
+    xr, xk, xv, xg, xw = (_mix(x, xs, mu[i]) for i in range(5))
+
+    f32 = torch.float32
+    r = (xr @ p["wr"].to(x.dtype)).to(f32).reshape(b, h, hd)
+    k = (xk @ p["wk"].to(x.dtype)).to(f32).reshape(b, h, hd)
+    v = (xv @ p["wv"].to(x.dtype)).to(f32).reshape(b, h, hd)
+    g = F.silu((xg @ p["wg"].to(x.dtype)).to(f32))
+    w = torch.exp(_decay_log_w(p, xw)).reshape(b, h, hd)
+    u = p["u"].to(f32).reshape(1, h, hd)
+
+    kv = torch.einsum("bhd,bhv->bhdv", k, v)
+    out = torch.einsum("bhd,bhdv->bhv", r, state.s + u[..., None] * kv)
+    s_new = state.s * w[..., None] + kv
+    out = rms_norm(out.reshape(b, 1, h, hd),
+                   torch.zeros((hd,), dtype=f32, device=x.device)).reshape(b, 1, d)
+    out = out * (1.0 + p["ln_head"].to(f32))
+    out = (out * g[:, None, :]).to(x.dtype) @ p["wo"].to(x.dtype)
+    return out[:, 0], RwkvState(s=s_new, x_prev_tm=x, x_prev_cm=state.x_prev_cm)
+
+
+def rwkv_channel_mix(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RwkvState, *,
+                     decode: bool = False) -> tuple[torch.Tensor, RwkvState]:
+    if decode:
+        xs, new_prev = state.x_prev_cm, x
+    else:
+        xs, new_prev = _shift(x, state.x_prev_cm), x[:, -1, :]
     mu = p["mu_cm"].to(x.dtype)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
     k = torch.square(F.relu(xk @ p["cm_k"].to(x.dtype)))
     r = torch.sigmoid(xr @ p["cm_r"].to(x.dtype))
     out = r * (k @ p["cm_v"].to(x.dtype))
-    return out, RwkvState(s=state.s, x_prev_tm=state.x_prev_tm, x_prev_cm=x[:, -1, :])
+    return out, RwkvState(s=state.s, x_prev_tm=state.x_prev_tm, x_prev_cm=new_prev)
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int, device="cpu") -> RwkvState:
@@ -185,10 +217,12 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device="cpu") -> RwkvState:
     )
 
 
-def rwkv_layer(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RwkvState
-               ) -> tuple[torch.Tensor, RwkvState]:
-    """Full RWKV6 block: time-mix + channel-mix with pre-norms."""
-    h, state = rwkv_time_mix(p, cfg, rms_norm(x, p["ln1"]), state)
+def rwkv_layer(p: dict, cfg: ModelConfig, x: torch.Tensor, state: RwkvState, *,
+               decode: bool = False) -> tuple[torch.Tensor, RwkvState]:
+    """Full RWKV6 block: time-mix + channel-mix with pre-norms.
+    ``decode``: x is one token (B, d), run against ``state``."""
+    mix = rwkv_time_mix_decode if decode else rwkv_time_mix
+    h, state = mix(p, cfg, rms_norm(x, p["ln1"]), state)
     x = x + h
-    h, state = rwkv_channel_mix(p, cfg, rms_norm(x, p["ln2"]), state)
+    h, state = rwkv_channel_mix(p, cfg, rms_norm(x, p["ln2"]), state, decode=decode)
     return x + h, state

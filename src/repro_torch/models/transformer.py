@@ -1,5 +1,5 @@
-"""The generic decoder/encoder stack covering every assigned architecture
-(port of ``repro.models.transformer``, the training half).
+"""The generic decoder/encoder stack covering every assigned architecture,
+and its KV / recurrent caches (port of ``repro.models.transformer``).
 
 Layer layout is ``cfg.scan_unit × cfg.scan_repeats + cfg.tail``: the
 parameters of each kind are stacked on a leading dim, as the JAX package
@@ -7,12 +7,14 @@ stacks them for ``lax.scan`` (so checkpoints and weights carry across leaf
 for leaf); ``lm.run_stack`` runs the units one after another.
 
 GQA: KV heads are expanded (repeated) to the full query-head count before
-attention, as the JAX package does for its head-sharded attention.
+attention, as the JAX package does for its head-sharded attention.  The
+decode cache stores them ``cfg.kv_repeat``× (JAX's Megatron duplication)
+and groups the query heads onto the stored heads.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -21,10 +23,11 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.attention import flash_attention
+from repro_torch.models.attention import decode_attention, flash_attention
 from repro_torch.models.common import (apply_mrope, apply_rope, dense_init,
                                          head_rms_norm, rms_norm)
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.tree import tree_map
 
 # ---------------------------------------------------------------------------
 # Parameter initialisation
@@ -176,6 +179,99 @@ def logical_axes(cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# KV / recurrent caches
+# ---------------------------------------------------------------------------
+
+
+class LayerCache(NamedTuple):
+    """Cache for one attention layer (decode).  KV heads stored pre-repeated
+    ``cfg.kv_repeat``×."""
+
+    k: torch.Tensor  # (B, S_cache, G·R, hd)
+    v: torch.Tensor
+
+
+def _cache_len(cfg: ModelConfig, kind: str, max_seq: int) -> int:
+    if kind == "local_attn":
+        return min(max_seq, cfg.local_attn_window)
+    if cfg.sliding_window is not None:
+        return min(max_seq, cfg.sliding_window)
+    return max_seq
+
+
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int, device="cpu"):
+    if kind in ("attn", "local_attn", "attn_cross"):
+        g = cfg.num_kv_heads * cfg.kv_repeat
+        shape = (batch, _cache_len(cfg, kind, max_seq), g, cfg.head_dim)
+        return LayerCache(k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+                          v=torch.zeros(shape, dtype=cfg.dtype, device=device))
+    if kind == "rec":
+        return rglru_mod.init_rglru_state(cfg, batch, device)
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=DEFAULT_DEVICE) -> dict:
+    """Zero caches: each unit kind's stacked on a leading dim of
+    ``cfg.scan_repeats`` (JAX's scan layout), the tail's one by one, and the
+    step ``t`` (0-d int32)."""
+    device = resolve_device(device)
+    unit = {f"u{i}": init_layer_cache(cfg, kind, batch, max_seq, device)
+            for i, kind in enumerate(cfg.scan_unit)}
+    return {
+        "scan": tree_map(lambda x: x.expand(cfg.scan_repeats, *x.shape).clone(), unit),
+        "tail": [init_layer_cache(cfg, kind, batch, max_seq, device) for kind in cfg.tail],
+        "t": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axis names of the cache tree (JAX's sharding rules)."""
+    def layer_axes(kind, stacked: bool):
+        pre = ("stack",) if stacked else ()
+        if kind in ("attn", "local_attn", "attn_cross"):
+            kv = ("batch", "kv_seq", "kv_cache_heads", None)
+            return LayerCache(k=pre + kv, v=pre + kv)
+        if kind == "rec":
+            return rglru_mod.RglruState(h=pre + ("batch", "rnn"),
+                                        conv=pre + ("batch", None, "rnn"))
+        if kind == "rwkv":
+            return rwkv_mod.RwkvState(s=pre + ("batch", "rnn", None, None),
+                                      x_prev_tm=pre + ("batch", None),
+                                      x_prev_cm=pre + ("batch", None))
+        raise ValueError(kind)
+
+    return {
+        "scan": {f"u{i}": layer_axes(kind, True) for i, kind in enumerate(cfg.scan_unit)},
+        "tail": [layer_axes(kind, False) for kind in cfg.tail],
+        "t": (),
+    }
+
+
+#: the cache's NamedTuples by their fields (JAX's have the same names)
+_CACHE_TYPES = {cls._fields: cls for cls in (LayerCache, rglru_mod.RglruState,
+                                             rwkv_mod.RwkvState)}
+
+
+def cache_from_numpy(tree, device=DEFAULT_DEVICE):
+    """A JAX cache tree with numpy leaves (``jax.tree.map(np.asarray,
+    cache)``: dicts, lists and the three cache NamedTuples; bfloat16 as
+    ml_dtypes gives it) as the port's cache on ``device``, dtypes kept."""
+    from repro_torch.train.trainer import tree_from_numpy  # the trainer imports this module
+
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: cache_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return _CACHE_TYPES[tuple(tree._fields)](
+            *(tree_from_numpy(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return [cache_from_numpy(v, device) for v in tree]
+    return tree_from_numpy(tree, device)
+
+
+# ---------------------------------------------------------------------------
 # Layer forward
 # ---------------------------------------------------------------------------
 
@@ -243,8 +339,42 @@ def cross_attn(p: dict, cfg: ModelConfig, x: torch.Tensor, enc_out: torch.Tensor
     return x + torch.einsum("bshk,hkd->bsd", out, p["xo"].to(out.dtype))
 
 
-def rec_layer(p, cfg, x, state):
-    """RG-LRU block + MLP (recurrentgemma 'rec' layer)."""
-    h, new_state = rglru_mod.rglru_block(p, cfg, x, state)
+def attn_layer_decode(p: dict, cfg: ModelConfig, x: torch.Tensor, t: torch.Tensor,
+                      cache: LayerCache, *, window: int | None,
+                      enc_out: torch.Tensor | None = None) -> tuple[torch.Tensor, LayerCache]:
+    """Single-token attention + MLP with cache update.  x: (B, d).
+
+    This step's K/V (duplicated R×) go into ring slot ``t % S_cache`` of
+    ``cache``'s tensors in place (JAX's update with the buffer donated),
+    the slot indexed on the device; the same tensors come back."""
+    b, _ = x.shape
+    xn = rms_norm(x[:, None, :], p["ln1"])
+    t32 = t.to(torch.int32)
+    pos = t32[None, None] if cfg.mrope_sections is None else t32.expand(3, b, 1)
+    q, k, v = _project_qkv(p, cfg, xn, pos)
+    slot = torch.remainder(t, cache.k.shape[1]).to(torch.int64).reshape(1)
+    cache.k.index_copy_(1, slot, _expand_kv(k, cfg.kv_repeat).to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, _expand_kv(v, cfg.kv_repeat).to(cache.v.dtype))
+    # group query heads onto the duplicated-KV slots
+    g_pad = cfg.num_kv_heads * cfg.kv_repeat
+    qd = q[:, 0].reshape(b, g_pad, cfg.num_heads // g_pad, cfg.head_dim)
+    out = decode_attention(qd, cache.k, cache.v, t, window=window)
+    out = out.reshape(b, cfg.num_heads, cfg.head_dim)
+    x = x + torch.einsum("bhk,hkd->bd", out, p["wo"].to(out.dtype))
+    if enc_out is not None:
+        x = cross_attn(p, cfg, x[:, None, :], enc_out)[:, 0]
+    xn2 = rms_norm(x[:, None, :], p["ln2"])
+    if cfg.moe is not None:
+        mlp_out, _ = mlp_mod.moe_mlp(p["mlp"], cfg, xn2)
+    else:
+        mlp_out = mlp_mod.dense_mlp(p["mlp"], cfg, xn2)
+    return x + mlp_out[:, 0], cache
+
+
+def rec_layer(p, cfg, x, state, *, decode=False):
+    """RG-LRU block + MLP (recurrentgemma 'rec' layer); ``decode``: x is
+    one token (B, d)."""
+    h, new_state = rglru_mod.rglru_block(p, cfg, x, state, decode=decode)
     x = x + h
-    return x + mlp_mod.dense_mlp(p["mlp"], cfg, rms_norm(x, p["ln2"])), new_state
+    out = mlp_mod.dense_mlp(p["mlp"], cfg, rms_norm(x[:, None, :] if decode else x, p["ln2"]))
+    return x + (out[:, 0] if decode else out), new_state

@@ -1,5 +1,6 @@
-"""Serving (port of ``repro.serving``' vision half).
+"""Serving (port of ``repro.serving``).
 
+engine.py    Engine: batched prefill / greedy decode over the LM zoo
 vision.py    VisionEngine: the static dynamic-batching scheduler over one
              ExecutionPlan
 stats.py     thread-safe EngineStats over repro_torch.obs.MetricRegistry,
@@ -18,6 +19,7 @@ One model, simplest path:  compile_plan → VisionEngine.
 A fleet of models:         ModelRegistry → FleetEngine (+ Router splits).
 """
 
+from repro_torch.serving.engine import Engine, Request  # noqa: F401
 from repro_torch.serving.fleet import FleetEngine, Router, parse_split  # noqa: F401
 from repro_torch.serving.registry import ModelEntry, ModelRegistry  # noqa: F401
 from repro_torch.serving.stats import (  # noqa: F401
@@ -32,7 +34,7 @@ from repro_torch.serving.stats import (  # noqa: F401
 from repro_torch.serving.vision import VisionEngine, VisionResult  # noqa: F401
 
 __all__ = sorted([
-    "EngineStats", "FleetEngine", "ModelEntry", "ModelRegistry", "Router",
+    "Engine", "EngineStats", "FleetEngine", "ModelEntry", "ModelRegistry", "Request", "Router",
     "Slo", "VisionEngine", "VisionResult", "fleet_snapshot_delta",
     "latency_summary_ms", "parse_split", "percentile", "slo_summary",
     "snapshot_delta",

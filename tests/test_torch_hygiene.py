@@ -56,9 +56,11 @@ def test_port_imports_no_jax_and_no_repro():
                 "models/config.py", "models/common.py", "models/attention.py",
                 "models/mlp.py", "models/rwkv.py", "models/rglru.py",
                 "models/transformer.py", "models/lm.py", "configs/llama3_2_1b.py",
-                "train/optimizer.py", "train/trainer.py", "data/loader.py"):
+                "train/optimizer.py", "train/trainer.py", "data/loader.py",
+                "serving/engine.py", "launch/serve.py"):
         assert PORT / new in files
-    for example in ("serve_cifar.py", "quickstart.py", "train_vgg8b.py", "les_transformer.py"):
+    for example in ("serve_cifar.py", "quickstart.py", "train_vgg8b.py", "les_transformer.py",
+                    "serve_lm.py"):
         assert EXAMPLES / example in files
     bad = {str(f.relative_to(ROOT)): _forbidden(f) for f in files if _forbidden(f)}
     assert not bad, bad
@@ -81,6 +83,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.parallel.compress, repro_torch.parallel.sharding\n"
         "import repro_torch.kernels.autotune, repro_torch.kernels.autotune.search\n"
         "import repro_torch.core.fp_baselines\n"
+        "import repro_torch.serving.engine, repro_torch.launch.serve\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'repro'))\n"
