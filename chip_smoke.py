@@ -261,7 +261,30 @@ Phases, each fatal on failure:
      launches against the bound by operations and by bytes, the limb
      GEMMs, ``torch._int_mm`` on the same operands (it refuses M = 8: the
      line says so), ``quantize_weight_int8``'s device time over the
-     step's 48 weights.
+     step's 48 weights;
+ 13. the dry run checked on the card (``launch/dryrun.py``,
+     ``launch/op_analysis.py``, ``parallel/pipeline.py``): (13a,
+     ``[dry-train]``) llama3.2-1b's published config at phase 11c's cell
+     (batch 4 × seq 512, AdamW, remat) traced once on ``meta`` under the
+     op analyzer at the one-chip mesh (1, 1), then the same step run on
+     the card under the same analyzer: the op counts, the FLOPs by dtype
+     and the bytes equal (exact; on a mismatch the ops that differ are
+     printed), the dry run's per-chip peak within DRY_PEAK_TOL of
+     ``torch.cuda.max_memory_allocated`` over a plain step; the compute,
+     memory and roofline bounds beside the measured ms a step, the
+     model-FLOP share of the card's dense bf16 peak; then the same with
+     ``int8_matmul=True``: the same exact checks, and the analyzer's int8
+     products equal (shapes included) the int_matmul calls recorded on
+     the card (kernel #12); (13b, ``[dry-decode]``) phase 12b's decode
+     step (8 requests, a cache of 1,024 after a 512-token prefill) through
+     ``trainer.build_decode_step``, the same exact checks, the bytes bound
+     as a share of the step's profiled device time; (13c, ``[pipeline]``)
+     ``pipeline_apply`` over mlp4's two 3000 → 3000 served layers as two
+     stages (``fused_matmul``, kernel #1), 4 microbatches of a batch of 32,
+     counted (8 nitro_matmul launches), bitwise the served plan's
+     activations there; (13d, ``[dry-cell]``) llama3.2-1b ``train_4k`` and
+     qwen3-32b ``decode_32k`` on the 256-chip mesh, traced on the host: each
+     cell's summary and trace seconds.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -4844,6 +4867,305 @@ def serve_phase(card: str, errs: dict, int_row: dict) -> None:
     print(f"[phase-12] 12a {t_a:.1f} s; phase 12 {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run checked on the card
+# ---------------------------------------------------------------------------
+
+#: the dry run's per-chip peak at the one-chip mesh against the card's
+#: ``max_memory_allocated`` over the same step: within 20%
+DRY_PEAK_TOL = 0.2
+#: 13c: mlp4's served batch, split into microbatches for two stages
+PIPE_BATCH, PIPE_MICRO = 32, 4
+#: 13d: the production cells traced on the host
+DRY_CELLS = [("llama3.2-1b", "train_4k"), ("qwen3-32b", "decode_32k")]
+
+
+def same_costs(what: str, got, want) -> None:
+    """The card's op counts, FLOPs by dtype and bytes ≡ the meta trace's;
+    else the ops that differ, and die."""
+    if got.summary() == want.summary():
+        return
+    extra, missing = got.by_op - want.by_op, want.by_op - got.by_op
+    die(f"{what}: the card counted {got.summary()}, the meta trace {want.summary()}; "
+        f"ops only on the card {dict(extra)}, only on meta {dict(missing)}")
+
+
+def dry_train(card: str) -> None:
+    """Phase 13a, ``[dry-train]``: the LM train step, bf16 and int8."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import trainer
+
+    cfg = get_config("llama3.2-1b")
+    b, s = LM_FULL["batch"], LM_FULL["seq"]
+    mesh = make_test_mesh()
+    rules = dryrun.make_rules(cfg, mode="train", multi_pod=False, batch=b)
+    trace = dryrun.trace_step(cfg, "train", b, s, mesh, rules)
+    trace8 = dryrun.trace_step(dataclasses.replace(cfg, int8_matmul=True), "train", b, s,
+                               mesh, rules)
+    predicted = trace.peak_bytes()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = trainer.init_state(prng.PRNGKey(0), cfg, device="cuda")
+    batch = lm_batch(cfg, "cuda", b, s, seed=5)
+    step = trainer.build_train_step(cfg)
+    box = [state]
+    del state
+
+    def one():
+        box[0], m = step(box[0], batch)
+        float(m["loss"])
+
+    one()  # warm-up: lazy initialisation
+    torch.cuda.synchronize()
+    inputs = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    one()
+    measured = torch.cuda.max_memory_allocated() - before + inputs
+    ms = host_ms(one, 3)
+    with oa.OpAnalyzer() as an:
+        box[0], _ = step(box[0], batch)
+    torch.cuda.synchronize()
+    same_costs("13a llama3.2-1b train step", an.costs, trace.costs)
+    off = abs(predicted - measured) / measured
+    if not off <= DRY_PEAK_TOL:
+        die(f"13a: the dry run's peak {predicted / 2 ** 30:.3f} GiB is {100 * off:.1f}% from "
+            f"the card's {measured / 2 ** 30:.3f} GiB (> {100 * DRY_PEAK_TOL:.0f}%)")
+    terms = oa.roofline_terms(trace.costs, 1)
+    bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"])
+    model = 6 * cfg.active_param_count() * b * s
+    fl = {k: f"{v:.4e}" for k, v in sorted(trace.costs.flops.items())}
+    print(f"[dry-train] {card} | llama3.2-1b full_config, batch {b} x seq {s}, AdamW, remat, "
+          f"mesh (1, 1): meta trace {trace.trace_s:.2f} s; the card's step under the analyzer "
+          f"≡ the meta trace: {trace.costs.ops} ops, FLOPs {fl}, {trace.costs.hbm_bytes:.6e} "
+          f"bytes (exact) | peak: dry run {predicted / 2 ** 30:.3f} GiB (inputs "
+          f"{trace.input_bytes() / 2 ** 30:.3f} + trace {trace.analyzer.peak() / 2 ** 30:.3f}; "
+          f"the card's analyzer timeline {an.peak('cuda') / 2 ** 30:.3f}), card "
+          f"max_memory_allocated {measured / 2 ** 30:.3f} GiB, {100 * off:.2f}% apart "
+          f"(≤ {100 * DRY_PEAK_TOL:.0f}%) | bounds: compute {1e3 * terms['compute_s']:.2f} ms, "
+          f"memory {1e3 * terms['memory_s']:.2f} ms, roofline {bound_ms:.2f} ms "
+          f"({terms['dominant']}) against {ms:.2f} ms a step host to host "
+          f"({100 * bound_ms / ms:.1f}%) | model FLOPs 6·N·T {model:.4e} "
+          f"({model / trace.costs.total_flops:.3f} of the counted): "
+          f"{100 * model / (ms / 1e3) / oa.PEAK_BF16:.2f}% of the dense bf16 peak "
+          f"({oa.PEAK_BF16 / 1e12:.0f} TFLOP/s)")
+
+    cfg8 = dataclasses.replace(cfg, int8_matmul=True)
+    step8 = trainer.build_train_step(cfg8)
+
+    def run8():
+        with oa.OpAnalyzer() as an8:
+            box[0], m = step8(box[0], batch)
+        float(m["loss"])
+        return an8
+
+    an8, calls, routes = record_int_matmul(run8)
+    same_costs("13a llama3.2-1b int8 train step", an8.costs, trace8.costs)
+    shapes = [(tuple(a.shape), tuple(w.shape)) for a, w in calls]
+    for what, prods in (("card", an8.costs.products), ("meta", trace8.costs.products)):
+        if [(p[1], p[2]) for p in prods] != shapes or {p[3] for p in prods} != {"int8"}:
+            die(f"13a int8: the {what} analyzer's products {prods[:3]}... ({len(prods)}) are "
+                f"not the {len(calls)} int_matmul calls recorded {shapes[:3]}...")
+    terms8 = oa.roofline_terms(trace8.costs, 1)
+    print(f"[dry-train] {card} | llama3.2-1b int8_matmul=True, same cell: the card ≡ the meta "
+          f"trace ({trace8.costs.ops} ops, {trace8.costs.hbm_bytes:.6e} bytes, FLOPs "
+          f"{ {k: f'{v:.4e}' for k, v in sorted(trace8.costs.flops.items())} }); the analyzer's "
+          f"{len(trace8.costs.products)} int8 products ≡ the {len(calls)} int_matmul calls "
+          f"recorded on the card (shapes {sorted(set(shapes))}, routes {routes}) | bounds: "
+          f"compute {1e3 * terms8['compute_s']:.2f} ms, memory {1e3 * terms8['memory_s']:.2f} ms")
+    del box, batch, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dry_decode(card: str) -> None:
+    """Phase 13b, ``[dry-decode]``: phase 12b's decode step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.device import dry_run
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+    from repro_torch.train import trainer
+
+    cfg = get_config("llama3.2-1b")
+    n, max_seq = LM_SERVE["requests"], LM_SERVE["max_seq"]
+    mesh = make_test_mesh()
+    rules = dryrun.make_rules(cfg, mode="serve", multi_pod=False, batch=n)
+    with dry_run():  # the Engine's float32 master weights
+        meta_params = T.init_params(prng.PRNGKey(0), cfg, device="meta")
+    trace = dryrun.trace_step(cfg, "decode", n, max_seq, mesh, rules, params=meta_params)
+
+    params = T.init_params(prng.PRNGKey(0), cfg, device="cuda")
+    toks = torch.tensor(serve_prompts(cfg), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, cfg, {"tokens": toks},
+                                   T.init_cache(cfg, n, max_seq, device="cuda"))
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    step = trainer.build_decode_step(cfg, mesh, rules)
+    torch.cuda.synchronize()
+    with oa.OpAnalyzer() as an:
+        step(params, tok, cache)
+    torch.cuda.synchronize()
+    same_costs("13b llama3.2-1b decode step", an.costs, trace.costs)
+    box = [cache]
+
+    def one():
+        _, box[0] = step(params, tok, box[0])
+
+    wall, kernels = device_profile(one, 1)
+    dev_ms = sum(v for v, _ in kernels.values())
+    terms = oa.roofline_terms(trace.costs, 1)
+    print(f"[dry-decode] {card} | llama3.2-1b full_config decode step, {n} requests, cache "
+          f"{max_seq} (fp32 master weights), mesh (1, 1): meta trace {trace.trace_s:.2f} s; the "
+          f"card ≡ the meta trace: {trace.costs.ops} ops, FLOPs "
+          f"{ {k: f'{v:.4e}' for k, v in sorted(trace.costs.flops.items())} }, "
+          f"{trace.costs.hbm_bytes:.6e} bytes (exact) | bounds: memory "
+          f"{1e3 * terms['memory_s']:.3f} ms, compute {1e3 * terms['compute_s']:.3f} ms; the "
+          f"step's device time {dev_ms:.3f} ms ({wall:.2f} ms host to host): the bytes bound is "
+          f"{100 * 1e3 * terms['memory_s'] / dev_ms:.1f}% of it | dry-run peak "
+          f"{trace.peak_bytes() / 2 ** 30:.3f} GiB")
+    dup, pre = duplicate_qkv(cfg, mesh, rules, meta_params)
+    print(f"[dry-prefill] {card} | llama3.2-1b full_config prefill, {n} x {LM_SERVE['prompt']} "
+          f"tokens, traced on meta: {pre.ops} ops, "
+          f"{ {k: f'{v:.4e}' for k, v in sorted(pre.flops.items())} } FLOPs, "
+          f"{pre.hbm_bytes:.4e} bytes; of it the K/V cache fill's second Q/K/V projection "
+          f"(models/lm.py _fill_kv_cache; XLA's CSE merges JAX's): {dup.ops} ops, "
+          f"{ {k: f'{v:.4e}' for k, v in sorted(dup.flops.items())} } FLOPs "
+          f"({100 * dup.total_flops / pre.total_flops:.2f}%), {dup.hbm_bytes:.4e} bytes "
+          f"({100 * dup.hbm_bytes / pre.hbm_bytes:.2f}%)")
+    del box, cache, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def duplicate_qkv(cfg, mesh, rules, params):
+    """(the second Q/K/V projection's costs, the prefill's): phase 12b's
+    prefill traced on meta, each ``_fill_kv_cache``'s projection counted
+    apart by an analyzer of its own (nested analyzers both count)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import op_analysis as oa
+    from repro_torch.models import lm
+    from repro_torch.models import transformer as T
+
+    proj, fill, inner = T._project_qkv, lm._fill_kv_cache, oa.OpAnalyzer()
+
+    def probe(*a, **k):
+        with inner:
+            return proj(*a, **k)
+
+    def probed_fill(*a, **k):
+        T._project_qkv = probe
+        try:
+            return fill(*a, **k)
+        finally:
+            T._project_qkv = proj
+
+    lm._fill_kv_cache = probed_fill
+    try:
+        pre = dryrun.trace_step(cfg, "prefill", LM_SERVE["requests"], LM_SERVE["prompt"], mesh,
+                                rules, params=params)
+    finally:
+        lm._fill_kv_cache = fill
+    return inner.costs, pre.costs
+
+
+def dry_pipeline(card: str) -> None:
+    """Phase 13c, ``[pipeline]``: mlp4's two 3000 → 3000 served layers as
+    two pipeline stages over microbatches, ≡ the served plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_paper_config
+    from repro_torch.core import model as M
+    from repro_torch.core import prng
+    from repro_torch.infer import compile_plan, freeze
+    from repro_torch.kernels.nitro_matmul import ops as nitro_ops
+    from repro_torch.parallel.pipeline import bubble_fraction, pipeline_apply
+
+    cfg = get_paper_config("mlp4", scale=1.0)
+    plan = compile_plan(freeze(M.init_params(prng.PRNGKey(0), cfg, device="cuda"), cfg),
+                        device="cuda")
+    x = np.random.default_rng(0).integers(-127, 128, (PIPE_BATCH, *cfg.input_shape))
+
+    def layer(i, a):
+        m = plan.metas[i]
+        return nitro_ops.fused_matmul(
+            a, plan.weights[i], sf=m.sf, alpha_inv=m.alpha_inv, apply_relu=m.apply_relu,
+            out_dtype=torch.int8 if m.out_dtype == "int8" else torch.int32,
+            backend=plan.backend, operand_dtype=m.operand_dtype,
+            key_w_dtype=plan.frozen_weights[i].dtype)
+
+    with torch.inference_mode():
+        acts = [torch.as_tensor(x).to(device="cuda", dtype=torch.int32).reshape(PIPE_BATCH, -1)]
+        for i in range(len(plan.metas)):
+            acts.append(layer(i, acts[-1]))
+        if not torch.equal(acts[-1], plan.logits(x)):
+            die("13c: the layers called one by one differ from the plan's logits")
+        mid = [i for i, w in enumerate(plan.weights) if tuple(w.shape) == (3000, 3000)]
+        if len(mid) != 2:
+            die(f"13c: mlp4's 3000 -> 3000 layers are {mid}")
+        out, launches = counted(lambda: pipeline_apply(
+            lambda st, m: layer(mid[st], m), acts[mid[0]], num_stages=2, num_micro=PIPE_MICRO))
+    if not torch.equal(out, acts[mid[1] + 1]):
+        die("13c: the pipeline's output differs from the served plan's activations")
+    if {k: v for k, v in launches.items() if v} != {"nitro_matmul": 2 * PIPE_MICRO}:
+        die(f"13c: the pipeline launched {launches}, not {2 * PIPE_MICRO} nitro_matmul")
+    print(f"[pipeline] {card} | mlp4 (full width) served layers {mid} (3000 -> 3000) as 2 "
+          f"stages, {PIPE_MICRO} microbatches of {PIPE_BATCH // PIPE_MICRO}: "
+          f"{2 * PIPE_MICRO} nitro_matmul launches, bitwise the plan's activations "
+          f"({tuple(out.shape)} {out.dtype}); GPipe bubble at 2 stages "
+          f"{bubble_fraction(2, PIPE_MICRO):.3f}")
+
+
+def dry_cells(card: str) -> None:
+    """Phase 13d, ``[dry-cell]``: production cells traced on the host."""
+    from repro_torch.launch import dryrun
+
+    for arch, shape in DRY_CELLS:
+        trace, info = dryrun.trace_cell(arch, shape, multi_pod=False)
+        r = dryrun.analyze_cell(trace, info)
+        roof = r["roofline"]
+        summary = {k: r[k] for k in ("arch", "shape", "kind", "batch", "seq", "chips",
+                                     "trace_s", "ops")}
+        summary["memory"] = {k: v for k, v in r["memory"].items() if k != "note"}
+        summary["roofline"] = {k: roof[k] for k in (
+            "compute_s", "memory_s", "collective_s", "dominant", "flops_by_dtype",
+            "hbm_bytes", "collective_counts", "collective_link_bytes", "collectives",
+            "model_flops", "model_over_counted_flops", "roofline_fraction")}
+        print(f"[dry-cell] {card} | {json.dumps(summary)}")
+
+
+def dry_phase(card: str) -> None:
+    """Phase 13: the dry run checked on the card (13a-13d)."""
+    t0 = time.perf_counter()
+    dry_train(card)
+    t_a = time.perf_counter() - t0
+    dry_decode(card)
+    dry_pipeline(card)
+    t_c = time.perf_counter() - t0
+    dry_cells(card)
+    print(f"[phase-13] 13a {t_a:.1f} s; 13a-13c {t_c:.1f} s; phase 13 "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         die("src/repro_torch not found beside chip_smoke.py: run it from the "
@@ -4927,6 +5249,7 @@ def main() -> int:
     fp_phase(card)
     int_row = lm_phase(card, errs, train_int)
     serve_phase(card, errs, int_row)
+    dry_phase(card)
 
     print(f"[parity] {sum(PARITY_CASES.values())} cases bitwise equal: "
           f"{dict(PARITY_CASES)}")

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.cost_hook import opaque_product
+
 INT_DTYPE = torch.int32
 # Operational range of NITRO-ReLU / int8 activations (paper §3.2).
 ACT_MIN = -127
@@ -79,13 +81,23 @@ def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     On the CPU both operands are lifted to int32 first (``int8 @ int8``
     returns int8 and wraps there).  On the card it is the hand-written
     integer GEMM (``kernels/int_matmul``), which reads int8 operands as
-    they are: no float is computed.
+    they are: no float is computed.  On ``meta`` (the dry run) it computes
+    nothing and returns the int32 result's shape.  Under a cost counter
+    (``core/cost_hook.py``) each call counts as one product on every
+    device, the ops inside it not at all.
     """
     if a.device.type == "cpu":
-        return a.to(INT_DTYPE) @ w.to(INT_DTYPE)
-    from repro_torch.kernels.int_matmul.int_matmul import int_matmul_cuda
+        def fn():
+            return a.to(INT_DTYPE) @ w.to(INT_DTYPE)
+    elif a.device.type == "meta":
+        def fn():
+            return torch.empty((*a.shape[:-1], w.shape[-1]), dtype=INT_DTYPE, device=a.device)
+    else:
+        from repro_torch.kernels.int_matmul.int_matmul import int_matmul_cuda
 
-    return int_matmul_cuda(a, w)
+        def fn():
+            return int_matmul_cuda(a, w)
+    return opaque_product("int_matmul", fn, a, w)
 
 
 def clip_act(x: torch.Tensor) -> torch.Tensor:

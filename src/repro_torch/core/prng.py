@@ -152,6 +152,8 @@ def uniform(key: torch.Tensor, shape, lo: float = 0.0, hi: float = 1.0, *,
     1.0), minus 1; then ``max(lo, f·(hi − lo) + lo)`` with ``lo``, ``hi``
     and ``hi − lo`` float32 and the multiply-add rounded once.
     """
+    if torch.device(device).type == "meta":  # the dry run: a draw is its shape alone
+        return torch.empty(tuple(int(d) for d in shape), dtype=torch.float32, device=device)
     lo32, hi32 = np.float32(lo), np.float32(hi)
     span = np.float32(hi32 - lo32)
     mant = (bits(key, shape, device=device) >> 9) | 0x3F800000

@@ -66,9 +66,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     d_half = x.shape[-1] // 2
     assert sum(sections) == d_half, (sections, d_half)
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    sec_ids = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))                    # (D/2,)
+    # the slot → section map is static: built on the host, not by a
+    # repeat_interleave over device repeats (a sync on the card, refused
+    # on meta)
+    sec_ids = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                           device=x.device)                          # (D/2,)
     pos_per_slot = positions.to(torch.float32)[sec_ids]                        # (D/2, B, S)
     return _rotate(x, pos_per_slot.movedim(0, -1) * freqs)          # (B, S, D/2)
 

@@ -75,12 +75,19 @@ def dense_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return matmul(h, params["wo"], int8=cfg.int8_matmul)
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``F.one_hot(idx, n).to(dtype)`` by one comparison: the same ops on
+    every device (``F.one_hot`` checks its input's range on the host off
+    the card, and scatters on it)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def _moe_local(params, cfg: ModelConfig, xt, gate_vals, expert_idx, capacity: int):
     """Dispatch → expert compute → combine over the local tokens."""
     moe = cfg.moe
     n, d = xt.shape
     flat_e = expert_idx.reshape(-1)                               # (n·k,)
-    onehot = F.one_hot(flat_e, moe.num_experts).to(torch.int32)
+    onehot = _one_hot(flat_e, moe.num_experts, torch.int32)
     pos = (torch.cumsum(onehot, 0, dtype=torch.int32) - 1) * onehot
     pos_in_e = pos.sum(-1, dtype=torch.int32)
     keep = pos_in_e < capacity
@@ -137,7 +144,7 @@ def moe_mlp(params: dict, cfg: ModelConfig, x: torch.Tensor
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch): E · Σ_e load_e · prob_e
-    onehot_n = F.one_hot(expert_idx, moe.num_experts).to(torch.float32)
+    onehot_n = _one_hot(expert_idx, moe.num_experts, torch.float32)
     load = onehot_n.sum((0, 1)) / (n * moe.top_k)
     imp = probs.mean(0)
     aux = moe.num_experts * (load * imp).sum()

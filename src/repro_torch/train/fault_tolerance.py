@@ -7,6 +7,8 @@ straggler detection.
   * ``StragglerDetector`` — per-step wall-time EWMA; a step slower than
     ``threshold ×`` the EWMA marks a straggler incident (excluded from
     the EWMA).
+  * ``ElasticPolicy``     — the (data, model) mesh to rebuild from the
+    chips left after losing some.
   * ``StepTimer``         — host-to-host lap times on the monotonic
     clock.  On CUDA a lap ends when the host has queued the step, not
     when the card has finished it: the timer adds no synchronise.
@@ -74,6 +76,26 @@ class StragglerDetector:
 
     def should_rebalance(self, k: int = 3) -> bool:
         return self.incidents >= k
+
+
+@dataclass(frozen=True)
+class ElasticPolicy:
+    """Mesh re-selection after losing chips."""
+
+    model_parallel: int = 16      # fixed TP requirement of the arch
+    global_batch: int = 256
+
+    def choose_mesh_shape(self, available_chips: int) -> tuple[int, int]:
+        """Largest (data, model) with model fixed, data | global_batch."""
+        data = available_chips // self.model_parallel
+        while data > 0 and self.global_batch % data != 0:
+            data -= 1
+        if data == 0:
+            raise RuntimeError(
+                f"cannot build a mesh from {available_chips} chips with "
+                f"TP={self.model_parallel}"
+            )
+        return (data, self.model_parallel)
 
 
 class StepTimer:

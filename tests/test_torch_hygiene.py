@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_no_repro():
                 "models/mlp.py", "models/rwkv.py", "models/rglru.py",
                 "models/transformer.py", "models/lm.py", "configs/llama3_2_1b.py",
                 "train/optimizer.py", "train/trainer.py", "data/loader.py",
-                "serving/engine.py", "launch/serve.py"):
+                "serving/engine.py", "launch/serve.py", "launch/mesh.py",
+                "launch/shapes.py", "launch/op_analysis.py", "launch/dryrun.py",
+                "parallel/pipeline.py", "core/cost_hook.py"):
         assert PORT / new in files
     for example in ("serve_cifar.py", "quickstart.py", "train_vgg8b.py", "les_transformer.py",
                     "serve_lm.py"):
