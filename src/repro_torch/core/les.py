@@ -27,6 +27,7 @@ from repro_torch.core import optimizer as opt
 from repro_torch.core.losses import ONE_HOT_VALUE, one_hot_int, rss_grad, rss_loss
 from repro_torch.core.numerics import INT_DTYPE, argmax_first
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs import trace
 
 
 class TrainState(NamedTuple):
@@ -108,25 +109,32 @@ def compute_gradients(
     labels = labels.to(params["output"]["w"].device)
     y = one_hot_int(labels, cfg.num_classes)
 
-    y_hat, acts, fw_caches, out_cache = M.forward(
-        params, cfg, x, train=True, key=key, fused=fused, backend=backend,
-        conv_mode=conv_mode, dp_axis=dp_axis, dp_shards=dp_shards,
-    )
+    tracer = trace.active()
+    with tracer.span("step.forward"):
+        y_hat, acts, fw_caches, out_cache = M.forward(
+            params, cfg, x, train=True, key=key, fused=fused, backend=backend,
+            conv_mode=conv_mode, dp_axis=dp_axis, dp_shards=dp_shards,
+        )
 
-    grad_o = rss_grad(y_hat, y)
-    out_grads = B.output_backward(params["output"], out_cache, grad_o)
+    with tracer.span("step.output"):
+        grad_o = rss_grad(y_hat, y)
+        out_grads = B.output_backward(params["output"], out_cache, grad_o)
 
     block_grads = []
     local_losses = []
-    for spec, p, a_l, fw_cache in zip(cfg.blocks, params["blocks"], acts, fw_caches):
-        y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
-        grad_l = B.local_gradient(y_hat_l, y)
-        local_losses.append(rss_loss(y_hat_l, y))
-        delta_fw, lr_grads = B.learning_layers_backward(p, spec, lr_cache, grad_l)
-        fw_grads = B.forward_layers_backward(
-            p, spec, fw_cache, delta_fw,
-            conv_mode=conv_mode, backend=backend, fuse_bwd=fuse_bwd,
-        )
+    for i, (spec, p, a_l, fw_cache) in enumerate(
+            zip(cfg.blocks, params["blocks"], acts, fw_caches)):
+        with tracer.span("step.block", block=i):
+            with tracer.span("blocks.learning", block=i):
+                y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
+                grad_l = B.local_gradient(y_hat_l, y)
+                local_losses.append(rss_loss(y_hat_l, y))
+                delta_fw, lr_grads = B.learning_layers_backward(p, spec, lr_cache, grad_l)
+            with tracer.span("blocks.fw_update", block=i):
+                fw_grads = B.forward_layers_backward(
+                    p, spec, fw_cache, delta_fw,
+                    conv_mode=conv_mode, backend=backend, fuse_bwd=fuse_bwd,
+                )
         block_grads.append({"fw": fw_grads, "lr": lr_grads})
 
     grads = StepGrads(blocks=tuple(block_grads), output=out_grads)
@@ -138,6 +146,7 @@ def compute_gradients(
     return grads, metrics, StepAux(fw_caches=tuple(fw_caches))
 
 
+@trace.spanned("step.apply")
 def apply_gradients(state: TrainState, grads: StepGrads, *,
                     fuse_opt: bool = False, backend: str = "auto") -> TrainState:
     """IntegerSGD update of every parameter group from raw gradients.
@@ -196,27 +205,34 @@ def _fused_opt_step(
     labels = labels.to(params["output"]["w"].device)
     y = one_hot_int(labels, cfg.num_classes)
 
-    y_hat, acts, fw_caches, out_cache = M.forward(
-        params, cfg, x, train=True, key=key, fused=fused, backend=backend,
-        conv_mode=conv_mode,
-    )
+    tracer = trace.active()
+    with tracer.span("step.forward"):
+        y_hat, acts, fw_caches, out_cache = M.forward(
+            params, cfg, x, train=True, key=key, fused=fused, backend=backend,
+            conv_mode=conv_mode,
+        )
 
-    grad_o = rss_grad(y_hat, y)
-    out_grads = B.output_backward(params["output"], out_cache, grad_o)
-    new_output = opt.apply_tree(params["output"], out_grads, state.opt_lr)
+    with tracer.span("step.output"):
+        grad_o = rss_grad(y_hat, y)
+        out_grads = B.output_backward(params["output"], out_cache, grad_o)
+        new_output = opt.apply_tree(params["output"], out_grads, state.opt_lr)
 
     new_blocks = []
     local_losses = []
-    for spec, p, a_l, fw_cache in zip(cfg.blocks, params["blocks"], acts, fw_caches):
-        y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
-        grad_l = B.local_gradient(y_hat_l, y)
-        local_losses.append(rss_loss(y_hat_l, y))
-        delta_fw, lr_grads = B.learning_layers_backward(p, spec, lr_cache, grad_l)
-        new_fw = B.forward_layers_update(
-            p, spec, fw_cache, delta_fw, state.opt_fw,
-            conv_mode=conv_mode, backend=backend, fuse_bwd=fuse_bwd,
-        )
-        new_lr = opt.apply_tree(p["lr"], lr_grads, state.opt_lr)
+    for i, (spec, p, a_l, fw_cache) in enumerate(
+            zip(cfg.blocks, params["blocks"], acts, fw_caches)):
+        with tracer.span("step.block", block=i):
+            with tracer.span("blocks.learning", block=i):
+                y_hat_l, lr_cache = B.learning_layers(p, spec, a_l)
+                grad_l = B.local_gradient(y_hat_l, y)
+                local_losses.append(rss_loss(y_hat_l, y))
+                delta_fw, lr_grads = B.learning_layers_backward(p, spec, lr_cache, grad_l)
+                new_lr = opt.apply_tree(p["lr"], lr_grads, state.opt_lr)
+            with tracer.span("blocks.fw_update", block=i):
+                new_fw = B.forward_layers_update(
+                    p, spec, fw_cache, delta_fw, state.opt_fw,
+                    conv_mode=conv_mode, backend=backend, fuse_bwd=fuse_bwd,
+                )
         new_blocks.append({"fw": new_fw, "lr": new_lr})
 
     metrics = StepMetrics(
@@ -264,27 +280,28 @@ def train_step(
     the kernels #3/#8 in place of #4/#9, the same trajectory bitwise.
     With ``telemetry=False`` the step launches what it did before.
     """
-    if fuse_opt and not telemetry:
-        return _fused_opt_step(
-            state, cfg, x, labels, key, fused=fused, fuse_bwd=fuse_bwd,
-            backend=backend, conv_mode=conv_mode,
+    with trace.active().span("step.train", fuse_opt=fuse_opt):
+        if fuse_opt and not telemetry:
+            return _fused_opt_step(
+                state, cfg, x, labels, key, fused=fused, fuse_bwd=fuse_bwd,
+                backend=backend, conv_mode=conv_mode,
+            )
+        grads, metrics, aux = compute_gradients(
+            state, cfg, x, labels, key,
+            fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
         )
-    grads, metrics, aux = compute_gradients(
-        state, cfg, x, labels, key,
-        fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
-    )
-    new_state = apply_gradients(state, grads)
-    if telemetry:
-        # lazy: obs is an optional read-only layer over the core
-        from repro_torch.obs import telemetry as T
+        new_state = apply_gradients(state, grads)
+        if telemetry:
+            # lazy: obs is an optional read-only layer over the core
+            from repro_torch.obs import telemetry as T
 
-        telem = T.collect_train_telemetry(
-            cfg, new_state.params, aux.fw_caches,
-            [g["fw"] for g in grads.blocks], grads.output,
-            state.opt_lr, state.opt_fw,
-        )
-        return new_state, metrics, telem
-    return new_state, metrics
+            telem = T.collect_train_telemetry(
+                cfg, new_state.params, aux.fw_caches,
+                [g["fw"] for g in grads.blocks], grads.output,
+                state.opt_lr, state.opt_fw,
+            )
+            return new_state, metrics, telem
+        return new_state, metrics
 
 
 def eval_step(state: TrainState, cfg: M.NitroConfig, x,

@@ -16,6 +16,7 @@ from repro_torch.core import blocks as B
 from repro_torch.core import prng
 from repro_torch.core.numerics import INT_DTYPE
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.obs import trace
 
 
 @dataclass(frozen=True)
@@ -107,12 +108,14 @@ def forward(
         drop_keys = list(prng.split(key, cfg.num_blocks))
     else:
         drop_keys = [None] * cfg.num_blocks
-    for spec, p, dk in zip(cfg.blocks, params["blocks"], drop_keys):
-        a, cache = B.forward_layers(
-            p, spec, a, dropout_key=dk, train=train, fused=fused,
-            backend=backend, conv_mode=conv_mode, dp_axis=dp_axis,
-            dp_shards=dp_shards,
-        )
+    tracer = trace.active()
+    for i, (spec, p, dk) in enumerate(zip(cfg.blocks, params["blocks"], drop_keys)):
+        with tracer.span("blocks.forward", block=i, kind=spec.kind):
+            a, cache = B.forward_layers(
+                p, spec, a, dropout_key=dk, train=train, fused=fused,
+                backend=backend, conv_mode=conv_mode, dp_axis=dp_axis,
+                dp_shards=dp_shards,
+            )
         acts.append(a)
         caches.append(cache)
     y_hat, out_cache = B.output_forward(params["output"], a)

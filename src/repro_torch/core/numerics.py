@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.cost_hook import opaque_product
+from repro_torch.obs import trace
 
 INT_DTYPE = torch.int32
 # Operational range of NITRO-ReLU / int8 activations (paper §3.2).
@@ -75,6 +76,7 @@ def int_matmul_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul_f64_exact(a, w)
 
 
+@trace.spanned("dispatch.int_matmul")
 def int_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Integer matrix product with int32 accumulation (wraps mod 2³²).
 

@@ -35,6 +35,7 @@ from repro_torch.kernels.autotune import state as autotune_state
 from repro_torch.kernels.autotune.cache import dtype_name
 from repro_torch.kernels.nitro_conv import ops as conv_ops
 from repro_torch.kernels.nitro_matmul import ops as nitro_ops
+from repro_torch.obs import trace
 
 _DTYPES = {"int8": torch.int8, "int32": torch.int32}
 
@@ -123,30 +124,34 @@ class ExecutionPlan:
         self.metas = tuple(metas)
         self.weights = weights
 
+    @trace.spanned("plan.logits")
     @torch.inference_mode()
     def logits(self, x) -> torch.Tensor:
         """(N, *input_shape) integer batch → (N, num_classes) int32 logits,
         on the plan's device.  The batch moves to the device once."""
+        tracer = trace.active()
         a = torch.as_tensor(x).to(device=self.device, dtype=INT_DTYPE)
-        for w, frozen, meta in zip(self.weights, self.frozen_weights, self.metas):
-            out_dtype = _DTYPES[meta.out_dtype]
-            if meta.kind == "conv":
-                a = conv_ops.fused_conv(
-                    a, w, sf=meta.sf, alpha_inv=meta.alpha_inv,
-                    apply_relu=meta.apply_relu, pool=meta.pool,
-                    out_dtype=out_dtype, backend=self.backend,
-                    conv_mode=meta.conv_mode, operand_dtype=meta.operand_dtype,
-                    key_w_dtype=frozen.dtype,
-                )
-            else:  # 'linear' | 'output' — flatten anything spatial entering
-                if a.ndim > 2:
-                    a = a.reshape(a.shape[0], -1)
-                a = nitro_ops.fused_matmul(
-                    a, w, sf=meta.sf, alpha_inv=meta.alpha_inv,
-                    apply_relu=meta.apply_relu, out_dtype=out_dtype,
-                    backend=self.backend, operand_dtype=meta.operand_dtype,
-                    key_w_dtype=frozen.dtype,
-                )
+        for i, (w, frozen, meta) in enumerate(
+                zip(self.weights, self.frozen_weights, self.metas)):
+            with tracer.span("plan.layer", layer=i, kind=meta.kind):
+                out_dtype = _DTYPES[meta.out_dtype]
+                if meta.kind == "conv":
+                    a = conv_ops.fused_conv(
+                        a, w, sf=meta.sf, alpha_inv=meta.alpha_inv,
+                        apply_relu=meta.apply_relu, pool=meta.pool,
+                        out_dtype=out_dtype, backend=self.backend,
+                        conv_mode=meta.conv_mode, operand_dtype=meta.operand_dtype,
+                        key_w_dtype=frozen.dtype,
+                    )
+                else:  # 'linear' | 'output' — flatten anything spatial entering
+                    if a.ndim > 2:
+                        a = a.reshape(a.shape[0], -1)
+                    a = nitro_ops.fused_matmul(
+                        a, w, sf=meta.sf, alpha_inv=meta.alpha_inv,
+                        apply_relu=meta.apply_relu, out_dtype=out_dtype,
+                        backend=self.backend, operand_dtype=meta.operand_dtype,
+                        key_w_dtype=frozen.dtype,
+                    )
         return a
 
     def predict(self, x) -> torch.Tensor:

@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.obs import trace
 
 #: route T (csrc/int_matmul.cu has the card's timings behind these): for
 #: operands route W takes, at most W_THIN_WORK multiply-adds; for the
@@ -197,9 +198,10 @@ def int_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cuda_lib.require_cuda("int_matmul", a, b)
     route = plan(tuple(a.shape), a.dtype, a.stride(), a.data_ptr(),
                  tuple(b.shape), b.dtype, b.stride(), b.data_ptr())
-    out = run_route(route, a, b)
-    if out.numel() and a.shape[1]:
-        int_matmul_cuda.launches.add()
+    with trace.active().span("kernel.int_matmul", route=route):
+        out = run_route(route, a, b)
+        if out.numel() and a.shape[1]:
+            int_matmul_cuda.launches.add()
     return out
 
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import cuda_lib
+from repro_torch.obs import trace
 
 #: tensors and optimiser states a launch takes (TABLE_TENSORS /
 #: TABLE_STATES in csrc/integer_sgd.cu)
@@ -100,6 +101,7 @@ def _launcher():
     return lib, launch
 
 
+@trace.spanned("kernel.integer_sgd_update")
 def integer_sgd_update_many(ws, gs, states) -> list[torch.Tensor]:
     """One IntegerSGD step on every tensor of ``ws`` on the card, one launch
     per table of ``plan_tables``: W′ of each W's shape, int32, each its own

@@ -16,8 +16,10 @@ from repro_torch.core import numerics
 from repro_torch.core import optimizer as opt
 from repro_torch.kernels.integer_sgd.integer_sgd import integer_sgd_update_many
 from repro_torch.kernels.integer_sgd.ref import integer_sgd_ref
+from repro_torch.obs import trace
 
 
+@trace.spanned("dispatch.apply_groups_fused")
 def apply_groups_fused(groups, *, backend: str = "auto") -> list[dict]:
     """``optimizer.apply_tree`` over each ``(params, grads, state)`` group:
     the updated params dicts, in order.

@@ -39,6 +39,7 @@ from repro_torch.core.activations import mu_int8
 from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.nitro_conv.ref import DEFAULT_BH
+from repro_torch.obs import trace
 
 
 def _conv_shapes(name: str, x: torch.Tensor, k: int, c_w: int) -> None:
@@ -82,6 +83,7 @@ def _forward_digit_call(name: str, x: torch.Tensor, w: torch.Tensor, outs, rows:
     cuda_lib.check(lib, err, name)
 
 
+@trace.spanned("kernel.stream_conv")
 def stream_conv(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -135,6 +137,7 @@ def stream_conv(
 stream_conv.launches = cuda_lib.LaunchCounter()
 
 
+@trace.spanned("kernel.stream_conv_fwd")
 def stream_conv_fwd(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -192,6 +195,7 @@ def _digit_scratch(lib: ctypes.CDLL, name: str, device: torch.device,
     return torch.empty(fn(*shape), dtype=torch.uint8, device=device)
 
 
+@trace.spanned("kernel.stream_conv_grad_w")
 def stream_conv_grad_w(
     x: torch.Tensor,
     grad_out: torch.Tensor,
@@ -247,6 +251,7 @@ def stream_conv_grad_w(
     return out.reshape(k, k, c, f)
 
 
+@trace.spanned("kernel.stream_conv_grad_w_opt")
 def stream_conv_grad_w_opt(
     x: torch.Tensor,
     grad_out: torch.Tensor,
@@ -310,6 +315,7 @@ def stream_conv_grad_w_opt(
     return w_new
 
 
+@trace.spanned("kernel.stream_conv_grad_x")
 def stream_conv_grad_x(
     delta: torch.Tensor,
     z_star: torch.Tensor,

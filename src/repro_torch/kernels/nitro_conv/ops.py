@@ -52,6 +52,7 @@ from repro_torch.kernels.nitro_matmul.ops import (
     resolve_operand_dtype,
 )
 from repro_torch.kernels.nitro_matmul.ref import masked_delta
+from repro_torch.obs import trace
 
 CONV_MODES = ("stream", "materialise")
 
@@ -74,6 +75,7 @@ def resolve_conv_mode(conv_mode: str) -> str:
     return conv_mode
 
 
+@trace.spanned("dispatch.fused_conv")
 def fused_conv(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -126,6 +128,7 @@ def fused_conv(
     )
 
 
+@trace.spanned("dispatch.fused_conv_fwd")
 def fused_conv_fwd(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -160,6 +163,7 @@ def fused_conv_fwd(
     return stream_conv_fwd(x, w, sf=sf, alpha_inv=alpha_inv)
 
 
+@trace.spanned("dispatch.conv_grad_w")
 def conv_grad_w(
     x: torch.Tensor,
     grad_out: torch.Tensor,
@@ -203,6 +207,7 @@ def conv_grad_w(
                               alpha_inv=alpha_inv)
 
 
+@trace.spanned("dispatch.conv_grad_w_opt")
 def conv_grad_w_opt(
     x: torch.Tensor,
     grad_out: torch.Tensor,
@@ -246,6 +251,7 @@ def conv_grad_w_opt(
                                   kernel_size=kernel_size, alpha_inv=alpha_inv)
 
 
+@trace.spanned("dispatch.conv_grad_x")
 def conv_grad_x(
     grad_out: torch.Tensor,
     w: torch.Tensor,

@@ -36,6 +36,7 @@ import torch
 from repro_torch.core.activations import mu_int8
 from repro_torch.core.scaling import pow2_split
 from repro_torch.kernels import cuda_lib
+from repro_torch.obs import trace
 
 
 def _digit_operand(t: torch.Tensor) -> torch.Tensor:
@@ -82,6 +83,7 @@ def _scratch(lib: ctypes.CDLL, device: torch.device, *shape: int) -> torch.Tenso
     return torch.empty(fn(*shape), dtype=torch.uint8, device=device)
 
 
+@trace.spanned("kernel.nitro_matmul")
 def nitro_matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -133,6 +135,7 @@ def _check_2d(name: str, a: torch.Tensor, b: torch.Tensor, dim_a: int, dim_b: in
         raise ValueError(f"{name}: dimensions must fit int32")
 
 
+@trace.spanned("kernel.nitro_matmul_fwd")
 def nitro_matmul_fwd(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -168,6 +171,7 @@ def nitro_matmul_fwd(
     return a, z_star
 
 
+@trace.spanned("kernel.nitro_matmul_grad_w")
 def nitro_matmul_grad_w(
     x: torch.Tensor,
     delta: torch.Tensor,
@@ -215,6 +219,7 @@ def _check_grid(name: str, m: int, n: int) -> None:
         raise ValueError(f"{name}: output ({m}, {n}) exceeds the kernel's grid")
 
 
+@trace.spanned("kernel.nitro_matmul_grad_w_opt")
 def nitro_matmul_grad_w_opt(
     x: torch.Tensor,
     delta: torch.Tensor,
@@ -269,6 +274,7 @@ def nitro_matmul_grad_w_opt(
     return w_new
 
 
+@trace.spanned("kernel.nitro_matmul_grad_x")
 def nitro_matmul_grad_x(
     delta: torch.Tensor,
     z_star: torch.Tensor,

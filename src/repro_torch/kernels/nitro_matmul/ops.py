@@ -46,6 +46,7 @@ from repro_torch.kernels.nitro_matmul.ref import (
     nitro_matmul_grad_x_ref,
     nitro_matmul_ref,
 )
+from repro_torch.obs import trace
 
 BACKENDS = ("auto", "cuda", "reference")
 
@@ -115,6 +116,7 @@ def check_alpha_inv(alpha_inv: int, apply_relu: bool) -> int:
     return int(alpha_inv)
 
 
+@trace.spanned("dispatch.fused_matmul")
 def fused_matmul(
     x2: torch.Tensor,
     w2: torch.Tensor,
@@ -150,6 +152,7 @@ def fused_matmul(
     )
 
 
+@trace.spanned("dispatch.fused_matmul_fwd")
 def fused_matmul_fwd(
     x2: torch.Tensor,
     w2: torch.Tensor,
@@ -174,6 +177,7 @@ def fused_matmul_fwd(
     return fn(x2, w2, sf=sf, alpha_inv=alpha_inv)
 
 
+@trace.spanned("dispatch.grad_w_matmul")
 def grad_w_matmul(
     x2: torch.Tensor,
     delta2: torch.Tensor,
@@ -195,6 +199,7 @@ def grad_w_matmul(
     return fn(x2, delta2, z_star2, alpha_inv=alpha_inv)
 
 
+@trace.spanned("dispatch.grad_w_opt_matmul")
 def grad_w_opt_matmul(
     x2: torch.Tensor,
     delta2: torch.Tensor,
@@ -226,6 +231,7 @@ def grad_w_opt_matmul(
     return fn(x2, delta2, z_star2, w2, gamma_inv, eta_inv, alpha_inv=alpha_inv)
 
 
+@trace.spanned("dispatch.grad_x_matmul")
 def grad_x_matmul(
     delta2: torch.Tensor,
     z_star2: torch.Tensor,

@@ -90,7 +90,7 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.obs import health as H
 from repro_torch.obs.metrics import (MetricRegistry, register_build_info,
                                      start_metrics_server)
-from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.obs.trace import NULL_TRACER, Tracer, use
 from repro_torch.parallel import dp
 from repro_torch.parallel.tree import tree_map
 from repro_torch.train import checkpoint as ckpt
@@ -119,7 +119,10 @@ def train_nitro(arch: str, *, steps: int, batch: int = 64,
     checkpoints).  Each sampled step feeds the health monitor
     (``obs.health.default_rules``): alerts print inline and, with
     ``alerts_out``, append as JSONL.  ``trace_out`` writes a span trace of
-    the run (``train.step`` / ``train.checkpoint`` / ``train.eval``).
+    the run (``train.step`` / ``train.checkpoint`` / ``train.eval``); the
+    tracer is installed as the active one (``obs.trace.use``), so each
+    ``train.step`` holds the step's own spans (``step.*``, ``blocks.*``,
+    ``dispatch.*``, ``kernel.*`` on the card, ``parallel.*`` under DP).
     ``metrics_port`` (0 = ephemeral) serves the run's registry
     (``train_step_seconds``, ``train_straggler_events_total``, the health
     gauges, ``repro_build_info``) at ``/metrics``, ``/metrics.json`` and
@@ -268,75 +271,76 @@ def _train(arch: str, *, axis, device: torch.device, steps: int, batch: int,
             torch.cuda.synchronize(device)
 
     try:
-        it = 0
-        metrics = None
-        step_metrics = []
-        sync()
-        t0 = time.perf_counter()
-        timer = StepTimer()
-        while it < steps:
-            for x, y in synthetic.batches(ds.x_train, ds.y_train, batch, seed=it):
-                if it >= steps or guard.requested:
+        with use(tracer):
+            it = 0
+            metrics = None
+            step_metrics = []
+            sync()
+            t0 = time.perf_counter()
+            timer = StepTimer()
+            while it < steps:
+                for x, y in synthetic.batches(ds.x_train, ds.y_train, batch, seed=it):
+                    if it >= steps or guard.requested:
+                        break
+                    sampled = telemetry_every > 0 and it % telemetry_every == 0
+                    with tracer.span("train.step", step=start_step + it,
+                                     telemetry=sampled):
+                        result = step_fn(state, torch.from_numpy(x).to(device),
+                                         torch.from_numpy(y).to(device),
+                                         prng.PRNGKey(start_step + it), sampled)
+                        if sampled:
+                            state, metrics, telem = result
+                            if lead:
+                                records = T.to_records(telem, cfg=cfg,
+                                                       step=start_step + it)
+                                T.append_jsonl(telemetry_out, records)
+                                monitor.observe_records(records)
+                        else:
+                            state, metrics = result
+                    dt = timer.lap()
+                    step_seconds.observe(dt)
+                    if straggler.record(dt):
+                        straggler_events.inc()
+                        say(f"[straggler] step {it}: {dt:.3f}s vs ewma "
+                            f"{straggler.ewma:.3f}s")
+                    step_metrics.append(metrics)
+                    if it % 50 == 0:
+                        say(f"step {it:5d}  loss={int(metrics.loss)}  "
+                            f"scaled={metrics.scaled_loss(batch):.4f}  "
+                            f"correct={int(metrics.correct)}/{batch}")
+                    if checkpointer and it > 0 and it % CKPT_EVERY == 0:
+                        with tracer.span("train.checkpoint", step=start_step + it):
+                            checkpointer.save(start_step + it, state)
+                    it += 1
+                if guard.requested:
                     break
-                sampled = telemetry_every > 0 and it % telemetry_every == 0
-                with tracer.span("train.step", step=start_step + it,
-                                 telemetry=sampled):
-                    result = step_fn(state, torch.from_numpy(x).to(device),
-                                     torch.from_numpy(y).to(device),
-                                     prng.PRNGKey(start_step + it), sampled)
-                    if sampled:
-                        state, metrics, telem = result
-                        if lead:
-                            records = T.to_records(telem, cfg=cfg,
-                                                   step=start_step + it)
-                            T.append_jsonl(telemetry_out, records)
-                            monitor.observe_records(records)
-                    else:
-                        state, metrics = result
-                dt = timer.lap()
-                step_seconds.observe(dt)
-                if straggler.record(dt):
-                    straggler_events.inc()
-                    say(f"[straggler] step {it}: {dt:.3f}s vs ewma "
-                        f"{straggler.ewma:.3f}s")
-                step_metrics.append(metrics)
-                if it % 50 == 0:
-                    say(f"step {it:5d}  loss={int(metrics.loss)}  "
-                        f"scaled={metrics.scaled_loss(batch):.4f}  "
-                        f"correct={int(metrics.correct)}/{batch}")
-                if checkpointer and it > 0 and it % CKPT_EVERY == 0:
-                    with tracer.span("train.checkpoint", step=start_step + it):
-                        checkpointer.save(start_step + it, state)
-                it += 1
-            if guard.requested:
-                break
-        sync()
-        train_s = time.perf_counter() - t0
-        if checkpointer:
-            with tracer.span("train.checkpoint", step=start_step + it,
-                             final=True):
-                checkpointer.save(start_step + it, state)
-                checkpointer.wait()
+            sync()
+            train_s = time.perf_counter() - t0
+            if checkpointer:
+                with tracer.span("train.checkpoint", step=start_step + it,
+                                 final=True):
+                    checkpointer.save(start_step + it, state)
+                    checkpointer.wait()
 
-        if not lead:
-            return None
-        correct = 0
-        with tracer.span("train.eval"):
-            for i in range(0, len(ds.x_test) - batch + 1, batch):
-                correct += int(les.eval_step(
-                    state, cfg,
-                    torch.from_numpy(ds.x_test[i:i + batch]).to(device),
-                    torch.from_numpy(ds.y_test[i:i + batch]).to(device)))
-        n_eval = (len(ds.x_test) // batch) * batch
-        acc = correct / max(n_eval, 1)
-        if trace_out:
-            n_spans = tracer.export_jsonl(trace_out)
-            print(f"[trace] {n_spans} spans -> {trace_out}")
-        if monitor.alerts:
-            counts = monitor.summary()["by_severity"]
-            print(f"[health] {len(monitor.alerts)} alert(s) fired "
-                  f"({', '.join(f'{k}={v}' for k, v in counts.items() if v)}); "
-                  f"{len(monitor.active_alerts())} still active")
+            if not lead:
+                return None
+            correct = 0
+            with tracer.span("train.eval"):
+                for i in range(0, len(ds.x_test) - batch + 1, batch):
+                    correct += int(les.eval_step(
+                        state, cfg,
+                        torch.from_numpy(ds.x_test[i:i + batch]).to(device),
+                        torch.from_numpy(ds.y_test[i:i + batch]).to(device)))
+            n_eval = (len(ds.x_test) // batch) * batch
+            acc = correct / max(n_eval, 1)
+            if trace_out:
+                n_spans = tracer.export_jsonl(trace_out)
+                print(f"[trace] {n_spans} spans -> {trace_out}")
+            if monitor.alerts:
+                counts = monitor.summary()["by_severity"]
+                print(f"[health] {len(monitor.alerts)} alert(s) fired "
+                      f"({', '.join(f'{k}={v}' for k, v in counts.items() if v)}); "
+                      f"{len(monitor.active_alerts())} still active")
     finally:
         if server is not None:
             server.close()

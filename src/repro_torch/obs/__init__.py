@@ -9,8 +9,13 @@ metrics.py    thread-safe MetricRegistry (counters/gauges/histograms,
               — the spine ``serving.stats.EngineStats`` is built on
 trace.py      monotonic-clock span tracer with thread-local nesting,
               JSONL export, optional ``torch.profiler.record_function``
-              bridge — around the train step's phases and the
-              FleetEngine batch lifecycle
+              bridge, and one active tracer a process (``use`` /
+              ``active``) that the port's layers record into — the step
+              (``step.*``), blocks (``blocks.*``), dispatchers
+              (``dispatch.*``), CUDA wrappers (``kernel.*``), plan
+              (``plan.*``) and exchange (``parallel.*``) — beside the CLI
+              loop's ``train.*`` and the FleetEngine batch lifecycle;
+              ``Tracer.anchor`` puts spans on a profiler trace's clock
 health.py     training-health rule engine over the telemetry records:
               saturation trends, int32 headroom, dead-unit growth,
               optimiser-scalar stall — windowed, hysteretic,

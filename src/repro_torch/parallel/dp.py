@@ -48,6 +48,7 @@ import torch.distributed as dist
 from repro_torch.core import les
 from repro_torch.core.numerics import INT_DTYPE
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace
 from repro_torch.parallel import collectives, compress, sharding, tree
 
 DP_AXIS = "data"
@@ -121,23 +122,24 @@ def reduce_gradients(grads, axis: DataAxis, method: str = "psum"):
     into one int32 buffer and one collective.
     """
     _check_reducer(method)
-    parts = tree.leaves(grads)
-    flat = torch.cat([g.reshape(-1) for g in parts])
-    with torch.profiler.record_function("dp.reduce_gradients"):
+    with trace.active().span("parallel.reduce_gradients", method=method):
+        parts = tree.leaves(grads)
+        flat = torch.cat([g.reshape(-1) for g in parts])
         if method == "psum":
             flat = compress.exact_integer_psum(flat, axis)
         elif method == "ring":
             flat = collectives.ring_all_reduce(flat, axis)
         else:
             flat = compress.nitro_compressed_psum(flat, axis)
-    chunks = torch.split(flat, [g.numel() for g in parts])
-    return tree.unflatten(grads, [c.view(g.shape) for c, g in zip(chunks, parts)])
+        chunks = torch.split(flat, [g.numel() for g in parts])
+        return tree.unflatten(grads, [c.view(g.shape) for c, g in zip(chunks, parts)])
 
 
 def _reduce_metrics(metrics: les.StepMetrics, axis: DataAxis) -> les.StepMetrics:
     """Sum the step's int32 metrics over the ranks, in one collective."""
-    flat = collectives.all_reduce(torch.cat([m.reshape(-1) for m in metrics]), axis)
-    loss, correct, local = torch.split(flat, [1, 1, metrics.local_losses.numel()])
+    with trace.active().span("parallel.reduce_metrics"):
+        flat = collectives.all_reduce(torch.cat([m.reshape(-1) for m in metrics]), axis)
+        loss, correct, local = torch.split(flat, [1, 1, metrics.local_losses.numel()])
     return les.StepMetrics(loss=loss.reshape(()), correct=correct.reshape(()),
                            local_losses=local)
 
@@ -222,17 +224,18 @@ def dp_train_step(
     """
     _check_reducer(dp_reduce)
     n = axis.size
-    grads, metrics, aux = les.compute_gradients(
-        state, cfg, x_local, labels_local, key,
-        fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
-        dp_axis=axis, dp_shards=n,
-    )
-    if telemetry:
-        # pre-reduce: the rank-local widths are what go on the wire
-        fits16 = _grads_fit_int16(grads, axis)
-    grads = reduce_gradients(grads, axis, dp_reduce)
-    metrics = _reduce_metrics(metrics, axis)
-    new_state = les.apply_gradients(state, grads, fuse_opt=fuse_opt, backend=backend)
+    with trace.active().span("step.train", fuse_opt=fuse_opt):
+        grads, metrics, aux = les.compute_gradients(
+            state, cfg, x_local, labels_local, key,
+            fused=fused, fuse_bwd=fuse_bwd, backend=backend, conv_mode=conv_mode,
+            dp_axis=axis, dp_shards=n,
+        )
+        if telemetry:
+            # pre-reduce: the rank-local widths are what go on the wire
+            fits16 = _grads_fit_int16(grads, axis)
+        grads = reduce_gradients(grads, axis, dp_reduce)
+        metrics = _reduce_metrics(metrics, axis)
+        new_state = les.apply_gradients(state, grads, fuse_opt=fuse_opt, backend=backend)
     if telemetry:
         telem = _dp_telemetry(cfg, new_state, aux, grads, state, axis)
         # topology-scoped: the `_dp` row, not part of the trajectory

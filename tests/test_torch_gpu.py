@@ -642,3 +642,50 @@ def test_int_matmul_routes_match_plain(cuda_device, route):
         torch.cuda.synchronize()
         assert got.dtype == torch.int32 and torch.equal(got, want)
         assert counter.value == before + 1
+
+
+@pytest.mark.gpu
+def test_each_cuda_wrapper_call_records_one_kernel_span(cuda_device):
+    """With a tracer installed, each call of a CUDA wrapper records one
+    ``kernel.<entry>`` span (``int_matmul``'s with its route), and the
+    spans number as many as the wrapper's launch counter adds."""
+    from repro_torch.kernels.int_matmul import int_matmul_cuda
+    from repro_torch.obs import trace
+    from repro_torch.obs.trace import Tracer
+
+    g = torch.Generator().manual_seed(32)
+
+    def ints(*shape):
+        return torch.randint(-60, 61, shape, generator=g, dtype=torch.int32).to(cuda_device)
+
+    x, w, d, z = ints(4, 8, 8, 16), ints(3, 3, 16, 32), ints(4, 8, 8, 32), ints(4, 8, 8, 32)
+    gw = ints(3, 3, 16, 32)
+    xl, wl, dl, zl = ints(32, 64), ints(64, 48), ints(32, 48), ints(32, 48)
+    calls = {
+        "stream_conv": (stream_conv, lambda: stream_conv(x, w, sf=512)),
+        "stream_conv_fwd": (stream_conv_fwd, lambda: stream_conv_fwd(x, w, sf=512)),
+        "stream_conv_grad_w": (stream_conv_grad_w, lambda: stream_conv_grad_w(
+            x, d, kernel_size=3, z_star=z)),
+        "stream_conv_grad_w_opt": (stream_conv_grad_w_opt, lambda: stream_conv_grad_w_opt(
+            x, d, z, w, 512, 0, kernel_size=3)),
+        "stream_conv_grad_x": (stream_conv_grad_x, lambda: stream_conv_grad_x(d, z, w)),
+        "nitro_matmul": (nitro_matmul, lambda: nitro_matmul(xl, wl, sf=512)),
+        "nitro_matmul_fwd": (nitro_matmul_fwd, lambda: nitro_matmul_fwd(xl, wl, sf=512)),
+        "nitro_matmul_grad_w": (nitro_matmul_grad_w, lambda: nitro_matmul_grad_w(xl, dl, zl)),
+        "nitro_matmul_grad_w_opt": (nitro_matmul_grad_w_opt, lambda: nitro_matmul_grad_w_opt(
+            xl, dl, zl, wl, 512, 0)),
+        "nitro_matmul_grad_x": (nitro_matmul_grad_x, lambda: nitro_matmul_grad_x(dl, zl, wl)),
+        "integer_sgd_update": (integer_sgd_update, lambda: integer_sgd_update(w, gw, 512, 0)),
+        "int_matmul": (int_matmul_cuda, lambda: int_matmul_cuda(xl, wl)),
+    }
+    for entry, (fn, call) in calls.items():
+        tracer = Tracer()
+        before = fn.launches.value
+        with trace.use(tracer):
+            call()
+            call()
+        torch.cuda.synchronize()
+        spans = [s for s in tracer.snapshot() if s.name.startswith("kernel.")]
+        assert [s.name for s in spans] == [f"kernel.{entry}"] * 2, entry
+        assert fn.launches.value - before == len(spans), entry
+    assert spans[0].attrs["route"] in ("T", "W", "D")

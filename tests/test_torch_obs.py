@@ -26,6 +26,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.core import les as jles
 from repro.core.blocks import BlockSpec as JBlockSpec
@@ -39,7 +40,7 @@ from repro_torch.core import les as tles
 from repro_torch.core import prng
 from repro_torch.core.blocks import BlockSpec
 from repro_torch.core.model import NitroConfig
-from repro_torch.infer import freeze
+from repro_torch.infer import compile_plan, freeze
 from repro_torch.obs import metrics as tmetrics
 from repro_torch.obs.metrics import (
     REPRO_VERSION,
@@ -50,6 +51,7 @@ from repro_torch.obs.metrics import (
     register_build_info,
     start_metrics_server,
 )
+from repro_torch.obs import trace as otrace
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving import FleetEngine, ModelRegistry, VisionEngine
 from repro_torch.serving.stats import EngineStats, fleet_snapshot_delta, snapshot_delta
@@ -461,6 +463,154 @@ class TestTracer:
         with open(path) as f:
             assert f.read() == ""
         assert NULL_TRACER.recorded == 0
+
+
+
+def _tensor_leaves(tree):
+    """Every tensor of a nested tuple / list / dict, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensor_leaves(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _tree(spans):
+    """(name, parent's name) of every span, and the spans by name."""
+    by_id = {s.span_id: s for s in spans}
+    edges = [(s.name, by_id[s.parent_id].name if s.parent_id in by_id else None)
+             for s in spans]
+    named: dict = {}
+    for s in spans:
+        named.setdefault(s.name, []).append(s)
+    return edges, named
+
+
+class TestActiveTracer:
+    def test_use_installs_restores_and_nests(self):
+        assert otrace.active() is NULL_TRACER
+        outer, inner = Tracer(), Tracer()
+        with otrace.use(outer) as got:
+            assert got is outer and otrace.active() is outer
+            with otrace.use(inner):
+                assert otrace.active() is inner
+            assert otrace.active() is outer
+            with pytest.raises(RuntimeError):
+                with otrace.use(inner):
+                    raise RuntimeError("boom")
+            assert otrace.active() is outer
+        assert otrace.active() is NULL_TRACER
+
+    def test_null_span_is_the_shared_no_op(self):
+        assert otrace.active().span("step.train", fuse_opt=True) is NULL_TRACER.span("x")
+
+    def test_spanned_reads_the_active_tracer_at_each_call(self):
+        @otrace.spanned("dispatch.f")
+        def f(x, *, y):
+            return x + y
+
+        tr = Tracer()
+        assert f(1, y=2) == 3 and tr.snapshot() == []
+        with otrace.use(tr):
+            assert f(2, y=3) == 5
+        assert [s.name for s in tr.snapshot()] == ["dispatch.f"]
+
+    def test_anchor_maps_a_span_onto_the_profiler_clock(self, tmp_path):
+        """A ``record_function`` range opened inside a span falls inside
+        the span once the anchor carries it onto the trace's clock
+        (``ts``·1000 + ``baseTimeNanoseconds`` on ``time_ns``)."""
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        tr = Tracer()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with tr.span("outer"):
+                time.sleep(0.002)
+                with record_function("inner"):
+                    time.sleep(0.002)
+                time.sleep(0.002)
+        mono, real = tr.anchor()
+        assert abs((time.time_ns() - real) - (time.monotonic_ns() - mono)) < 10 ** 6
+        path = tmp_path / "trace.json"
+        prof.export_chrome_trace(str(path))
+        doc = json.loads(path.read_text())
+        base = int(doc.get("baseTimeNanoseconds", 0))
+        inner = next(e for e in doc["traceEvents"] if e.get("name") == "inner"
+                     and e.get("ph") == "X")
+        span = tr.snapshot()[0]
+        start = (span.t_start_ns - mono + real - base) / 1000
+        end = (span.t_end_ns - mono + real - base) / 1000
+        assert start < float(inner["ts"]) < float(inner["ts"]) + float(inner["dur"]) < end
+
+    @pytest.mark.parametrize("fuse_opt", [True, False])
+    def test_train_step_records_the_layer_tree_and_changes_no_bit(self, fuse_opt):
+        cfg = NitroConfig(
+            blocks=(BlockSpec("conv", 8, pool=True, dropout=0.25, d_lr=64),
+                    BlockSpec("conv", 8, pool=True, d_lr=32), BlockSpec("linear", 16)),
+            input_shape=(8, 8, 3), num_classes=10, gamma_inv=512, name="tiny-trace")
+        state = tles.create_train_state(prng.PRNGKey(3), cfg, device="cpu")
+        x = torch.from_numpy(np.stack(_images(6, seed=3)))
+        y = torch.arange(6) % 10
+        key = prng.PRNGKey(11)
+        plain = tles.train_step(state, cfg, x, y, key, fuse_opt=fuse_opt, backend="reference")
+        tr = Tracer()
+        with otrace.use(tr):
+            traced = tles.train_step(state, cfg, x, y, key, fuse_opt=fuse_opt,
+                                     backend="reference")
+        for a, b in zip(_tensor_leaves(plain), _tensor_leaves(traced), strict=True):
+            assert torch.equal(a, b)
+        edges, named = _tree(tr.snapshot())
+        n = len(cfg.blocks)
+        assert [s.attrs for s in named["step.train"]] == [{"fuse_opt": fuse_opt}]
+        assert ("step.train", None) in edges
+        assert edges.count(("step.forward", "step.train")) == 1
+        assert edges.count(("step.output", "step.train")) == 1
+        assert edges.count(("blocks.forward", "step.forward")) == n
+        assert [(s.attrs["block"], s.attrs["kind"]) for s in named["blocks.forward"]] == [
+            (i, b.kind) for i, b in enumerate(cfg.blocks)]
+        assert edges.count(("step.block", "step.train")) == n
+        assert edges.count(("blocks.learning", "step.block")) == n
+        assert edges.count(("blocks.fw_update", "step.block")) == n
+        assert edges.count(("dispatch.fused_conv_fwd", "blocks.forward")) == 2
+        assert edges.count(("dispatch.fused_matmul_fwd", "blocks.forward")) == 1
+        upd = "conv_grad_w_opt" if fuse_opt else "conv_grad_w"
+        assert edges.count((f"dispatch.{upd}", "blocks.fw_update")) == 2
+        assert ("dispatch.int_matmul", "blocks.learning") in edges
+        assert edges.count(("step.apply", "step.train")) == (0 if fuse_opt else 1)
+        assert not any(name.startswith("kernel.") for name in named)  # no CUDA wrapper here
+
+    def test_plan_logits_records_each_layer(self):
+        fm = _frozen()
+        plan = compile_plan(fm, device="cpu")
+        x = torch.from_numpy(np.stack(_images(4)))
+        plain = plan.logits(x)
+        tr = Tracer()
+        with otrace.use(tr):
+            traced = plan.logits(x)
+        assert torch.equal(plain, traced)
+        edges, named = _tree(tr.snapshot())
+        assert edges.count(("plan.logits", None)) == 1
+        assert [s.attrs for s in named["plan.layer"]] == [
+            {"layer": i, "kind": m.kind} for i, m in enumerate(plan.metas)]
+        assert all(parent == "plan.logits" for name, parent in edges if name == "plan.layer")
+        assert sum(parent == "plan.layer" and name.startswith("dispatch.")
+                   for name, parent in edges) == len(plan.metas)
+
+    def test_train_cli_trace_holds_the_step_spans(self, tmp_path):
+        """``--trace-out`` installs its tracer: each ``train.step`` holds
+        the step's own spans."""
+        from repro_torch.launch.train import main
+
+        path = tmp_path / "trace.jsonl"
+        main(["--arch", "vgg8b", "--steps", "2", "--batch", "8", "--scale", "0.0625",
+              "--device", "cpu", "--trace-out", str(path)])
+        rows = [json.loads(ln) for ln in path.read_text().splitlines()]
+        by_id = {r["span_id"]: r for r in rows}
+        parents = [by_id[r["parent_id"]]["name"] for r in rows
+                   if r["name"] == "step.train" and r["parent_id"] in by_id]
+        assert parents == ["train.step", "train.step"]
+        assert {"step.forward", "blocks.forward", "blocks.learning",
+                "dispatch.fused_conv_fwd"} <= {r["name"] for r in rows}
+        assert otrace.active() is NULL_TRACER
 
 
 class TestTracerBind:

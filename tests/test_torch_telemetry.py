@@ -278,7 +278,12 @@ def test_train_cli_trace_matches_jax_spans(cli_runs):
     def spans(name):
         return [json.loads(ln) for ln in (d / name).read_text().splitlines()]
 
-    t, j = spans("torch_trace.jsonl"), spans("jax_trace.jsonl")
+    every, j = spans("torch_trace.jsonl"), spans("jax_trace.jsonl")
+    # the CLI loop's own spans match the JAX CLI's; the port's tracer also
+    # holds the step's inner spans (obs.trace.use), each under a train.step
+    t = [s for s in every if s["name"].startswith("train.")]
     assert [(s["name"], s["attrs"]) for s in t] == [(s["name"], s["attrs"]) for s in j]
     assert [s["name"] for s in t].count("train.step") == 4 and t[-1]["name"] == "train.eval"
     assert [s["attrs"]["telemetry"] for s in t[:4]] == [True, False, True, False]
+    by_id = {s["span_id"]: s["name"] for s in every}
+    assert [by_id[s["parent_id"]] for s in every if s["name"] == "step.train"] == ["train.step"] * 4
