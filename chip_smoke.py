@@ -284,7 +284,16 @@ Phases, each fatal on failure:
      counted (8 nitro_matmul launches), bitwise the served plan's
      activations there; (13d, ``[dry-cell]``) llama3.2-1b ``train_4k`` and
      qwen3-32b ``decode_32k`` on the 256-chip mesh, traced on the host: each
-     cell's summary and trace seconds.
+     cell's summary and trace seconds;
+ 14. the training max-pool kernels (``kernels/maxpool``, no TPU kernel
+     behind them), run by hand and not in any benchmark cell: at VGG8B's
+     and VGG11B's four pool inputs at batch 512, each kernel bitwise its
+     plain version, then (``[pool]``) each kernel's device time (profiler)
+     beside its byte bound, the plain version's and the eager one-hot
+     chain's (``layers.maxpool_forward`` / ``maxpool_backward``) time;
+     ``[pool-step]`` the four shapes summed, against the step's 0.348 ms
+     bound a direction.  Alone: ``c.toolchain(torch); c.build();
+     c.pool_phase(card)``.
 
 Prints a ``{"kernels": [...]}`` line, in which ``ms``, ``plain_ms`` and
 ``bound_ms`` are one serving batch's (or one training step's) launches of
@@ -402,6 +411,8 @@ PER_STEP_FUSED_APPLY = {**PER_STEP, "integer_sgd_update": 1}
 PER_GRAD_X_PASS = {"stream_conv_grad_x": 12, "nitro_matmul_grad_x": 2,
                    "stream_conv_grad_w": 6, "nitro_matmul_grad_w": 1,
                    "stream_conv_grad_w_opt": 6, "nitro_matmul_grad_w_opt": 1}
+#: VGG8B's (and VGG11B's) max-pool inputs at batch 512, blocks 1, 3, 4, 5
+POOL_SHAPES = [(512, 32, 32, 256), (512, 16, 16, 512), (512, 8, 8, 512), (512, 4, 4, 512)]
 #: launches per mlp4 step (three linear blocks)
 PER_STEP_MLP = {"nitro_matmul_fwd": 3, "nitro_matmul_grad_w": 3}
 PER_STEP_MLP_FUSE_OPT = {"nitro_matmul_fwd": 3, "nitro_matmul_grad_w_opt": 3}
@@ -3374,6 +3385,49 @@ def grad_x_timing(shapes, card: str, per_kernel: dict) -> None:
                                     "of the linear grad_x")
 
 
+def pool_phase(card: str) -> None:
+    """Phase 14: the training max-pool kernels at ``POOL_SHAPES``, bitwise
+    their plain versions, then timed against their byte bound."""
+    import torch
+    from repro_torch.core import layers
+    from repro_torch.kernels.maxpool import (
+        maxpool_bwd_cuda, maxpool_bwd_ref, maxpool_fwd_cuda, maxpool_fwd_ref)
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    total = {"fwd": 0.0, "bwd": 0.0, "bound": 0.0, "plain": 0.0, "chain": 0.0}
+    for shape in POOL_SHAPES:
+        a = torch.randint(-3, 3, shape, generator=g, dtype=torch.int32, device="cuda")
+        out, idx = maxpool_fwd_cuda(a)
+        want_out, want_idx = maxpool_fwd_ref(a)
+        grad = torch.randint(-2 ** 20, 2 ** 20, tuple(out.shape), generator=g,
+                             dtype=torch.int32, device="cuda")
+        d = maxpool_bwd_cuda(grad, idx, shape)
+        if not (torch.equal(out, want_out) and torch.equal(idx, want_idx)
+                and torch.equal(d, maxpool_bwd_ref(grad, want_idx, shape))):
+            die(f"[pool] {shape}: a kernel differs from its plain version")
+        fwd = device_ms(lambda: maxpool_fwd_cuda(a), "maxpool_fwd_kernel", calls=20)
+        bwd = device_ms(lambda: maxpool_bwd_cuda(grad, idx, shape), "maxpool_bwd_kernel",
+                        calls=20)
+        nbytes = a.numel() * 4 + out.numel() * 5  # each direction's
+        bound = nbytes / PEAK_BYTES * 1e3
+        plain = time_cuda(lambda: maxpool_bwd_ref(grad, maxpool_fwd_ref(a)[1], shape),
+                          iters=5, warmup=1)
+        chain = time_cuda(lambda: layers.maxpool_backward(layers.maxpool_forward(a)[1], grad),
+                          iters=5, warmup=1)
+        for k, v in (("fwd", fwd), ("bwd", bwd), ("bound", bound), ("plain", plain),
+                     ("chain", chain)):
+            total[k] += v
+        print(f"[pool] {card} | {shape} | fwd {fwd:.4f} ms ({100 * bound / fwd:.1f}% of "
+              f"bound), bwd {bwd:.4f} ms ({100 * bound / bwd:.1f}%) | bound {bound:.4f} ms "
+              f"a direction ({nbytes / 1e6:.1f} MB) | plain fwd+bwd {plain:.4f} ms | "
+              f"one-hot chain fwd+bwd {chain:.4f} ms")
+    both = total["fwd"] + total["bwd"]
+    print(f"[pool-step] {card} | four shapes: fwd {total['fwd']:.4f} + bwd "
+          f"{total['bwd']:.4f} = {both:.4f} ms device | bound {2 * total['bound']:.4f} ms "
+          f"({100 * 2 * total['bound'] / both:.1f}%) | plain {total['plain']:.4f} ms | "
+          f"one-hot chain {total['chain']:.4f} ms")
+
+
 def train_end_to_end(res, ref, fuse, cfg, card: str) -> None:
     """Host-to-host time of one training step on the final state: the
     split step, the fuse_opt step and the fused apply on the kernels and
@@ -5239,6 +5293,7 @@ def main() -> int:
     opt_timing(shapes, cfg, params, card, per_kernel)
     linear_grad_w_timing(card, per_kernel)
     grad_x_timing(shapes, card, per_kernel)
+    pool_phase(card)
     end_to_end(res, card)
     fleet_end_to_end(fleet_res, fm, card)
     train_end_to_end(train_res, train_ref, fuse_res, cfg, card)

@@ -15,7 +15,7 @@ through the forward layers.  Nothing crosses block boundaries.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -36,6 +36,20 @@ def _conv_ops():
     from repro_torch.kernels.nitro_conv import ops
 
     return ops
+
+
+def _pool_ops():
+    """Lazy import of the max-pool dispatcher (same reason)."""
+    from repro_torch.kernels.maxpool import ops
+
+    return ops
+
+
+class PoolIndexCache(NamedTuple):
+    """The fused path's pool cache: each window's first-max position."""
+
+    idx: torch.Tensor  # (N,H//2,W//2,C) uint8, di·2 + dj (``kernels.maxpool``)
+    in_shape: tuple[int, int, int, int]
 
 
 @dataclass(frozen=True)
@@ -113,9 +127,11 @@ def forward_layers(
 
     ``fused=True`` runs matmul → scale → ReLU as one kernel that writes
     both ``a`` and ``z_star`` (``stream_conv_fwd`` / ``nitro_matmul_fwd``
-    on CUDA tensors); ``fused=False`` is the unfused reference
-    composition.  The cache holds ``z_star``, the layer input (``conv`` or
-    ``linear``), ``pool``/``dropout`` when present, and ``act``.
+    on CUDA tensors), then the pool through ``kernels.maxpool`` (its cache
+    a ``PoolIndexCache``); ``fused=False`` is the unfused reference
+    composition (``layers.maxpool_forward``'s one-hot ``PoolCache``).  The
+    cache holds ``z_star``, the layer input (``conv`` or ``linear``),
+    ``pool``/``dropout`` when present, and ``act``.
     ``dp_axis``/``dp_shards`` (a data-parallel rank's axis and its size)
     reach only dropout (``layers.dropout_forward``).
     """
@@ -148,7 +164,11 @@ def forward_layers(
         z_star = scaling.scale_forward(z, sf)
         cache["z_star"] = z_star
         a = activations.nitro_relu(z_star, spec.alpha_inv)
-    if spec.pool:
+    if spec.pool and fused:
+        in_shape = tuple(a.shape)
+        a, idx = _pool_ops().maxpool_fwd(a, backend=backend)
+        cache["pool"] = PoolIndexCache(idx=idx, in_shape=in_shape)
+    elif spec.pool:
         a, cache["pool"] = layers.maxpool_forward(a)
     if train and spec.dropout > 0.0:
         a, cache["dropout"] = layers.dropout_forward(
@@ -157,14 +177,21 @@ def forward_layers(
     return a, cache
 
 
-def forward_layers_delta(cache: dict, delta_fw: torch.Tensor) -> torch.Tensor:
-    """δ_l^fw back through the dropout and pool backwards (tensor ops):
-    the gradient at the forward layer's pre-activation output."""
+def forward_layers_delta(cache: dict, delta_fw: torch.Tensor, *,
+                         backend: str = "auto") -> torch.Tensor:
+    """δ_l^fw back through the dropout and pool backwards: the gradient at
+    the forward layer's pre-activation output.  The pool's backward follows
+    its cache: ``kernels.maxpool`` for the fused path's ``PoolIndexCache``
+    (``backend`` as its dispatcher takes it), ``layers.maxpool_backward``
+    for the one-hot."""
     g = delta_fw
     if "dropout" in cache:
         g = layers.dropout_backward(cache["dropout"], g)
-    if "pool" in cache:
-        g = layers.maxpool_backward(cache["pool"], g)
+    pool = cache.get("pool")
+    if isinstance(pool, PoolIndexCache):
+        g = _pool_ops().maxpool_bwd(g, pool.idx, pool.in_shape, backend=backend)
+    elif pool is not None:
+        g = layers.maxpool_backward(pool, g)
     return g
 
 
@@ -179,16 +206,17 @@ def forward_layers_backward(
     fuse_bwd: bool = True,
 ) -> dict:
     """Backward through the forward layers from δ_l^fw; returns the weight
-    gradients.  Dropout and pool backwards are tensor ops; the NITRO-ReLU
-    derivative runs inside the grad_W kernel (``fuse_bwd=True``) or as a
-    materialised mask (``False``), bitwise the same.
+    gradients.  Dropout and pool backwards as ``forward_layers_delta``
+    routes them; the NITRO-ReLU derivative runs inside the grad_W kernel
+    (``fuse_bwd=True``) or as a materialised mask (``False``), bitwise the
+    same.
 
     The layer's input gradient is not computed (``need_grad_x=False``):
     LES confines gradients to the block, so the JAX step discards it and
     XLA removes its kernels from the compiled step; here no ``*_grad_x``
     kernel is launched either.
     """
-    g = forward_layers_delta(cache, delta_fw)
+    g = forward_layers_delta(cache, delta_fw, backend=backend)
     if spec.kind == "conv":
         _, grads = layers.conv_backward(
             params["fw"], cache["conv"], g,
@@ -223,7 +251,7 @@ def forward_layers_update(
     is never written.  Bitwise backward then ``optimizer.apply_tree``.
     The input gradient is not computed, as in ``forward_layers_backward``.
     """
-    g = forward_layers_delta(cache, delta_fw)
+    g = forward_layers_delta(cache, delta_fw, backend=backend)
     if spec.kind == "conv":
         _, new_fw = layers.conv_update(
             params["fw"], cache["conv"], g, opt_state,

@@ -39,8 +39,8 @@ NVCC_FLAGS = (
 )
 
 #: library name → its CUDA source.  ``nitro_matmul`` also holds the
-#: training forward ``nitro_matmul_fwd``; every other kernel is a library
-#: of its own.
+#: training forward ``nitro_matmul_fwd`` and ``maxpool`` both pool kernels;
+#: every other kernel is a library of its own.
 SOURCES = {
     "nitro_matmul": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul.cu",
     "nitro_matmul_grad_w": _HERE / "nitro_matmul" / "csrc" / "nitro_matmul_grad_w.cu",
@@ -55,6 +55,7 @@ SOURCES = {
     "stream_conv_grad_x": _HERE / "nitro_conv" / "csrc" / "stream_conv_grad_x.cu",
     "integer_sgd": _HERE / "integer_sgd" / "csrc" / "integer_sgd.cu",
     "int_matmul": _HERE / "int_matmul" / "csrc" / "int_matmul.cu",
+    "maxpool": _HERE / "maxpool" / "csrc" / "maxpool.cu",
 }
 
 #: Output tile (64 × 64) of the split-K matmul digit GEMMs, which keep one

@@ -30,6 +30,12 @@ from repro_torch.kernels.integer_sgd.integer_sgd import (
     TABLE_TENSORS,
     plan_tables,
 )
+from repro_torch.kernels.maxpool import (
+    maxpool_bwd_cuda,
+    maxpool_bwd_ref,
+    maxpool_fwd_cuda,
+    maxpool_fwd_ref,
+)
 from repro_torch.kernels.nitro_conv.nitro_conv import (
     stream_conv,
     stream_conv_fwd,
@@ -659,7 +665,7 @@ def test_each_cuda_wrapper_call_records_one_kernel_span(cuda_device):
         return torch.randint(-60, 61, shape, generator=g, dtype=torch.int32).to(cuda_device)
 
     x, w, d, z = ints(4, 8, 8, 16), ints(3, 3, 16, 32), ints(4, 8, 8, 32), ints(4, 8, 8, 32)
-    gw = ints(3, 3, 16, 32)
+    gw, gp = ints(3, 3, 16, 32), ints(4, 4, 4, 16)
     xl, wl, dl, zl = ints(32, 64), ints(64, 48), ints(32, 48), ints(32, 48)
     calls = {
         "stream_conv": (stream_conv, lambda: stream_conv(x, w, sf=512)),
@@ -676,7 +682,10 @@ def test_each_cuda_wrapper_call_records_one_kernel_span(cuda_device):
             xl, dl, zl, wl, 512, 0)),
         "nitro_matmul_grad_x": (nitro_matmul_grad_x, lambda: nitro_matmul_grad_x(dl, zl, wl)),
         "integer_sgd_update": (integer_sgd_update, lambda: integer_sgd_update(w, gw, 512, 0)),
-        "int_matmul": (int_matmul_cuda, lambda: int_matmul_cuda(xl, wl)),
+        "maxpool_fwd": (maxpool_fwd_cuda, lambda: maxpool_fwd_cuda(d)),
+        "maxpool_bwd": (maxpool_bwd_cuda, lambda: maxpool_bwd_cuda(
+            gp, gp.abs().remainder(4).to(torch.uint8), (4, 8, 8, 16))),
+        "int_matmul": (int_matmul_cuda, lambda: int_matmul_cuda(xl, wl)),  # last: route
     }
     for entry, (fn, call) in calls.items():
         tracer = Tracer()
@@ -689,3 +698,76 @@ def test_each_cuda_wrapper_call_records_one_kernel_span(cuda_device):
         assert [s.name for s in spans] == [f"kernel.{entry}"] * 2, entry
         assert fn.launches.value - before == len(spans), entry
     assert spans[0].attrs["route"] in ("T", "W", "D")
+
+
+#: (N, H, W, C, value range) of the pool kernels' cases: VGG8B's and
+#: VGG11B's four pool inputs at batch 512 with ties (values in [-3, 3)) and
+#: over the full int32 range, odd H and W with ties, C % 4 != 0 (the
+#: one-channel variant) and a 1-wide odd edge
+_POOL_CASES = [(512, 32, 32, 256, 3), (512, 16, 16, 512, 3), (512, 8, 8, 512, 3),
+               (512, 4, 4, 512, 3), (512, 32, 32, 256, 2 ** 31), (512, 4, 4, 512, 2 ** 31),
+               (7, 13, 11, 20, 3), (5, 9, 6, 6, 3), (3, 6, 7, 3, 2 ** 31), (2, 1, 5, 8, 3)]
+
+
+@pytest.mark.gpu
+def test_maxpool_kernels_match_plain(cuda_device):
+    """``maxpool_fwd_cuda`` ≡ ``maxpool_fwd_ref`` (out and the first max's
+    position) and ``maxpool_bwd_cuda`` ≡ ``maxpool_bwd_ref`` (δ of the input's
+    shape, the cropped edge zero), one launch a call with work; a misaligned view takes
+    the one-channel variant and gives the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+
+    def ints(shape, lim):
+        return torch.randint(-lim, lim, shape, generator=g, dtype=torch.int64,
+                             device=cuda_device).to(torch.int32)
+
+    for n, h, w_sp, c, lim in _POOL_CASES:
+        shape = (n, h, w_sp, c)
+        a = ints(shape, lim)
+        before = (maxpool_fwd_cuda.launches.value, maxpool_bwd_cuda.launches.value)
+        out, idx = maxpool_fwd_cuda(a)
+        want_out, want_idx = maxpool_fwd_ref(a)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.int32 and idx.dtype == torch.uint8, shape
+        assert torch.equal(out, want_out) and torch.equal(idx, want_idx), shape
+        grad = ints(tuple(out.shape), 2 ** 31)
+        # a δ buffer of garbage first: the kernel writes every element itself
+        torch.full(shape, 7, dtype=torch.int32, device=cuda_device)
+        got = maxpool_bwd_cuda(grad, idx, shape)
+        want = maxpool_bwd_ref(grad, want_idx, shape)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), shape
+        assert (maxpool_fwd_cuda.launches.value - before[0],  # none for an empty out
+                maxpool_bwd_cuda.launches.value - before[1]) == (int(h > 1), 1), shape
+    view = ints((2 * 8 * 8 * 8 + 1,), 3)[1:].view(2, 8, 8, 8)  # 4 bytes off alignment
+    out, idx = maxpool_fwd_cuda(view)
+    want_out, want_idx = maxpool_fwd_ref(view)
+    gview = ints((2 * 4 * 4 * 8 + 1,), 99)[1:].view(2, 4, 4, 8)
+    got = maxpool_bwd_cuda(gview, want_idx, (2, 8, 8, 8))
+    torch.cuda.synchronize()
+    assert torch.equal(out, want_out) and torch.equal(idx, want_idx)
+    assert torch.equal(got, maxpool_bwd_ref(gview, want_idx, (2, 8, 8, 8)))
+
+
+@pytest.mark.gpu
+def test_cuda_fuse_opt_step_pools_in_the_kernels(cuda_device):
+    """A VGG8B fuse_opt step on the card launches each pool kernel once a
+    pooled block (4) and runs no cumsum but the correct count's over the
+    (B, 10) logits: the one-hot chain's int64 scan is gone."""
+    cfg = get_paper_config("vgg8b", scale=0.25)
+    rng = np.random.default_rng(12)
+    state = les.create_train_state(prng.PRNGKey(4), cfg, device=cuda_device)
+    x = torch.from_numpy(rng.integers(-127, 128, (16, *cfg.input_shape))
+                         .astype(np.int32)).to(cuda_device)
+    y = torch.from_numpy(rng.integers(0, 10, 16).astype(np.int32)).to(cuda_device)
+    les.train_step(state, cfg, x, y, prng.PRNGKey(0), fuse_opt=True)  # builds, warms up
+    torch.cuda.synchronize()
+    before = (maxpool_fwd_cuda.launches.value, maxpool_bwd_cuda.launches.value)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU],
+                                record_shapes=True) as prof:
+        les.train_step(state, cfg, x, y, prng.PRNGKey(1), fuse_opt=True)
+        torch.cuda.synchronize()
+    assert (maxpool_fwd_cuda.launches.value - before[0],
+            maxpool_bwd_cuda.launches.value - before[1]) == (4, 4)
+    cumsums = [e.input_shapes[0] for e in prof.events() if e.name == "aten::cumsum"]
+    assert cumsums == [[16, 10]], cumsums
