@@ -4,7 +4,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
-from perfbench import harness, work
+from perfbench import harness
 
 
 class Context(NamedTuple):
@@ -30,13 +30,6 @@ class Context(NamedTuple):
 
 
 def cell_work(config: dict, traffic: dict, scale: float = 1.0) -> dict:
-    """The cell's counts from shapes: operations an image, and each entry
-    point's (ops, bytes) a step (a rank's, under data parallelism) or a
-    served batch, as the traffic's driver counts its entry points
-    (``entry_work``)."""
-    layers = work.layers(harness.blocks(config, scale), config["input_shape"],
-                         config["num_classes"])
-    batch = traffic["batch"] // int(traffic.get("ranks", 1))
-    entries = harness.driver(traffic["kind"]).entry_work(layers, batch, traffic)
-    return {"train_ops_per_image": work.train_ops(layers, config["num_classes"]),
-            "infer_ops_per_image": work.infer_ops(layers), "entries": entries}
+    """The cell's counts from shapes, as the traffic's driver counts them
+    (its ``cell_work``), for the per-layer readers."""
+    return harness.driver(traffic["kind"]).cell_work(config, traffic, scale)

@@ -26,9 +26,9 @@ from perfbench import faults, harness
 from perfbench.drivers import train
 
 
-def entry_work(layers, batch: int, traffic: dict) -> dict:
-    """(ops, bytes) of each launch of one rank's step, by entry point."""
-    return train.entry_work(layers, batch, traffic)
+def cell_work(config: dict, traffic: dict, scale: float = 1.0) -> dict:
+    """The cell's counts from shapes, a rank's step (``work.nitro_cell_work``)."""
+    return train.cell_work(config, traffic, scale)
 
 
 def run(ctx, fault: str | None = None) -> harness.Outcome:

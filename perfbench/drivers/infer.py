@@ -47,13 +47,13 @@ def sampled(seed: int, b: int, every: int) -> bool:
     return b == 0 or b % every == seed % every
 
 
-def entry_work(layers, batch: int, traffic: dict) -> dict:
-    """(ops, bytes) of each launch of one served batch, by entry point,
-    with each layer's weights at the width ``freeze`` stores them in: the
-    narrowest integer type that holds the traffic's weight bound."""
+def cell_work(config: dict, traffic: dict, scale: float = 1.0) -> dict:
+    """The cell's counts from shapes (``work.nitro_cell_work``), with each
+    layer's weights at the width ``freeze`` stores them in: the narrowest
+    integer type that holds the traffic's weight bound."""
     bound = harness.BOUNDS[traffic["weights"]]
-    return work.infer_entry_work(
-        layers, batch, [harness.stored_bytes(bound(l.k * l.k * l.c)) for l in layers])
+    return work.nitro_cell_work(config, traffic, scale, lambda layers, batch: work.infer_entry_work(
+        layers, batch, [harness.stored_bytes(bound(l.k * l.k * l.c)) for l in layers]))
 
 
 def run(ctx) -> harness.Outcome:

@@ -193,9 +193,9 @@ def traced(ctx, step, state, spans):
     return state, out["trace"], spans.mean_s("train_step", since)
 
 
-def entry_work(layers, batch: int, traffic: dict) -> dict:
-    """(ops, bytes) of each launch of one step, by entry point."""
-    return work.train_entry_work(layers, batch)
+def cell_work(config: dict, traffic: dict, scale: float = 1.0) -> dict:
+    """The cell's counts from shapes (``work.nitro_cell_work``)."""
+    return work.nitro_cell_work(config, traffic, scale, work.train_entry_work)
 
 
 def run(ctx) -> harness.Outcome:

@@ -5,8 +5,15 @@ trace, the comparison's bookkeeping and the result line.
 A cell is an entry of ``BENCHMARK.json``'s ``workloads``: it names a
 configuration (``configs/<config>.json``) and a traffic mix
 (``traffic/<traffic>.json``), whose ``kind`` names the module that runs
-it (``drivers/<kind>.py``).  Per-layer metrics are readers in
-``metrics/<metric>.py``.  Adding one of each adds files and entries only.
+it and counts its work (``drivers/<kind>.py``: ``run`` and ``cell_work``).
+Per-layer metrics are readers in ``metrics/<metric>.py``.  Adding one of
+each adds files and entries only: nothing on the common path (``resolve``,
+``context.Context.for_cell``, ``result_line``, ``finish``) reads a key of
+the configuration, so a configuration of any kind joins through a driver
+of its own.  The NITRO-D block nets' own pieces, which only their
+drivers, readers and ``program_trace`` call, are ``blocks``, ``gamma_inv``,
+``reference_net``, ``program_config``, ``weight_shapes`` and
+``seeded_params``.
 
 A metric's name may begin with a family of cells and a dot:
 ``dp.train_images_per_s`` is the quantity ``train_images_per_s`` in the
@@ -56,6 +63,7 @@ class Cell(NamedTuple):
     traffic: dict
     end_to_end: list
     per_layer: list
+    base: Path = BENCH_DIR  # the directory its files and readers lie in
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -74,7 +82,7 @@ def resolve(name: str, bench: dict | None = None, base: Path = BENCH_DIR) -> Cel
     traffic = load_json(base / "traffic" / f"{w['traffic']}.json")
     return Cell(name, int(w["chips"]), config, traffic,
                 [m for m in bench["end_to_end"] if _reports(m, name)],
-                [m for m in bench["per_layer"] if _reports(m, name)])
+                [m for m in bench["per_layer"] if _reports(m, name)], base)
 
 
 def driver(kind: str):
@@ -573,7 +581,7 @@ def result_line(cell: Cell, out: Outcome, trace: bool, device: dict) -> dict:
     metrics = {}
     if trace:
         for m in cell.per_layer:
-            v = metric_reader(m["name"]).read(out.readings, out.trace)
+            v = metric_reader(m["name"], cell.base).read(out.readings, out.trace)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:

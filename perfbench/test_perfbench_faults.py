@@ -19,6 +19,8 @@ CASES = [
     ("vgg8b.train.b512", "state_unchanged", False),
     ("vgg8b.train.b512", "half_batch", False),
     ("vgg11b.train.b512", None, True),
+    ("vgg8b.train.b64", "state_unchanged", False),
+    ("vgg8b.train.b64", "half_batch", False),
     ("vgg8b.infer.b256", None, True),
     ("vgg8b.infer.b256", "answer_altered", False),
     ("vgg8b.infer.b256", "half_batch", False),

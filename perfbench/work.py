@@ -80,6 +80,21 @@ def infer_ops(net_layers) -> int:
     return 2 * forward_macs(net_layers)
 
 
+def nitro_cell_work(config: dict, traffic: dict, scale: float, entry_work) -> dict:
+    """A NITRO-D block net's counts from shapes: operations an image, and
+    each entry point's (ops, bytes) a step (a rank's, under data
+    parallelism) or a served batch, as ``entry_work(layers, batch)``
+    counts its driver's entry points."""
+    from perfbench import harness
+
+    net_layers = layers(harness.blocks(config, scale), config["input_shape"],
+                        config["num_classes"])
+    batch = traffic["batch"] // int(traffic.get("ranks", 1))
+    entries = entry_work(net_layers, batch)
+    return {"train_ops_per_image": train_ops(net_layers, config["num_classes"]),
+            "infer_ops_per_image": infer_ops(net_layers), "entries": entries}
+
+
 def bound_s(ops: float, nbytes: float) -> float:
     """The least time the card could take: the larger of the two bounds."""
     return max(ops / PEAK_OPS, nbytes / PEAK_BYTES)
